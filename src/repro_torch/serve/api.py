@@ -1,0 +1,468 @@
+"""One ``Retriever`` API: engine registry, build/serve split and
+on-disk index artifacts — the port of ``repro/serve/api.py``.
+
+Every serving engine is a registry entry (``@register_engine("flat")``)
+implementing ``EngineImpl``: a host-side numpy array build and a
+batched ``search_batch`` over torch tensors with the query batch as a
+leading axis. The engine-agnostic surface is:
+
+* ``Retriever.build(fwd, cfg, device=None)`` — host-side index build,
+  arrays moved to ``device``;
+* ``retriever.search(Q, k)`` — the batched search, run directly (the
+  reference's bucketed plan cache, ``serve/pipeline.py``, is ROADMAP
+  queue A5);
+* ``retriever.save(path)`` / ``open_retriever(path)`` — the artifact
+  lifecycle: ``manifest.json`` + ``arrays.npz``, the same format the
+  reference writes and reads, so an index saved by either package
+  opens in the other with byte-equal arrays.
+
+Every entry point runs on ``cuda`` unless the caller passes
+``device="cpu"`` (``repro_torch.resolve_device``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import pathlib
+from typing import Any, Callable, Dict, Mapping
+
+import numpy as np
+import torch
+
+from .. import resolve_device
+from ..core import layout
+from ..core import values as value_codecs
+from ..core.forward_index import VALUE_FORMATS, ForwardIndex
+from ..kernels import modes
+
+__all__ = [
+    "RetrieverConfig",
+    "EngineImpl",
+    "register_engine",
+    "get_engine",
+    "available_engines",
+    "Retriever",
+    "open_retriever",
+    "from_reference_arrays",
+    "manifest_dict",
+    "write_artifact",
+    "load_manifest",
+    "check_manifest_names",
+    "check_array_spec",
+    "cfg_from_manifest",
+    "ArtifactError",
+    "MANIFEST_VERSION",
+    "top_k",
+]
+
+#: artifact layout version; shared with the reference so artifacts cross
+MANIFEST_VERSION = 1
+_MANIFEST_FORMAT = "repro.serve.retriever"
+_SHARDED_FORMAT = "repro.serve.retriever-sharded"
+_MANIFEST_FILE = "manifest.json"
+_ARRAYS_FILE = "arrays.npz"
+
+
+class ArtifactError(ValueError):
+    """A saved index artifact is missing, corrupt, or incompatible."""
+
+
+@dataclasses.dataclass(frozen=True)
+class RetrieverConfig:
+    """Engine-agnostic serving configuration.
+
+    ``params`` carries the engine-specific knobs (build and search
+    time); unknown keys are rejected against the engine's defaults.
+    ``backend`` selects the rescoring path: ``"torch"`` (plain torch)
+    or ``"cuda"`` (the hand-written kernel; ``kernels/modes.py``).
+    ``batch_size`` and ``n_shards`` are carried through artifacts for
+    the reference's sake: the port serves one monolithic index and has
+    no bucketed plans yet (ROADMAP queues A5, A6)."""
+
+    engine: str = "seismic"
+    codec: str = "uncompressed"
+    backend: str = "torch"
+    k: int = 10
+    batch_size: int | None = None
+    n_shards: int = 1
+    params: Mapping[str, Any] = dataclasses.field(default_factory=dict)
+    vq: str = "f16"
+
+    def replace(self, **kw) -> "RetrieverConfig":
+        return dataclasses.replace(self, **kw)
+
+
+def top_k(scores: torch.Tensor, k: int):
+    """(values, indices) of the ``k`` largest entries along the last
+    axis, ties broken toward the lower index as ``jax.lax.top_k`` does
+    (a stable descending sort; ``torch.topk`` promises no tie order)."""
+    vals, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+class EngineImpl:
+    """Protocol every registered engine implements: a host-side numpy
+    array build and a batched search over device tensors."""
+
+    name: str = "abstract"
+    #: engine knob defaults; ``RetrieverConfig.params`` overrides
+    defaults: Dict[str, Any] = {}
+
+    def params(self, cfg: RetrieverConfig) -> Dict[str, Any]:
+        unknown = set(cfg.params) - set(self.defaults)
+        if unknown:
+            raise ValueError(
+                f"unknown {self.name!r} engine params {sorted(unknown)}; "
+                f"known: {sorted(self.defaults)}"
+            )
+        return {**self.defaults, **cfg.params}
+
+    def build_arrays(self, fwd: ForwardIndex, cfg: RetrieverConfig) -> Dict[str, np.ndarray]:
+        """Collection → engine arrays (numpy)."""
+        raise NotImplementedError
+
+    def search_batch(self, cfg: RetrieverConfig, n_docs: int, value_scale: float, arrays, Q):
+        """Queries f32 [nq, dim] → (ids i32 [nq, k], scores f32 [nq, k])."""
+        raise NotImplementedError
+
+    def search_one(self, cfg: RetrieverConfig, n_docs: int, value_scale: float, arrays, q):
+        """One dense query [dim] → (ids [k], scores [k])."""
+        ids, scores = self.search_batch(cfg, n_docs, value_scale, arrays, q.unsqueeze(0))
+        return ids[0], scores[0]
+
+
+_ENGINES: Dict[str, Callable[[], EngineImpl]] = {}
+
+
+def register_engine(name: str):
+    """Class decorator: make an ``EngineImpl`` servable by name."""
+
+    def deco(factory: Callable[[], EngineImpl]):
+        _ENGINES[name] = factory
+        return factory
+
+    return deco
+
+
+def _ensure_builtin_engines() -> None:
+    from . import engines  # noqa: F401  (registers seismic and flat)
+
+
+def get_engine(name: str) -> EngineImpl:
+    _ensure_builtin_engines()
+    try:
+        return _ENGINES[name]()
+    except KeyError:
+        raise ValueError(
+            f"no registered engine {name!r}; have {sorted(_ENGINES)}"
+        ) from None
+
+
+def available_engines() -> list[str]:
+    _ensure_builtin_engines()
+    return sorted(_ENGINES)
+
+
+def _to_tensor(a) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a
+    a = np.ascontiguousarray(a)
+    # torch shares numpy's buffer; a read-only one (a jax export) is copied
+    return torch.from_numpy(a if a.flags.writeable else a.copy())
+
+
+def _to_device(arrays: Mapping[str, Any], device: torch.device) -> dict[str, torch.Tensor]:
+    return {k: _to_tensor(v).to(device) for k, v in arrays.items()}
+
+
+class Retriever:
+    """Engine- and codec-agnostic serving handle: the device arrays of
+    ONE engine×codec index plus its batched search. Construct with
+    ``Retriever.build``, ``Retriever.from_host_index`` (reuse a built
+    ``SeismicIndex``) or ``open_retriever`` (load a saved artifact)."""
+
+    def __init__(
+        self,
+        cfg: RetrieverConfig,
+        arrays: Mapping[str, Any],
+        *,
+        n_docs: int,
+        dim: int,
+        value_scale: float,
+        value_format: str,
+        device=None,
+    ):
+        self.impl = get_engine(cfg.engine)
+        layout.get_layout(cfg.codec)  # raises listing the known codecs
+        value_codecs.check_vq(cfg.vq)
+        modes.check_backend(cfg.backend)
+        if cfg.n_shards != 1:
+            raise NotImplementedError(
+                "sharded serving is not ported yet (ROADMAP queue A6)"
+            )
+        if cfg.batch_size is not None and (
+            not isinstance(cfg.batch_size, int)
+            or isinstance(cfg.batch_size, bool)
+            or cfg.batch_size < 1
+        ):
+            raise ValueError(
+                f"batch_size must be a positive int or None, got {cfg.batch_size!r}"
+            )
+        self.impl.params(cfg)  # rejects unknown engine knobs early
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.n_docs = int(n_docs)
+        self.dim = int(dim)
+        self.value_scale = float(value_scale)
+        self.value_format = value_format
+        self.arrays = _to_device(arrays, self.device)
+
+    @classmethod
+    def build(cls, fwd: ForwardIndex, cfg: RetrieverConfig, device=None) -> "Retriever":
+        """Host-side index construction: collection → servable arrays
+        on ``device`` (``cuda`` unless given)."""
+        device = resolve_device(device)  # fail before the host build
+        impl = get_engine(cfg.engine)
+        layout.get_layout(cfg.codec)
+        return cls(
+            cfg,
+            impl.build_arrays(fwd, cfg),
+            n_docs=fwd.n_docs,
+            dim=fwd.dim,
+            value_scale=float(fwd.value_format.scale),
+            value_format=fwd.value_format.name,
+            device=device,
+        )
+
+    @classmethod
+    def from_host_index(cls, index, cfg: RetrieverConfig, device=None) -> "Retriever":
+        """Wrap an already-built host index (``SeismicIndex``) — sweep
+        codecs or backends over one build. ``cfg``'s build-time params
+        are ignored."""
+        device = resolve_device(device)
+        impl = get_engine(cfg.engine)
+        if not hasattr(impl, "arrays_from_index"):
+            raise ValueError(
+                f"engine {cfg.engine!r} has no host-index form; use Retriever.build"
+            )
+        fwd = index.fwd
+        return cls(
+            cfg,
+            impl.arrays_from_index(index, cfg),
+            n_docs=fwd.n_docs,
+            dim=fwd.dim,
+            value_scale=float(fwd.value_format.scale),
+            value_format=fwd.value_format.name,
+            device=device,
+        )
+
+    @torch.inference_mode()
+    def search(self, Q, k: int | None = None):
+        """[nq, dim] dense queries (numpy or tensor) → (ids i32 [nq, k],
+        scores f32 [nq, k]) on the retriever's device. ``k`` defaults to
+        ``cfg.k``; a smaller k is a slice."""
+        if k is not None and k > self.cfg.k:
+            raise ValueError(
+                f"k={k} exceeds the static cfg.k={self.cfg.k}; rebuild the "
+                f"Retriever with a larger cfg.k"
+            )
+        Q = torch.as_tensor(Q).to(self.device, torch.float32).contiguous()
+        if Q.dim() != 2 or Q.shape[1] != self.dim:
+            raise ValueError(f"queries must be [nq, {self.dim}], got {tuple(Q.shape)}")
+        ids, scores = self.impl.search_batch(
+            self.cfg, self.n_docs, self.value_scale, self.arrays, Q
+        )
+        if k is None or k == self.cfg.k:
+            return ids, scores
+        return ids[:, :k], scores[:, :k]
+
+    def save(self, path, *, compress: bool = True) -> pathlib.Path:
+        """Write the index artifact: ``manifest.json`` + ``arrays.npz``,
+        in the reference's format (``compress=False`` stores the npz
+        members raw)."""
+        host = {k: v.cpu().numpy() for k, v in self.arrays.items()}
+        return write_artifact(
+            path,
+            manifest_dict(self.cfg, host, n_docs=self.n_docs, dim=self.dim,
+                          value_scale=self.value_scale,
+                          value_format=self.value_format),
+            host, compress=compress,
+        )
+
+
+def manifest_dict(
+    cfg: RetrieverConfig,
+    host_arrays: Mapping[str, np.ndarray],
+    *,
+    n_docs: int,
+    dim: int,
+    value_scale: float,
+    value_format: str,
+) -> dict:
+    """The monolithic-artifact manifest: serving config (backend under
+    the reference's name), corpus stats and per-array dtype/shape."""
+    return {
+        "format": _MANIFEST_FORMAT,
+        "version": MANIFEST_VERSION,
+        "engine": cfg.engine,
+        "codec": cfg.codec,
+        "backend": modes.backend_to_manifest(cfg.backend),
+        "k": cfg.k,
+        "batch_size": cfg.batch_size,
+        "n_shards": cfg.n_shards,
+        "params": dict(cfg.params),
+        "vq": cfg.vq,
+        "n_docs": int(n_docs),
+        "dim": int(dim),
+        "value_scale": float(value_scale),
+        "value_format": value_format,
+        "arrays": {
+            k: {"dtype": str(v.dtype), "shape": list(v.shape)}
+            for k, v in host_arrays.items()
+        },
+    }
+
+
+def write_artifact(
+    path,
+    manifest: Mapping[str, Any],
+    host_arrays: Mapping[str, np.ndarray],
+    *,
+    compress: bool = True,
+) -> pathlib.Path:
+    """Write one artifact directory: ``manifest.json`` + ``arrays.npz``."""
+    path = pathlib.Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    with open(path / _MANIFEST_FILE, "w", encoding="utf-8") as f:
+        json.dump(manifest, f, indent=1, sort_keys=True)
+    saver = np.savez_compressed if compress else np.savez
+    saver(path / _ARRAYS_FILE, **dict(host_arrays))
+    return path
+
+
+def load_manifest(path) -> dict:
+    """Read + parse ``manifest.json`` under ``path``."""
+    path = pathlib.Path(path)
+    mf = path / _MANIFEST_FILE
+    if not mf.is_file():
+        raise ArtifactError(f"no {_MANIFEST_FILE} under {path}")
+    try:
+        return json.loads(mf.read_text(encoding="utf-8"))
+    except json.JSONDecodeError as e:
+        raise ArtifactError(f"corrupt manifest at {mf}: {e}") from None
+
+
+def check_manifest_names(manifest: Mapping[str, Any], where) -> None:
+    """Version / engine / codec / value-format / vq validation. A value
+    codec the reference knows but the port has not ported raises
+    NotImplementedError (ROADMAP queue A2)."""
+    version = manifest.get("version")
+    if version != MANIFEST_VERSION:
+        raise ArtifactError(
+            f"artifact version {version!r} at {where} incompatible with "
+            f"this build (expected {MANIFEST_VERSION}); rebuild the index"
+        )
+    engine, codec = manifest["engine"], manifest["codec"]
+    if engine not in available_engines():
+        raise ArtifactError(
+            f"artifact engine {engine!r} is not registered; have "
+            f"{available_engines()}"
+        )
+    if codec not in layout.available_layouts():
+        raise ArtifactError(
+            f"artifact codec {codec!r} is not registered; have "
+            f"{layout.available_layouts()}"
+        )
+    if manifest["value_format"] not in VALUE_FORMATS:
+        raise ArtifactError(
+            f"unknown value_format {manifest['value_format']!r}; have "
+            f"{sorted(VALUE_FORMATS)}"
+        )
+    vq = manifest.get("vq", "f16")
+    if vq not in value_codecs.VALUE_CODECS:
+        raise ArtifactError(
+            f"unknown value codec {vq!r} at {where}; have "
+            f"{list(value_codecs.VALUE_CODECS)}"
+        )
+    value_codecs.check_vq(vq)
+
+
+def check_array_spec(
+    spec: Mapping[str, Any], arrays: Mapping[str, np.ndarray], where
+) -> None:
+    """Manifest array specs vs the actual payload — names, dtypes and
+    shapes must all agree or the artifact is rejected."""
+    if set(spec) != set(arrays):
+        raise ArtifactError(
+            f"array payload mismatch at {where}: manifest lists "
+            f"{sorted(spec)}, payload holds {sorted(arrays)}"
+        )
+    for k, meta in spec.items():
+        got = arrays[k]
+        if str(got.dtype) != meta["dtype"] or list(got.shape) != meta["shape"]:
+            raise ArtifactError(
+                f"array {k!r} at {where} is {got.dtype}{list(got.shape)}, "
+                f"manifest says {meta['dtype']}{meta['shape']}"
+            )
+
+
+def cfg_from_manifest(manifest: Mapping[str, Any]) -> RetrieverConfig:
+    return RetrieverConfig(
+        engine=manifest["engine"],
+        codec=manifest["codec"],
+        backend=modes.backend_from_manifest(manifest.get("backend", "jnp")),
+        k=int(manifest["k"]),
+        batch_size=manifest.get("batch_size"),
+        n_shards=int(manifest.get("n_shards", 1)),
+        params=manifest.get("params", {}),
+        vq=manifest.get("vq", "f16"),
+    )
+
+
+def from_reference_arrays(
+    manifest: Mapping[str, Any], arrays: Mapping[str, np.ndarray], device=None
+) -> dict[str, torch.Tensor]:
+    """The reference's numpy engine arrays (as its ``Retriever.save``
+    writes them) → the port's tensors on ``device``, byte for byte,
+    after checking them against the manifest's specs."""
+    check_array_spec(manifest["arrays"], arrays, "reference arrays")
+    return _to_device(arrays, resolve_device(device))
+
+
+def open_retriever(path, *, device=None) -> Retriever:
+    """Load a saved monolithic index artifact onto ``device``.
+
+    Validates the manifest (format, version, engine/codec names, array
+    specs) before serving. Sharded trees and mutable roots are not
+    ported yet (ROADMAP queues A6, A7)."""
+    path = pathlib.Path(path)
+    if (path / "CURRENT").is_file():
+        raise NotImplementedError(
+            "mutable index roots are not ported yet (ROADMAP queue A7)"
+        )
+    manifest = load_manifest(path)
+    fmt = manifest.get("format")
+    if fmt == _SHARDED_FORMAT:
+        raise NotImplementedError(
+            "sharded artifacts are not ported yet (ROADMAP queue A6)"
+        )
+    if fmt != _MANIFEST_FORMAT:
+        raise ArtifactError(
+            f"{path / _MANIFEST_FILE} is not a {_MANIFEST_FORMAT} artifact "
+            f"(format={fmt!r})"
+        )
+    check_manifest_names(manifest, path / _MANIFEST_FILE)
+    device = resolve_device(device)
+    with np.load(path / _ARRAYS_FILE) as npz:
+        arrays = {k: npz[k] for k in npz.files}
+    cfg = cfg_from_manifest(manifest)
+    return Retriever(
+        cfg.replace(n_shards=1),
+        from_reference_arrays(manifest, arrays, device),
+        n_docs=manifest["n_docs"],
+        dim=manifest["dim"],
+        value_scale=manifest["value_scale"],
+        value_format=manifest["value_format"],
+        device=device,
+    )

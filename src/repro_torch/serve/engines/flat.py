@@ -1,0 +1,39 @@
+"""Flat registry entry: exact full scan over the packed row form — the
+port of ``repro/serve/engines/flat.py``.
+
+No pruning structure: every query scores every document's row and takes
+the global top-k. It is the recall oracle, computed through the same
+decode path the approximate engines use. The batch shares one candidate
+set (all rows), so ``search_batch`` decodes each row once and scores
+the whole query batch against it (``score_candidate_rows_batch``; the
+CUDA rows kernel with ``nd = 1`` under ``backend="cuda"``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ...core import layout
+from ...core.forward_index import ForwardIndex
+from ...core.scoring import score_candidate_rows_batch
+from ..api import EngineImpl, RetrieverConfig, register_engine, top_k
+
+__all__ = ["FlatEngine"]
+
+
+@register_engine("flat")
+class FlatEngine(EngineImpl):
+    name = "flat"
+    defaults: dict = {}
+
+    def build_arrays(self, fwd: ForwardIndex, cfg: RetrieverConfig):
+        return layout.pack_rows(fwd, codec=cfg.codec, vq=cfg.vq).arrays()
+
+    def search_batch(self, cfg: RetrieverConfig, n_docs: int, value_scale: float, arrays, Q):
+        docs = torch.arange(arrays["nnz_rows"].shape[0], dtype=torch.int32, device=Q.device)
+        scores = score_candidate_rows_batch(
+            cfg.codec, arrays, docs, Q, value_scale, backend=cfg.backend
+        )
+        scores = scores.masked_fill(docs.unsqueeze(0) >= n_docs, float("-inf"))
+        top_s, idx = top_k(scores, cfg.k)
+        return docs[idx], top_s
