@@ -4,26 +4,39 @@ NVIDIA GPU — the quickest proof that the port still starts on the card.
 
     python3 chip_smoke.py            # from the repository root
 
-Phases; any failure exits non-zero and prints no result:
+Phases (each prints its seconds); any failure exits non-zero and prints
+no result:
 
 1. device and build — the card's name and power limit; every CUDA kernel
    of the port built from ``src/repro_torch/kernels/csrc`` (one ``nvcc``
-   per source, started together), with ptxas' register/spill report;
-2. kernel vs plain — the rows kernel against its plain torch version on
-   the card at real widths (dim 30522, C = 4096, nq = 64), in both
-   candidate-set forms (shared ``nd = 1`` and per-query ``nd = nq``),
-   with sentinel, empty and full-capacity rows;
+   per source, started together), with ptxas' register/spill report per
+   kernel variant;
+2. kernel vs plain — every variant of the rows kernel (row codec
+   uncompressed / dotvbyte / streamvbyte / bitpack × value codec f16 /
+   u8_sq / u4_sq / pq) against its plain torch version on the card at
+   real widths (dim 30522, C = 4096, nq = 64), in both candidate-set
+   forms (shared ``nd = 1`` and per-query ``nd = nq``), on sentinel,
+   empty, full-capacity, 1-byte-gap, 2-byte-gap and word-straddling
+   rows; and, for the codecs that take gaps past 16 bits, a small case
+   at a vocabulary of 2**24 + 2**20 (StreamVByte codes 2 and 3);
 3. main path — a SPLADE-statistics collection (``--n-docs``, default
-   100,000 of MsMarco's 8,842,240, seed 0; 64 queries) → Seismic over
-   DotVByte rows with ``backend="cuda"`` built, saved, reopened with
-   ``open_retriever`` and searched, and the flat engine built and
-   searched, with the kernels' launch counts zeroed just before and read
-   just after;
-4. checks and timings — Seismic ids equal to ``backend="torch"`` on the
-   card, flat ids equal to ``exact_top_k``, recall@10, search latency
-   (host clock around ``torch.cuda.synchronize()``, after a warm-up),
-   and each kernel's time (CUDA events) beside its plain version and its
-   bound at the main path's shapes;
+   100,000 of MsMarco's 8,842,240, seed 0; 64 queries) and ONE Seismic
+   host index. DotVByte/f16 is served as before: ``Retriever`` built,
+   saved, reopened with ``open_retriever``; the other 15 variants swap
+   only their packed rows (``pack_rows``) into a ``Retriever`` over the
+   same device-resident Seismic arrays. Every variant is searched with
+   ``backend="cuda"``; the flat engine runs the four row codecs at f16
+   and DotVByte at the three quantized value codecs. The kernels' launch
+   counts are zeroed just before this phase and read just after;
+4. checks and timings, per variant — Seismic ids equal to
+   ``backend="torch"`` (tie-aware: a position may differ only where the
+   two scores agree within rtol 1e-5), f16 flat ids equal to
+   ``exact_top_k``, recall@10, search latency on both backends (host
+   clock around ``torch.cuda.synchronize()``, after a warm-up), bits per component
+   (``ForwardIndex.storage_bytes``) and stored row bytes, and the
+   kernel's time (CUDA events) beside its plain version and its bound at
+   the Seismic and flat shapes, with ``torch.sparse.mm`` (cuSPARSE) over
+   the same scores as the flat shape's library yardstick;
 5. one JSON line of kernels, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 """
@@ -33,11 +46,13 @@ from __future__ import annotations
 import argparse
 import json
 import pathlib
+import re
 import shutil
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -50,10 +65,15 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 #: kernel vs plain: f32 sums of the same products in another order
 RTOL = ATOL = 1e-3
+#: Seismic cuda vs torch: two scores of one position agree within this
+TIE_RTOL = 1e-5
 
 #: queries per search batch; candidates per query at the Seismic shape
 N_QUERIES = 64
 SEISMIC_PARAMS = dict(cut=8, block_budget=512, n_probe=64, n_postings=2000, block_size=64)
+#: the flat engine's variants: every row codec at f16, dotvbyte at every vq
+FLAT_VARIANTS = {(c, "f16") for c in ("uncompressed", "dotvbyte", "streamvbyte", "bitpack")} | {
+    ("dotvbyte", v) for v in ("u8_sq", "u4_sq", "pq")}
 
 
 def log(msg: str) -> None:
@@ -120,77 +140,128 @@ def device_breakdown(name: str, fn, card: str, reps: int = 5) -> None:
         log(f"      {ms:8.4f} ms {100 * ms / total:5.1f}%  {key[:90]}")
 
 
-def rows_streams(arrays) -> list[torch.Tensor]:
-    return [arrays[k] for k in ("vals_rows", "nnz_rows", "ctrl_rows", "data_rows")]
+def ptxas_report(log_text: str) -> dict[str, list[str]]:
+    """ptxas' ``-v`` lines per rows-kernel variant (by template args)."""
+    from repro_torch.kernels import rows_dot
+    from repro_torch.core.values import VALUE_CODECS
+
+    out, cur = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"rows_dot_kernelILi(\d)ELi(\d)E", line)
+        if m and ("Compiling entry" in line or "Function properties" in line):
+            cur = rows_dot.variant_name(rows_dot.CODECS[int(m[1])], VALUE_CODECS[int(m[2])])
+        elif cur and ("Used" in line or "spill" in line):
+            out.setdefault(cur, []).append(line.split(":", 1)[-1].strip())
+    return out
 
 
-def rows_bound(Q, docs, arrays) -> tuple[float, str]:
+def rows_bound(codec: str, Q, docs, arrays) -> tuple[float, str]:
     """Least time for one rows call on these inputs: each input byte read
-    once — the distinct candidate rows' tight ctrl bytes (ceil(nnz/8)),
-    used data bytes, 2·nnz value bytes and 4 nnz bytes, Q, the ids — and
-    the nq×C f32 scores written once; against one multiply-add (2 FLOP)
-    per (query, live entry) at the f32 peak."""
+    once — the distinct candidate rows' tight payload (dotvbyte
+    ⌈nnz/8⌉ + Σ(1+bit); streamvbyte ⌈nnz/4⌉ + Σ(code+1); bitpack
+    ⌈nnz·w/32⌉·4 + 4; uncompressed 4·nnz), their value bytes (f16 2·nnz;
+    u8 nnz + 8; u4 ⌈nnz/2⌉ + 8; pq ⌈nnz/2⌉, plus the 2 KiB codebook
+    once), 4 nnz bytes a row, Q and the ids — and the nq×C f32 scores
+    written once; against one multiply-add (2 FLOP) per (query, live
+    entry) at the f32 peak."""
+    from repro_torch.core import values as value_codecs
+
+    vq = value_codecs.infer_rows_vq(arrays)
     nq, dim = Q.shape
     nd, C = docs.shape
     rows = torch.unique(docs).long()
-    L = arrays["vals_rows"].shape[1]
+    L = arrays["vals_rows"].shape[1] * value_codecs.code_factor(vq)
     nnz = arrays["nnz_rows"][rows].long()
-    ctrl = arrays["ctrl_rows"][rows, : L // 8].to(torch.int32)
-    bits = (ctrl.unsqueeze(-1) >> torch.arange(8, device=ctrl.device, dtype=torch.int32)) & 1
+    used = nnz > 0
     live = torch.arange(L, device=nnz.device) < nnz.unsqueeze(-1)
-    data_bytes = int(((1 + bits.flatten(-2)) * live).sum())
-    row_bytes = int(((nnz + 7) // 8).sum()) + data_bytes + 2 * int(nnz.sum()) + 4 * len(rows)
-    n_bytes = row_bytes + 4 * nq * dim + 4 * nd * C + 4 * nq * C
+    dev = Q.device
+    if codec == "dotvbyte":
+        ctrl = arrays["ctrl_rows"][rows, : L // 8].to(torch.int32)
+        bits = ((ctrl.unsqueeze(-1) >> torch.arange(8, device=dev, dtype=torch.int32)) & 1)
+        payload = (nnz + 7) // 8 + ((1 + bits.flatten(-2)) * live).sum(-1)
+    elif codec == "streamvbyte":
+        ctrl = arrays["ctrl_rows"][rows, : L // 4].to(torch.int32)
+        codes = (ctrl.unsqueeze(-1) >> (2 * torch.arange(4, device=dev, dtype=torch.int32))) & 3
+        payload = (nnz + 3) // 4 + ((1 + codes.flatten(-2)) * live).sum(-1)
+    elif codec == "bitpack":
+        w = arrays["widths_rows"][rows].long()
+        payload = ((nnz * w + 31) // 32) * 4 + 4 * used
+    else:
+        payload = 4 * nnz
+    values = {"f16": 2 * nnz, "u8_sq": nnz + 8 * used, "u4_sq": (nnz + 1) // 2 + 8 * used,
+              "pq": (nnz + 1) // 2}[vq]
+    n_bytes = int((payload + values + 4).sum()) + 4 * nq * dim + 4 * nd * C + 4 * nq * C
+    n_bytes += 4 * value_codecs.PQ_K * value_codecs.PQ_M if vq == "pq" else 0
     pairs = int(arrays["nnz_rows"][docs.long()].long().sum()) * (nq if nd == 1 else 1)
     t_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
     t_ops = 1e3 * 2 * pairs / F32_FLOP_PER_S
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def edge_rows(dim: int, L: int, n_docs: int, rng):
-    """Packed dotvbyte rows of empty, full-capacity (L entries),
-    all-1-byte-gap and random documents."""
-    from repro_torch.core.forward_index import ForwardIndex
-    from repro_torch.core.layout import pack_rows
-
+def edge_docs(dim: int, L: int, n_docs: int, rng):
+    """Empty, full-capacity (L entries), all-1-byte-gap, word-straddling
+    (gaps of 31: 5-bit bitpack words), all-2-byte-gap and random
+    documents."""
     docs = []
     for i in range(n_docs):
-        kind = i % 6
+        kind = i % 8
         if kind == 0:
             comps = np.zeros(0, np.int64)
         elif kind == 1:
             comps = np.sort(rng.choice(dim, size=L, replace=False))
         elif kind == 2:
             comps = 1000 + 3 * np.arange(int(rng.integers(1, L)))
+        elif kind == 3:
+            comps = 31 * np.arange(int(rng.integers(7, L)))
+        elif kind == 4:
+            comps = 300 + 257 * np.arange(int(rng.integers(1, min(L, dim // 300))))
         else:
             comps = np.sort(rng.choice(dim, size=int(rng.integers(1, L)), replace=False))
         docs.append((comps, rng.gamma(2.0, 0.5, size=len(comps)).astype(np.float32)))
-    rows = pack_rows(ForwardIndex.from_docs(docs, dim, value_format="f16"), codec="dotvbyte")
-    assert rows.l_max == L, rows.l_max
-    return rows
+    return docs
+
+
+def wide_docs(dim: int, rng):
+    """Documents whose gaps take every StreamVByte byte length (up to 2**24)."""
+    comps = np.cumsum([0, 7, 300, 70_000, 1 << 24])
+    docs = [(comps[comps < dim], rng.gamma(2.0, 0.5, size=int((comps < dim).sum())))]
+    for n in rng.integers(1, 120, size=30):
+        docs.append((np.sort(rng.choice(dim, size=int(n), replace=False)),
+                     rng.gamma(2.0, 0.5, size=int(n))))
+    return docs
 
 
 def sparse_queries(nq: int, dim: int, nnz: int, rng) -> np.ndarray:
     Q = np.zeros((nq, dim), np.float32)
     for i in range(nq):
-        Q[i, rng.choice(dim, size=nnz, replace=False)] = rng.gamma(2.0, 0.5, size=nnz)
+        Q[i, rng.choice(dim, size=nnz, replace=False)] = rng.gamma(2, 0.5, size=nnz)
     return Q
 
 
-def check_kernel(name, Q, docs, arrays, scale=1.0) -> float:
-    """Kernel vs plain on the card at one shape → max abs difference."""
+def check_kernel(codec, name, Q, docs, arrays, scale=1.0) -> float:
+    """Kernel vs plain on the card at one shape → max abs difference.
+    These launches compare; they are not the main path's."""
     from repro_torch.kernels import rows_dot
 
-    got = rows_dot.rows_scores(Q, docs, *rows_streams(arrays), scale)
-    want = rows_dot.rows_scores_plain(Q, docs, *rows_streams(arrays), scale)
+    got = rows_dot.rows_scores_for_codec(codec, arrays, Q, docs, scale)
+    want = rows_dot.rows_scores_plain(codec, arrays, Q, docs, scale)
     torch.cuda.synchronize()
     err = float((got - want).abs().max()) if got.numel() else 0.0
-    ok = torch.allclose(got, want, rtol=RTOL, atol=ATOL)
-    log(f"  {name}: nq={Q.shape[0]} nd={docs.shape[0]} C={docs.shape[1]} "
-        f"max_abs_err={err:.3e} (rtol={RTOL}, atol={ATOL}) {'ok' if ok else 'MISMATCH'}")
-    if not ok:
-        raise SystemExit(f"rows kernel disagrees with its plain version at {name}")
+    if not torch.allclose(got, want, rtol=RTOL, atol=ATOL):
+        raise SystemExit(f"rows kernel disagrees with its plain version at {name} "
+                         f"(max_abs_err={err:.3e}, rtol={RTOL}, atol={ATOL})")
     return err
+
+
+def same_topk(ids_a, sc_a, ids_b, sc_b) -> int:
+    """Tie-aware top-k equality → the number of positions whose ids
+    differ; raises where a differing position's two scores do not agree
+    within TIE_RTOL."""
+    diff = ids_a != ids_b
+    if diff.any() and not torch.allclose(sc_a[diff], sc_b[diff], rtol=TIE_RTOL, atol=0):
+        raise SystemExit("top-k ids differ at positions whose scores are not tied")
+    torch.testing.assert_close(sc_a, sc_b, rtol=1e-5, atol=1e-4)
+    return int(diff.sum())
 
 
 def main() -> int:
@@ -206,6 +277,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from repro_torch.core.forward_index import ForwardIndex
+    from repro_torch.core.layout import pack_rows
     from repro_torch.core.seismic import exact_top_k, recall_at_k
     from repro_torch.data.synthetic import generate_collection, splade_config
     from repro_torch.kernels import build, rows_dot
@@ -213,35 +286,61 @@ def main() -> int:
 
     dev = torch.device("cuda")
     t_start = time.perf_counter()
+    phase_s = {}
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     log(f"[1] device: {kind} (count={torch.cuda.device_count()}); nvidia-smi: {card}")
     log(f"    torch {torch.__version__} cuda {torch.version.cuda}")
+    variants = rows_dot.VARIANTS
+    names = {v: rows_dot.variant_name(*v) for v in variants}
 
     # -- 1. build every kernel, in parallel --------------------------------
     t0 = time.perf_counter()
     built = build.compile_kernels(build.SOURCES)
     log(f"    built {sorted(built)} in {time.perf_counter() - t0:.2f}s")
     for name, info in built.items():
-        for line in (info["log"] or "").splitlines():
-            if "Used" in line or "spill" in line:
-                log(f"    {name}: {line.strip()}")
+        for variant, lines in sorted(ptxas_report(info["log"] or "").items()):
+            log(f"    {variant}: " + "; ".join(lines))
+    phase_s["1 build"] = time.perf_counter() - t_start
 
-    # -- 2. kernel vs plain at real widths -----------------------------------
+    # -- 2. every variant vs plain at real widths ---------------------------------
+    t0 = time.perf_counter()
     rng = np.random.default_rng(0)
     dim, nq, C = 30522, N_QUERIES, 4096
-    edge = edge_rows(dim, 256, 3000, rng)
-    e_arrays = {k: torch.from_numpy(v).to(dev) for k, v in edge.arrays().items()}
+    fwd_e = ForwardIndex.from_docs(edge_docs(dim, 256, 3000, rng), dim, value_format="f16")
     Qe = torch.from_numpy(sparse_queries(nq, dim, 43, rng)).to(dev)
-    n_e = edge.n_docs
+    n_e = fwd_e.n_docs
     ids = rng.integers(0, n_e + 1, size=(nq, C)).astype(np.int32)
-    ids[:, :4] = [n_e, 0, 1, 2]  # sentinel, empty, full capacity, 1-byte gaps
+    ids[:, :6] = [n_e, 0, 1, 2, 3, 4]  # sentinel, empty, full, 1-byte, straddle, 2-byte
     ids = torch.from_numpy(ids).to(dev)
-    log(f"[2] rows kernel vs plain on edge rows (L={edge.l_max}, N={n_e}):")
-    max_err = max(
-        check_kernel("shared set", Qe, ids[:1].contiguous(), e_arrays),
-        check_kernel("per-query sets", Qe, ids, e_arrays),
-    )
+    wide_dim = (1 << 24) + (1 << 20)
+    fwd_w = ForwardIndex.from_docs(wide_docs(wide_dim, rng), wide_dim, value_format="f16")
+    Qw = torch.rand((2, wide_dim), device=dev, generator=torch.Generator(dev).manual_seed(0))
+    ids_w = torch.arange(fwd_w.n_docs + 1, dtype=torch.int32, device=dev)
+    max_err = {v: 0.0 for v in variants}
+    log(f"[2] rows kernel vs plain on edge rows (N={n_e}, dim={dim}, nq={nq}, C={C}; "
+        f"rtol={RTOL}, atol={ATOL}):")
+    for codec, vq in variants:
+        rows = pack_rows(fwd_e, codec=codec, vq=vq)
+        assert rows.l_max == 256, rows.l_max
+        arrays = {k: torch.from_numpy(v).to(dev) for k, v in rows.arrays().items()}
+        errs = [check_kernel(codec, f"{names[codec, vq]} nd=1", Qe, ids[:1].contiguous(),
+                             arrays, 0.5),
+                check_kernel(codec, f"{names[codec, vq]} nd=nq", Qe, ids, arrays, 0.5)]
+        wide = ""
+        if codec != "dotvbyte":  # DotVByte stores 16-bit gaps only
+            wa = {k: torch.from_numpy(v).to(dev)
+                  for k, v in pack_rows(fwd_w, codec=codec, vq=vq).arrays().items()}
+            errs += [check_kernel(codec, f"{names[codec, vq]} wide nd=1", Qw,
+                                  ids_w.unsqueeze(0), wa),
+                     check_kernel(codec, f"{names[codec, vq]} wide nd=nq", Qw,
+                                  ids_w.unsqueeze(0).repeat(2, 1), wa)]
+            wide = f", dim {wide_dim} nd=1/nq {errs[2]:.2e}/{errs[3]:.2e}"
+        max_err[codec, vq] = max(errs)
+        log(f"  {names[codec, vq]:28s} max_abs_err nd=1 {errs[0]:.2e}, nd=nq {errs[1]:.2e}"
+            f"{wide} ok")
+    del Qw
+    phase_s["2 kernel vs plain"] = time.perf_counter() - t0
 
     # -- 3. the main path -----------------------------------------------------
     t0 = time.perf_counter()
@@ -250,107 +349,176 @@ def main() -> int:
     Q_np = np.stack([col.query_dense(i) for i in range(col.n_queries)])
     log(f"[3] generated {fwd.n_docs} docs (nnz/doc={fwd.total_nnz / fwd.n_docs:.1f}, "
         f"dim={fwd.dim}) + {nq} queries in {time.perf_counter() - t0:.1f}s")
+    phase_s["3 generate"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    impl = get_engine("seismic")
     cfg_s = RetrieverConfig(engine="seismic", codec="dotvbyte", backend="cuda",
                             k=10, params=SEISMIC_PARAMS)
     cfg_f = RetrieverConfig(engine="flat", codec="dotvbyte", backend="cuda", k=10)
-    rows_dot.launches = 0  # counts the main path's launches only
+    index = impl.host_index(fwd, cfg_s)
+    log(f"    Seismic host index ({index.n_blocks} blocks) built once in "
+        f"{time.perf_counter() - t0:.1f}s")
+    phase_s["3 seismic host build"] = time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    built_s = Retriever.build(fwd, cfg_s)
-    log(f"    Retriever.build(seismic, dotvbyte) in {time.perf_counter() - t0:.1f}s; "
-        f"arrays: " + ", ".join(f"{k}{list(v.shape)}" for k, v in built_s.arrays.items()))
+    Q = torch.from_numpy(Q_np).to(dev)
+    rows_dot.reset_launches()  # counts the main path's launches only
+    built_s = Retriever.from_host_index(index, cfg_s)
     art = ROOT / "build" / "chip_smoke" / "seismic-dotvbyte"
-    t0 = time.perf_counter()
     built_s.save(art, compress=False)
     del built_s
-    seismic = open_retriever(art)
-    log(f"    save + open_retriever in {time.perf_counter() - t0:.1f}s")
-    t0 = time.perf_counter()
-    flat = Retriever.build(fwd, cfg_f)
-    log(f"    Retriever.build(flat, dotvbyte) in {time.perf_counter() - t0:.1f}s")
-    Q = torch.from_numpy(Q_np).to(dev)
-    torch.cuda.synchronize()
+    seismic = {("dotvbyte", "f16"): open_retriever(art)}
+    engine_arrays = {k: v for k, v in seismic["dotvbyte", "f16"].arrays.items()
+                     if not k.endswith("_rows") and not k.startswith("vq_")}
+    log(f"    Retriever.from_host_index(dotvbyte, f16) + save + open_retriever in "
+        f"{time.perf_counter() - t0:.1f}s; engine arrays: "
+        + ", ".join(f"{k}{list(v.shape)}" for k, v in engine_arrays.items()))
+    flat, results, per_search, row_bytes = {}, {}, {}, {}
+    for codec, vq in variants:
+        t1 = time.perf_counter()
+        if (codec, vq) == ("dotvbyte", "f16"):
+            rows = {k: v for k, v in seismic[codec, vq].arrays.items() if k not in engine_arrays}
+            flat[codec, vq] = Retriever.build(fwd, cfg_f)
+        else:
+            rows = {k: torch.from_numpy(v).to(dev)
+                    for k, v in pack_rows(fwd, codec=codec, vq=vq).arrays().items()}
+            seismic[codec, vq] = Retriever(
+                cfg_s.replace(codec=codec, vq=vq), {**engine_arrays, **rows},
+                n_docs=fwd.n_docs, dim=fwd.dim, value_scale=float(fwd.value_format.scale),
+                value_format=fwd.value_format.name)
+            if (codec, vq) in FLAT_VARIANTS:
+                flat[codec, vq] = Retriever(
+                    cfg_f.replace(codec=codec, vq=vq), rows, n_docs=fwd.n_docs, dim=fwd.dim,
+                    value_scale=float(fwd.value_format.scale),
+                    value_format=fwd.value_format.name)
+        row_bytes[codec, vq] = sum(v.numel() * v.element_size() for v in rows.values())
+        pack_s = time.perf_counter() - t1
+        name = names[codec, vq]
+        before = rows_dot.variant_launches[name]
+        results["seismic", codec, vq] = seismic[codec, vq].search(Q)
+        torch.cuda.synchronize()
+        per_search["seismic", codec, vq] = rows_dot.variant_launches[name] - before
+        if (codec, vq) in flat:
+            before = rows_dot.variant_launches[name]
+            results["flat", codec, vq] = flat[codec, vq].search(Q)
+            torch.cuda.synchronize()
+            per_search["flat", codec, vq] = rows_dot.variant_launches[name] - before
+        log(f"    {name:28s} rows packed + placed in {pack_s:.1f}s, "
+            f"{row_bytes[codec, vq] / 2**20:.1f} MiB on the card")
+    launches = dict(rows_dot.variant_launches)
+    log("    main path launches: " + ", ".join(f"{names[v]}={launches[names[v]]}"
+                                               for v in variants))
+    missing = [names[v] for v in variants if launches[names[v]] <= 0]
+    if missing:
+        raise SystemExit(f"the main path did not launch {missing}")
+    phase_s["3 main path"] = time.perf_counter() - t0
 
-    ids_s, sc_s = seismic.search(Q)
-    torch.cuda.synchronize()
-    launches_s = rows_dot.launches
-    ids_f, sc_f = flat.search(Q)
-    torch.cuda.synchronize()
-    launches_f = rows_dot.launches - launches_s
-    log(f"    main path launches: rows_dot seismic={launches_s} flat={launches_f}")
-    if launches_s <= 0 or launches_f <= 0:
-        raise SystemExit("the main path did not launch the rows kernel")
-
-    # -- 4. checks ------------------------------------------------------------
+    # -- 4. checks and timings ----------------------------------------------------
     t0 = time.perf_counter()
     truth = [exact_top_k(fwd, Q_np[i], 10) for i in range(nq)]
     log(f"[4] exact top-10 of {nq} queries in {time.perf_counter() - t0:.1f}s")
-    seismic_t = Retriever(cfg_s.replace(backend="torch"), seismic.arrays,
-                          n_docs=seismic.n_docs, dim=seismic.dim,
-                          value_scale=seismic.value_scale,
-                          value_format=seismic.value_format)
-    ids_t, sc_t = seismic_t.search(Q)
-    if not torch.equal(ids_s, ids_t):
-        raise SystemExit("Seismic ids differ between backend=cuda and backend=torch")
-    torch.testing.assert_close(sc_s, sc_t, rtol=1e-5, atol=1e-4)
-    log("    seismic ids: backend=cuda == backend=torch on the card")
-    ids_f_np, sc_f_np = ids_f.cpu().numpy(), sc_f.cpu().numpy()
-    for i, (t_ids, t_sc) in enumerate(truth):
-        if not np.array_equal(ids_f_np[i], t_ids):
-            raise SystemExit(f"flat ids differ from exact_top_k at query {i}")
-        np.testing.assert_allclose(sc_f_np[i], t_sc, rtol=1e-5, atol=1e-4)
-    log("    flat ids == exact_top_k for every query")
-    recall = float(np.mean([recall_at_k(truth[i][0], ids_s[i].cpu().numpy()) for i in range(nq)]))
-    log(f"    seismic recall@10 = {recall:.4f} (vs exact; {card})")
-
-    lat_s = host_ms(lambda: seismic.search(Q), 10)
-    lat_t = host_ms(lambda: seismic_t.search(Q), 5)
-    lat_f = host_ms(lambda: flat.search(Q), 10)
-    for name, lat in (("seismic cuda", lat_s), ("seismic torch", lat_t), ("flat cuda", lat_f)):
-        log(f"    search latency {name}: median {statistics.median(lat):.3f} ms/batch "
-            f"of {nq} ({1e3 * statistics.median(lat) / nq:.1f} µs/q), "
-            f"min {min(lat):.3f} max {max(lat):.3f} ({card})")
-    device_breakdown("seismic cuda", lambda: seismic.search(Q), card)
-    device_breakdown("flat cuda", lambda: flat.search(Q), card)
-
-    impl = get_engine("seismic")
-    docs_s = impl.candidates(seismic.cfg, seismic.n_docs, seismic.arrays, Q)
-    docs_f = torch.arange(flat.n_docs + 1, dtype=torch.int32, device=dev).unsqueeze(0)
-    shapes = []
-    for shape, arrays, docs, per_search in (
-        ("seismic", seismic.arrays, docs_s, launches_s),
-        ("flat", flat.arrays, docs_f, launches_f),
-    ):
-        max_err = max(max_err, check_kernel(f"{shape} shape", Q, docs, arrays, seismic.value_scale))
-        streams = rows_streams(arrays)
-        ms = cuda_ms(lambda: rows_dot.rows_scores(Q, docs, *streams, 1.0), 20)
-        plain_ms = cuda_ms(lambda: rows_dot.rows_scores_plain(Q, docs, *streams, 1.0), 3, 1)
-        bound_ms, bound_by = rows_bound(Q, docs, arrays)
-        shapes.append(dict(shape=shape, nq=nq, nd=docs.shape[0], C=docs.shape[1],
-                           launches_per_search=per_search, ms=ms, plain_ms=plain_ms,
-                           bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
-        log(f"    rows_dot @ {shape} (nq={nq}, nd={docs.shape[0]}, C={docs.shape[1]}, "
-            f"L={arrays['vals_rows'].shape[1]}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"bound {bound_ms:.4f} ms ({bound_by}), {per_search} launch/search ({card})")
-
+    base = seismic["dotvbyte", "f16"]
+    docs_s = impl.candidates(base.cfg, base.n_docs, base.arrays, Q)
+    docs_f = torch.arange(fwd.n_docs + 1, dtype=torch.int32, device=dev).unsqueeze(0)
+    scale = float(fwd.value_format.scale)
+    # library yardstick at the flat shape: cuSPARSE CSR × dense over the
+    # uncompressed collection (built outside the timing)
+    with warnings.catch_warnings():  # "sparse CSR support is in beta"
+        warnings.simplefilter("ignore", UserWarning)
+        csr = torch.sparse_csr_tensor(
+            torch.from_numpy(fwd.offsets.astype(np.int64)),
+            torch.from_numpy(fwd.components.astype(np.int64)),
+            torch.from_numpy(fwd.value_format.dequantise(fwd.values)),
+            size=(fwd.n_docs, fwd.dim), check_invariants=True).to(dev)
+    Qt = Q.t().contiguous()
+    lib_out = torch.sparse.mm(csr, Qt).t()
+    lib_ms = cuda_ms(lambda: torch.sparse.mm(csr, Qt), 10)
+    log(f"    library yardstick torch.sparse.mm (CSR {fwd.n_docs}×{fwd.dim}, "
+        f"{fwd.total_nnz} nnz) × Q.T: {lib_ms:.4f} ms ({card})")
+    raw_bytes = fwd.storage_bytes("uncompressed")["components"]
+    kernels = []
+    for codec, vq in variants:
+        name, s_ret = names[codec, vq], seismic[codec, vq]
+        arrays = s_ret.arrays
+        ids_c, sc_c = results["seismic", codec, vq]
+        s_torch = Retriever(s_ret.cfg.replace(backend="torch"), arrays, n_docs=s_ret.n_docs,
+                            dim=s_ret.dim, value_scale=s_ret.value_scale,
+                            value_format=s_ret.value_format)
+        ids_t, sc_t = s_torch.search(Q)
+        n_swapped = same_topk(ids_c, sc_c, ids_t, sc_t)
+        ids_np = ids_c.cpu().numpy()
+        recall = float(np.mean([recall_at_k(truth[i][0], ids_np[i]) for i in range(nq)]))
+        lat = host_ms(lambda: s_ret.search(Q), 10)
+        lat_t = host_ms(lambda: s_torch.search(Q), 5)
+        comp_bytes = fwd.storage_bytes(codec)["components"]
+        bits = 8 * comp_bytes / fwd.total_nnz
+        shapes = []
+        for shape, docs in (("seismic", docs_s), ("flat", docs_f)):
+            err = check_kernel(codec, f"{name} @ {shape}", Q, docs, arrays, scale)
+            max_err[codec, vq] = max(max_err[codec, vq], err)
+            slow = shape == "flat"
+            ms = cuda_ms(lambda: rows_dot.rows_scores_for_codec(codec, arrays, Q, docs, scale),
+                         10 if slow else 20)
+            plain_ms = cuda_ms(lambda: rows_dot.rows_scores_plain(codec, arrays, Q, docs, scale),
+                               2 if slow else 3, 1)
+            bound_ms, bound_by = rows_bound(codec, Q, docs, arrays)
+            shapes.append(dict(shape=shape, nq=nq, nd=docs.shape[0], C=docs.shape[1],
+                               launches_per_search=per_search.get((shape, codec, vq)),
+                               ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                               library_ms=lib_ms if slow else None, max_abs_err=err))
+        if codec == "uncompressed" and vq == "f16":
+            got = rows_dot.rows_scores_for_codec(codec, arrays, Q, docs_f, scale)[:, :-1]
+            torch.testing.assert_close(got, lib_out, rtol=1e-4, atol=1e-4)
+        flat_note = ""
+        if (codec, vq) in flat:
+            ids_f, sc_f = (t.cpu().numpy() for t in results["flat", codec, vq])
+            f_recall = float(np.mean([recall_at_k(truth[i][0], ids_f[i]) for i in range(nq)]))
+            if vq == "f16":
+                for i, (t_ids, t_sc) in enumerate(truth):
+                    if not np.array_equal(ids_f[i], t_ids):
+                        raise SystemExit(f"{name}: flat ids differ from exact_top_k at query {i}")
+                    np.testing.assert_allclose(sc_f[i], t_sc, rtol=1e-5, atol=1e-4)
+            f_lat = host_ms(lambda: flat[codec, vq].search(Q), 5)
+            flat_note = (f"; flat {'ids == exact_top_k, ' if vq == 'f16' else ''}"
+                         f"recall@10 {f_recall:.4f}, median "
+                         f"{statistics.median(f_lat):.3f} ms/batch")
+        s, f = shapes
+        log(f"  {name}: seismic cuda==torch ({n_swapped} tied swaps), recall@10 {recall:.4f}, "
+            f"median {statistics.median(lat):.3f} ms/batch of {nq} (min {min(lat):.3f}; "
+            f"backend=torch {statistics.median(lat_t):.3f}){flat_note}")
+        log(f"    {bits:.2f} bits/comp ({100 * (1 - comp_bytes / raw_bytes):.1f}% saved vs "
+            f"16 raw), rows {row_bytes[codec, vq] / 2**20:.1f} MiB; kernel @seismic "
+            f"{s['ms']:.4f} ms (plain {s['plain_ms']:.3f}, bound {s['bound_ms']:.4f} "
+            f"{s['bound_by']}), @flat {f['ms']:.4f} ms (plain {f['plain_ms']:.3f}, bound "
+            f"{f['bound_ms']:.4f} {f['bound_by']}, sparse.mm {lib_ms:.4f}) ({card})")
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/rows_dot.cu",
+            "replaces": "src/repro/kernels/rows_dot.py:190",
+            "launches": launches[name],
+            "max_abs_err": max_err[codec, vq],
+            "ms": s["ms"],
+            "plain_ms": s["plain_ms"],
+            "bound_ms": s["bound_ms"],
+            "bound_by": s["bound_by"],
+            "library_ms": None,
+            "at_shapes": shapes,
+            "recall_at_10": recall,
+            "search_ms_median": statistics.median(lat),
+            "search_ms_median_torch_backend": statistics.median(lat_t),
+            "bits_per_component": bits,
+            "row_bytes": row_bytes[codec, vq],
+        })
+    device_breakdown("seismic dotvbyte f16", lambda: base.search(Q), card)
+    device_breakdown("flat dotvbyte f16", lambda: flat["dotvbyte", "f16"].search(Q), card)
     shutil.rmtree(ROOT / "build" / "chip_smoke", ignore_errors=True)
+    phase_s["4 checks + timings"] = time.perf_counter() - t0
 
     # -- 5. summary -------------------------------------------------------------
-    main_shape = shapes[0]
-    kernels = [{
-        "name": "rows_dot_dotvbyte_f16",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/rows_dot.cu",
-        "replaces": "src/repro/kernels/rows_dot.py:190",
-        "launches": launches_s + launches_f,
-        "max_abs_err": max_err,
-        "ms": main_shape["ms"],
-        "plain_ms": main_shape["plain_ms"],
-        "bound_ms": main_shape["bound_ms"],
-        "bound_by": main_shape["bound_by"],
-        "library_ms": None,
-        "at_shapes": shapes,
-    }]
-    log(f"ported kernels: rows_dot_dotvbyte_f16=ok; total {time.perf_counter() - t_start:.0f}s")
+    log("phases: " + ", ".join(f"{k} {v:.1f}s" for k, v in phase_s.items()))
+    log(f"ported kernels: {len(kernels)} rows_dot variants ok; total "
+        f"{time.perf_counter() - t_start:.0f}s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

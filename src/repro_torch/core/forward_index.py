@@ -1,6 +1,6 @@
 """The forward index (paper §1-§2): doc_id → sparse vector, CSR layout
 (numpy; a copy of the parts of ``repro/core/forward_index.py`` the
-serving path needs).
+serving path and the paper's space metric need).
 
 Three arrays, as the paper describes: ``components`` (nonzero
 coordinate ids), ``values`` (their values), ``offsets`` (row pointers).
@@ -115,3 +115,17 @@ class ForwardIndex:
         out = np.zeros(self.n_docs, dtype=np.float32)
         np.add.at(out, np.repeat(np.arange(self.n_docs), np.diff(self.offsets)), contrib)
         return out
+
+    def storage_bytes(self, codec_name: str = "uncompressed") -> dict[str, int]:
+        """Bytes of the index with its components encoded per document
+        by ``codec_name`` (the paper's space metric). Counts equal the
+        reference's per-document ``encode_doc`` loop; here they are
+        counted vectorised (``Codec.doc_bytes``)."""
+        from .codecs import get_codec
+
+        comp_bytes = get_codec(codec_name).doc_bytes(self.components, self.offsets)
+        return {
+            "components": int(comp_bytes.sum()),
+            "values": int(self.values.nbytes),
+            "offsets": int(self.offsets.nbytes),
+        }

@@ -8,13 +8,17 @@ the serve engines' candidate rescoring (``pack_rows`` →
 ``PackedRows``); the ``+1`` row is the all-zero sentinel that
 out-of-corpus candidate ids gather. Row gaps carry the absolute first
 component (per-document alignment), so a plain cumsum rebuilds the ids.
+Four layouts are registered: ``uncompressed`` (absolute components,
+decode-free), ``dotvbyte``, ``streamvbyte`` and ``bitpack``; each packs
+under every value codec (``core/values.py``).
 
 Streams are lane-aligned at pack time, as the reference lays them out
-for the TPU: ``l_max`` rounds up to ``LANE_MULTIPLE`` (=128) and the
-ctrl/data streams pad their trailing dim to a multiple of it. Decoders
-therefore slice the control stream tight (``L // 8`` bytes for
-DotVByte) before decoding. The block form (``pack_blocks``) serves only
-the full-scan path and is not ported yet (ROADMAP queue A8).
+for the TPU: ``l_max`` rounds up to ``LANE_MULTIPLE`` (=128, times the
+value codec's pack factor) and the ctrl/data/words streams pad their
+trailing dim to a multiple of 128. Decoders therefore slice the control
+stream tight (``L // 8`` bytes for DotVByte, ``L // 4`` for
+StreamVByte) before decoding. The block form (``pack_blocks``) serves
+only the full-scan path and is not ported yet (ROADMAP queue A8).
 """
 
 from __future__ import annotations
@@ -25,7 +29,9 @@ from typing import Callable, Dict, Mapping
 import numpy as np
 
 from . import values as value_codecs
+from .codecs.bitpack import bit_widths, pack_block
 from .codecs.dotvbyte import control_bits
+from .codecs.streamvbyte import byte_codes
 from .forward_index import ForwardIndex, ValueFormat
 
 __all__ = [
@@ -133,6 +139,9 @@ class UncompressedLayout(LayoutCodec):
     def encode(self, gaps: np.ndarray) -> Dict[str, np.ndarray]:
         return {"gaps": gaps.astype(np.int32)}
 
+    def decode(self, arrays: Mapping, block_size: int):
+        return arrays["gaps"]
+
 
 @register_layout("dotvbyte")
 class DotVByteLayout(LayoutCodec):
@@ -162,13 +171,68 @@ class DotVByteLayout(LayoutCodec):
         return decode_gaps_dotvbyte(ctrl, arrays["data"])
 
 
+@register_layout("streamvbyte")
+class StreamVByteLayout(LayoutCodec):
+    """2-bit controls, 4 gaps per control byte, 1–4 data bytes per gap
+    (Lemire et al.), full 32-bit gap range. The data stream keeps three
+    over-read bytes past each row's payload (the vectorised decoder
+    reads bytes ``start .. start + 3`` for every gap)."""
+
+    name = "streamvbyte"
+    block_multiple = 4
+
+    def encode(self, gaps: np.ndarray) -> Dict[str, np.ndarray]:
+        R, T = gaps.shape
+        q = byte_codes(gaps).reshape(R, T // 4, 4)
+        ctrl = q[..., 0] | (q[..., 1] << 2) | (q[..., 2] << 4) | (q[..., 3] << 6)
+        lens = q.reshape(R, T).astype(np.int64) + 1
+        return {"ctrl": _lane_pad(ctrl), "data": self._byte_scatter(gaps, lens, 3)}
+
+    def decode(self, arrays: Mapping, block_size: int):
+        from .scoring import decode_gaps_streamvbyte
+
+        ctrl = arrays["ctrl"]
+        if block_size:  # lane-padded ctrl: slice tight before decoding
+            ctrl = ctrl[..., : block_size // 4]
+        return decode_gaps_streamvbyte(ctrl, arrays["data"])
+
+
+@register_layout("bitpack")
+class BitpackLayout(LayoutCodec):
+    """Per-row fixed-width word packing: row r's gaps at ``widths[r]``
+    bits each (its largest gap's bit length, at least 1), LSB-first in
+    u32 words lane-padded to the widest row's need, packed by
+    ``codecs.bitpack.pack_block``."""
+
+    name = "bitpack"
+
+    def encode(self, gaps: np.ndarray) -> Dict[str, np.ndarray]:
+        R, T = gaps.shape
+        widths = np.maximum(bit_widths(gaps.max(axis=1, initial=0)), 1).astype(np.int32)
+        w_max = int(widths.max(initial=1))
+        n_words = (T * w_max + 31) // 32
+        words = np.zeros((R, n_words), dtype=np.uint32)
+        for r in range(R):
+            wr = pack_block(gaps[r], int(widths[r]))
+            words[r, : len(wr)] = wr
+        return {"words": _lane_pad(words), "widths": widths}
+
+    def decode(self, arrays: Mapping, block_size: int):
+        from .scoring import decode_gaps_bitpack
+
+        return decode_gaps_bitpack(arrays["words"], arrays["widths"], block_size)
+
+
 @dataclasses.dataclass
 class PackedRows:
     """Fixed-capacity per-document rows for candidate rescoring.
 
     ``vals_rows``/``nnz_rows`` are codec-independent; ``payload`` holds
-    the codec streams keyed engine-style (``comps_rows`` |
-    ``ctrl_rows`` + ``data_rows``). Row N is the all-zero sentinel."""
+    the codec streams keyed engine-style (``comps_rows`` | ``ctrl_rows``
+    + ``data_rows`` | ``words_rows`` + ``widths_rows``) and the value
+    codec's extras (``vq_*``). Row N is the all-zero sentinel. Under a
+    quantized ``vq``, ``vals_rows`` holds u8 codes of width
+    ``l_max // code_factor(vq)``."""
 
     codec: str
     n_docs: int

@@ -12,9 +12,11 @@ query batch as a leading axis:
 * ``score_candidate_rows_batch`` — one candidate set shared by the
   batch, ``docs [C]``, decoded once (flat).
 
-``backend="torch"`` runs the plain path below on the tensors' own
-device; ``backend="cuda"`` goes to the codec's hand-written kernel
-(``kernels/rows_dot.py``), which raises where it has no kernel. Index
+Every row codec of ``core/layout.py`` decodes here, under every value
+codec (``core/values.py``). ``backend="torch"`` runs the plain path
+below on the tensors' own device; ``backend="cuda"`` goes to the
+hand-written rows kernel (``kernels/rows_dot.py``), which launches the
+(codec, vq) variant on CUDA tensors or raises. Index
 tensors stay int32 on the wire and widen to int64 only where torch
 indexing needs it. Torch raises on an out-of-range gather where
 ``jnp.take`` clipped, so callers map every non-document id to the
@@ -31,6 +33,8 @@ from .layout import get_layout
 
 __all__ = [
     "decode_gaps_dotvbyte",
+    "decode_gaps_streamvbyte",
+    "decode_gaps_bitpack",
     "decode_doc_rows",
     "score_doc_rows",
     "score_candidate_rows",
@@ -65,6 +69,44 @@ def decode_gaps_dotvbyte(ctrl: torch.Tensor, data: torch.Tensor) -> torch.Tensor
     return (lo + (hi << 8)).to(torch.int32)
 
 
+def decode_gaps_streamvbyte(ctrl: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+    """StreamVByte decode, vectorised: ctrl u8 [..., T/4] (2-bit codes,
+    value i of a quad in bits 2i..2i+1), data u8 [..., DP] (DP ≥ total
+    data bytes + 3 over-read) → gaps i32 [..., T].
+
+    A gap's byte offset is the exclusive prefix sum of ``code + 1``; it
+    reads bytes ``start .. start + 3``, each masked by the code. The
+    bytes are assembled in int64 and the result keeps the low 32 bits,
+    as the reference's int32 arithmetic does."""
+    shifts = 2 * torch.arange(4, dtype=torch.int32, device=ctrl.device)
+    codes = ((ctrl.to(torch.int32).unsqueeze(-1) >> shifts) & 0x3).flatten(-2)
+    lens = codes + 1
+    starts = torch.cumsum(lens, dim=-1) - lens  # int64
+    d = data.to(torch.int64)
+    out = torch.gather(d, -1, starts)
+    for b in range(1, 4):
+        out |= (torch.gather(d, -1, starts + b) * (codes >= b)) << (8 * b)
+    return out.to(torch.int32)
+
+
+def decode_gaps_bitpack(words: torch.Tensor, widths: torch.Tensor, block_size: int) -> torch.Tensor:
+    """Fixed-width unpack: words u32 [..., W] (any 32-bit dtype),
+    widths i32 [...] → gaps i32 [..., T] with T = ``block_size``.
+
+    Value j sits at bit j·w, LSB-first; a read may straddle into the
+    next word (a zero word is appended for the last one). The shifts
+    and masks run in int64, so ``1 << 32`` and the u32 words are safe."""
+    w = words.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    w = torch.cat([w, torch.zeros_like(w[..., :1])], dim=-1)
+    width = widths.to(torch.int64).unsqueeze(-1)  # [..., 1]
+    bitpos = torch.arange(block_size, dtype=torch.int64, device=w.device) * width
+    wi, off = bitpos // 32, bitpos % 32
+    lo = torch.gather(w, -1, wi) >> off
+    hi = torch.where(off > 0, torch.gather(w, -1, wi + 1) << (32 - off), 0)
+    mask = (1 << width) - 1
+    return ((lo | hi) & mask).to(torch.int32)
+
+
 def decode_doc_rows(codec: str, payload, l_max: int | None = None) -> torch.Tensor:
     """Row-payload streams (``<stream>_rows`` → tensor) → absolute
     components i32 [..., L], through the layout registry. Row gaps carry
@@ -82,17 +124,38 @@ def decode_doc_rows(codec: str, payload, l_max: int | None = None) -> torch.Tens
     return torch.cumsum(gaps, dim=-1, dtype=torch.int32)
 
 
+def _take_rows(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``t[idx]``; u32 streams are gathered as their int32 bits (not
+    every device indexes uint32 tensors)."""
+    if t.dtype == torch.uint32:
+        return t.view(torch.int32)[idx]
+    return t[idx]
+
+
 def _gather_decode_rows(codec: str, arrays, docs: torch.Tensor):
     """Gather + decode the packed rows of ``docs`` (any shape) →
-    (comps i32 [*docs, L], vals [*docs, L] storage dtype, nnz [*docs])."""
-    value_codecs.infer_rows_vq(arrays)  # raises for unported value codecs
+    (comps i32 [*docs, L], vals [*docs, L], nnz [*docs]).
+
+    The value codec is inferred from the payload keys: f16 values stay
+    in their storage dtype; quantized rows gather their u8 codes with
+    the per-row clip columns (or take the codebook whole) and
+    dequantize through ``values.decode_codes`` to f32, so the logical
+    row width ``L`` is the stored width × ``code_factor(vq)``."""
+    vq = value_codecs.infer_rows_vq(arrays)
     idx = docs.long()
     vals = arrays["vals_rows"][idx]
     nnz = arrays["nnz_rows"][idx]
+    if vq != "f16":
+        streams = value_codecs.rows_vq_streams(vq, arrays)
+        if vq == "pq":
+            vals = value_codecs.decode_codes(vq, vals, codebook_flat=streams[0])
+        else:
+            lo, step = (s[idx] for s in streams)
+            vals = value_codecs.decode_codes(vq, vals, lo, step)
     if get_layout(codec).decode_free:
         return arrays["comps_rows"][idx], vals, nnz
     payload = {
-        k: arrays[k][idx]
+        k: _take_rows(arrays[k], idx)
         for k in arrays
         if k.endswith("_rows") and k not in _ROW_COMMON_KEYS and not k.startswith("vq_")
     }
@@ -102,7 +165,7 @@ def _gather_decode_rows(codec: str, arrays, docs: torch.Tensor):
 def score_doc_rows(
     Q: torch.Tensor,  # f32 [nq, V]
     comps_rows: torch.Tensor,  # i32 [nd, C, L], nd ∈ {1, nq}
-    vals_rows: torch.Tensor,  # [nd, C, L] storage dtype
+    vals_rows: torch.Tensor,  # [nd, C, L] storage dtype or dequantized f32
     nnz: torch.Tensor,  # i32 [nd, C]
     scale: float,
 ) -> torch.Tensor:
@@ -120,7 +183,7 @@ def score_rows_plain(codec: str, arrays, docs: torch.Tensor, Q: torch.Tensor, sc
     """The plain torch rescoring: docs i32 [nd, C] (nd ∈ {1, nq}) →
     f32 [nq, C], in candidate chunks that bound the working set."""
     nq, (nd, C) = Q.shape[0], docs.shape
-    L = arrays["vals_rows"].shape[1]
+    L = arrays["vals_rows"].shape[1] * value_codecs.code_factor(value_codecs.infer_rows_vq(arrays))
     out = torch.empty((nq, C), dtype=torch.float32, device=Q.device)
     step = max(1, _CHUNK_ELEMS // max(nq * L, 1))
     for c0 in range(0, C, step):

@@ -1,37 +1,62 @@
-// Fused candidate-row gather + DotVByte decode + rescore, for Hopper (sm_90a).
+// Fused candidate-row gather + decode + dequant + rescore, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel repro/kernels/rows_dot.py::rows_scores_batch
-// (body `_kernel`, pl.pallas_call at rows_dot.py:190) for codec = dotvbyte,
-// vq = f16. It computes what `_kernel` computes; it is not a block-by-block
-// carry-over of the TPU grid.
+// (body `_kernel`, pl.pallas_call at rows_dot.py:190) for all sixteen of its
+// compile-time variants: row codec (`_comps_*`) x value codec (`_dequant_row`).
+// It computes what `_kernel` computes; it is not a block-by-block carry-over of
+// the TPU grid.
 //
 // Contract (checked by the Python wrapper, kernels/rows_dot.py):
-//   Q     f32 [nq, dim]          dense queries
-//   docs  i32 [nd, C]            candidate row ids; nd == 1 shares one set with
-//                                every query (flat), nd == nq gives each query
-//                                its own set (Seismic)
-//   vals  f16 [n_rows, L]        row values (row n_rows-1 is the all-zero sentinel)
-//   nnz   i32 [n_rows]           live entries per row
-//   ctrl  u8  [n_rows, ctrl_w]   DotVByte control bytes, ctrl_w >= L/8 (lane-padded)
-//   data  u8  [n_rows, data_w]   DotVByte data bytes
-//   out   f32 [nq, C]            out[q, i] = sum_{j < nnz} Q[q, comp_j] * f32(val_j) * scale
+//   Q     f32 [nq, dim]       dense queries
+//   docs  i32 [nd, C]         candidate row ids; nd == 1 shares one set with
+//                             every query (flat), nd == nq gives each query
+//                             its own set (Seismic)
+//   vals  [n_rows, vals_w]    f16 values (vq f16, vals_w = L) or u8 codes
+//                             (u8_sq: vals_w = L; u4_sq and pq: vals_w = L/2)
+//   nnz   i32 [n_rows]        live entries per row
+//   p0,p1 codec payload:      uncompressed  comps i32 [n_rows, p0_w]
+//                             dotvbyte      ctrl u8 [n_rows, p0_w >= L/8],
+//                                           data u8 [n_rows, p1_w]
+//                             streamvbyte   ctrl u8 [n_rows, p0_w >= L/4],
+//                                           data u8 [n_rows, p1_w]
+//                             bitpack       words u32 [n_rows, p0_w],
+//                                           widths i32 [n_rows]
+//   v0,v1 value payload:      u8_sq/u4_sq   lo f32 [n_rows], step f32 [n_rows]
+//                             pq            codebook f32 [256 * 2]
+//   out   f32 [nq, C]         out[q, i] = sum_{j < nnz} Q[q, comp_j] * val_j * scale
+// where L is the logical row capacity and row n_rows-1 is the all-zero sentinel.
 //
-// Row format: gap j has control bit j%8 of byte j/8 (LSB first); bit 0 means
-// one data byte, bit 1 two little-endian bytes; the byte offset of gap j is
-// the exclusive prefix sum of (bit + 1); the first gap of a row is absolute,
-// so the components are the inclusive prefix sum of the gaps.
+// Row formats (the first gap of a row is absolute, so components are the
+// inclusive prefix sum of the gaps):
+//   dotvbyte     gap j has control bit j%8 of byte j/8 (LSB first): 0 means one
+//                data byte, 1 two little-endian bytes; its byte offset is the
+//                exclusive prefix sum of (bit + 1).
+//   streamvbyte  gap j has the 2-bit code in bits 2(j%4).. of byte j/4: code+1
+//                little-endian data bytes; offset = exclusive prefix sum.
+//   bitpack      gap j is bits [j*w, j*w + w) of the row's u32 words, LSB
+//                first, w = widths[row]; a gap may straddle two words.
+//   uncompressed absolute components, no decode.
+// Values: f16 as stored; u8_sq lo + code * step; u4_sq the same on 4-bit codes,
+// entry 2i in the low nibble of byte i; pq entry j is codebook[code[j/2]*2 + j%2].
+// The dequant multiply and add are rounded separately (__fmul_rn, __fadd_rn),
+// so every value equals the plain torch version's bit for bit; only the order
+// of the final f32 sums differs.
 //
 // Design (a simple kernel that is right first): one thread block per
-// (candidate, set). Thread t owns control byte t, i.e. gaps 8t..8t+7:
-//   1. a block-wide exclusive scan of (8 + popcount) over the live control
-//      bytes gives each thread the offset of its first data byte;
-//   2. the thread decodes its 8 gaps from global memory into registers;
-//   3. a second block scan of the per-thread gap sums turns them into
-//      absolute components;
-//   4. for each query of the set, the thread gathers Q[q, comp] for its live
-//      entries, multiplies by f32(val) * scale, and a block reduction writes
-//      the score. With nd == 1 the decoded row stays in registers across the
-//      whole query batch (decode once, score many).
+// (candidate, set), L/8 threads (rounded up to a warp); thread t owns entries
+// 8t..8t+7:
+//   1. byte codecs: a block-wide exclusive scan of the thread's data-byte count
+//      gives the offset of its first data byte (bitpack needs no scan: entry j
+//      starts at bit j*w);
+//   2. the thread decodes its 8 gaps into registers, reading no byte beyond
+//      the stream's row width;
+//   3. a second block scan of the per-thread gap sums gives absolute
+//      components (uncompressed reads them directly and skips 1-3);
+//   4. the thread dequantizes its 8 values (the PQ codebook is staged in
+//      shared memory once per block) and, for each query of the set, gathers
+//      Q[q, comp], multiplies and a block reduction writes the score. With
+//      nd == 1 the decoded row stays in registers across the whole query batch
+//      (decode once, score many).
 // The work is bound by bytes (the gathered rows, Q and the scores); this first
 // version leaves the row gathers as plain loads. cp.async/TMA row staging,
 // several rows per block and vector loads are later work.
@@ -45,33 +70,37 @@
 
 namespace {
 
-constexpr unsigned kFull = 0xffffffffu;
+enum Codec { kUncompressed = 0, kDotVByte = 1, kStreamVByte = 2, kBitpack = 3 };
+enum Vq { kF16 = 0, kU8 = 1, kU4 = 2, kPq = 3 };
 
-__device__ __forceinline__ int warp_inclusive_scan(int x) {
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kPqEntries = 256 * 2;
+
+__device__ __forceinline__ unsigned warp_inclusive_scan(unsigned x) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(kFull, x, o);
+    const unsigned y = __shfl_up_sync(kFull, x, o);
     if (lane >= o) x += y;
   }
   return x;
 }
 
-// Exclusive prefix sum over the block. blockDim.x is a multiple of 32;
-// `scratch` holds 32 ints. Every thread of the block must call it.
-__device__ __forceinline__ int block_exclusive_scan(int x, int* scratch) {
+// Exclusive prefix sum over the block, modulo 2^32. blockDim.x is a multiple
+// of 32; `scratch` holds 32 words. Every thread of the block must call it.
+__device__ __forceinline__ unsigned block_exclusive_scan(unsigned x, unsigned* scratch) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int n_warps = blockDim.x >> 5;
-  const int incl = warp_inclusive_scan(x);
+  const unsigned incl = warp_inclusive_scan(x);
   if (n_warps == 1) return incl - x;
   if (lane == 31) scratch[warp] = incl;
   __syncthreads();
   if (warp == 0) {
-    const int w = lane < n_warps ? scratch[lane] : 0;
+    const unsigned w = lane < n_warps ? scratch[lane] : 0u;
     scratch[lane] = warp_inclusive_scan(w) - w;
   }
   __syncthreads();
-  const int out = incl - x + scratch[warp];
+  const unsigned out = incl - x + scratch[warp];
   __syncthreads();  // scratch is reused by the next scan
   return out;
 }
@@ -95,96 +124,204 @@ __device__ __forceinline__ float block_sum(float x, float* scratch) {
   return x;
 }
 
-__global__ void rows_dot_dotvbyte_f16_kernel(
-    const float* __restrict__ Q, const int* __restrict__ docs,
-    const __half* __restrict__ vals, const int* __restrict__ nnz_rows,
-    const uint8_t* __restrict__ ctrl, const uint8_t* __restrict__ data,
-    float* __restrict__ out, int nq, int dim, int nd, int C, int n_rows, int L,
-    int ctrl_w, int data_w, float scale) {
-  __shared__ int iscratch[32];
+struct Args {
+  const float* Q;
+  const int* docs;
+  const void* vals;
+  const int* nnz;
+  const void* p0;
+  const void* p1;
+  const float* v0;
+  const float* v1;
+  float* out;
+  int nq, dim, nd, C, n_rows, L, vals_w, p0_w, p1_w;
+  float scale;
+};
+
+// Decode this thread's 8 gaps (entries 8t..8t+7, dead ones read as 0) into
+// `gap`. Every thread of the block must call it (the byte codecs scan).
+template <int CODEC>
+__device__ __forceinline__ void decode_gaps(const Args& a, int doc, int nnz, int t,
+                                            unsigned* iscratch, unsigned gap[8]) {
+  const bool live = 8 * t < nnz;
+  if constexpr (CODEC == kDotVByte) {
+    const uint8_t* ctrl = static_cast<const uint8_t*>(a.p0) + (size_t)doc * a.p0_w;
+    const uint8_t* row = static_cast<const uint8_t*>(a.p1) + (size_t)doc * a.p1_w;
+    const int byte = live ? ctrl[t] : 0;
+    unsigned off = block_exclusive_scan(live ? 8 + __popc(byte) : 0, iscratch);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int two = (byte >> j) & 1;
+      unsigned g = 0;
+      if (8 * t + j < nnz && off + two < (unsigned)a.p1_w) {
+        g = row[off];
+        if (two) g |= (unsigned)row[off + 1] << 8;
+      }
+      off += 1 + two;
+      gap[j] = g;
+    }
+  } else if constexpr (CODEC == kStreamVByte) {
+    const uint8_t* ctrl = static_cast<const uint8_t*>(a.p0) + (size_t)doc * a.p0_w;
+    const uint8_t* row = static_cast<const uint8_t*>(a.p1) + (size_t)doc * a.p1_w;
+    const unsigned codes = live ? ctrl[2 * t] | ((unsigned)ctrl[2 * t + 1] << 8) : 0u;
+    unsigned n_bytes = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) n_bytes += ((codes >> (2 * j)) & 3u) + 1;
+    unsigned off = block_exclusive_scan(live ? n_bytes : 0u, iscratch);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int len = (int)((codes >> (2 * j)) & 3u) + 1;
+      unsigned g = 0;
+      if (8 * t + j < nnz && off + len <= (unsigned)a.p1_w)
+        for (int b = 0; b < len; ++b) g |= (unsigned)row[off + b] << (8 * b);
+      off += len;
+      gap[j] = g;
+    }
+  } else {  // kBitpack
+    const uint32_t* words = static_cast<const uint32_t*>(a.p0) + (size_t)doc * a.p0_w;
+    const int w = min(max(static_cast<const int*>(a.p1)[doc], 0), 32);
+    const uint64_t mask = (1ull << w) - 1;  // 64-bit: w may be 32
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int e = 8 * t + j;
+      unsigned g = 0;
+      if (e < nnz) {
+        const int bit = e * w;
+        const int wi = bit >> 5, off = bit & 31;
+        const uint64_t lo = wi < a.p0_w ? words[wi] : 0u;
+        const uint64_t hi = off && wi + 1 < a.p0_w ? words[wi + 1] : 0u;
+        g = (unsigned)(((lo >> off) | (hi << (32 - off))) & mask);
+      }
+      gap[j] = g;
+    }
+  }
+}
+
+template <int VQ>
+__device__ __forceinline__ float dequant(const Args& a, int doc, int e,
+                                         const float* cb, float lo, float step) {
+  const uint8_t* codes = static_cast<const uint8_t*>(a.vals) + (size_t)doc * a.vals_w;
+  if constexpr (VQ == kF16)
+    return __half2float(static_cast<const __half*>(a.vals)[(size_t)doc * a.vals_w + e]);
+  if constexpr (VQ == kU8) return __fadd_rn(lo, __fmul_rn((float)codes[e], step));
+  if constexpr (VQ == kU4) {
+    const int byte = codes[e >> 1];
+    return __fadd_rn(lo, __fmul_rn((float)((e & 1) ? byte >> 4 : byte & 15), step));
+  }
+  return cb[codes[e >> 1] * 2 + (e & 1)];  // kPq
+}
+
+template <int CODEC, int VQ>
+__global__ void rows_dot_kernel(const Args a) {
+  __shared__ unsigned iscratch[32];
   __shared__ float fscratch[32];
+  __shared__ float cb[VQ == kPq ? kPqEntries : 1];
   const int c = blockIdx.x;
   const int set = blockIdx.y;
   const int t = threadIdx.x;
 
-  const int doc = docs[(size_t)set * C + c];
-  const bool in_range = doc >= 0 && doc < n_rows;
-  const int nnz = in_range ? min(max(nnz_rows[doc], 0), L) : 0;
-  const int q_lo = nd == 1 ? 0 : set;
-  const int q_hi = nd == 1 ? nq : set + 1;
+  const int doc = a.docs[(size_t)set * a.C + c];
+  const bool in_range = doc >= 0 && doc < a.n_rows;
+  const int nnz = in_range ? min(max(a.nnz[doc], 0), a.L) : 0;
+  const int q_lo = a.nd == 1 ? 0 : set;
+  const int q_hi = a.nd == 1 ? a.nq : set + 1;
   if (nnz == 0) {  // block-uniform: the whole block leaves together
     if (t == 0)
-      for (int q = q_lo; q < q_hi; ++q) out[(size_t)q * C + c] = 0.f;
+      for (int q = q_lo; q < q_hi; ++q) a.out[(size_t)q * a.C + c] = 0.f;
     return;
   }
-
-  // 1. data offset of this thread's first gap
-  const bool live_byte = 8 * t < nnz;
-  const int byte = live_byte ? ctrl[(size_t)doc * ctrl_w + t] : 0;
-  int off = block_exclusive_scan(live_byte ? 8 + __popc(byte) : 0, iscratch);
-
-  // 2. decode 8 gaps; running sum gives the thread-local prefix
-  const uint8_t* row = data + (size_t)doc * data_w;
-  int comp[8];
-  int run = 0;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    if (8 * t + j < nnz) {
-      const int two = (byte >> j) & 1;
-      int gap = 0;
-      if (off + two < data_w) {
-        gap = row[off];
-        if (two) gap |= (int)row[off + 1] << 8;
-      }
-      off += 1 + two;
-      run += gap;
-    }
-    comp[j] = run;
+  if constexpr (VQ == kPq) {
+    for (int i = t; i < kPqEntries; i += blockDim.x) cb[i] = a.v0[i];
+    __syncthreads();
   }
 
-  // 3. absolute components
-  const int base = block_exclusive_scan(run, iscratch);
-  const __half* vrow = vals + (size_t)doc * L;
+  // 1-3. absolute components of this thread's 8 entries
+  int comp[8];
+  if constexpr (CODEC == kUncompressed) {
+    const int* row = static_cast<const int*>(a.p0) + (size_t)doc * a.p0_w;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int e = 8 * t + j;
+      comp[j] = e < nnz && e < a.p0_w ? row[e] : 0;
+    }
+  } else {
+    unsigned gap[8];
+    decode_gaps<CODEC>(a, doc, nnz, t, iscratch, gap);
+    unsigned run = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      run += gap[j];
+      gap[j] = run;
+    }
+    const unsigned base = block_exclusive_scan(run, iscratch);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) comp[j] = (int)(gap[j] + base);
+  }
+
+  // 4. dequantize, then score against every query of the set
+  const float lo = (VQ == kU8 || VQ == kU4) ? a.v0[doc] : 0.f;
+  const float step = (VQ == kU8 || VQ == kU4) ? a.v1[doc] : 0.f;
   float val[8];
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     const int e = 8 * t + j;
-    comp[j] += base;
-    val[j] = e < nnz ? __half2float(vrow[e]) * scale : 0.f;
+    val[j] = e < nnz ? dequant<VQ>(a, doc, e, cb, lo, step) * a.scale : 0.f;
   }
-
-  // 4. score against every query of the set
   for (int q = q_lo; q < q_hi; ++q) {
-    const float* qrow = Q + (size_t)q * dim;
+    const float* qrow = a.Q + (size_t)q * a.dim;
     float acc = 0.f;
 #pragma unroll
     for (int j = 0; j < 8; ++j)
-      if (8 * t + j < nnz && (unsigned)comp[j] < (unsigned)dim)
-        acc += qrow[comp[j]] * val[j];
+      if (8 * t + j < nnz && (unsigned)comp[j] < (unsigned)a.dim) acc += qrow[comp[j]] * val[j];
     acc = block_sum(acc, fscratch);
-    if (t == 0) out[(size_t)q * C + c] = acc;
+    if (t == 0) a.out[(size_t)q * a.C + c] = acc;
   }
+}
+
+template <int CODEC, int VQ>
+void launch(const Args& a, int threads, cudaStream_t stream) {
+  rows_dot_kernel<CODEC, VQ><<<dim3((unsigned)a.C, (unsigned)a.nd), threads, 0, stream>>>(a);
+}
+
+template <int CODEC>
+int launch_vq(int vq, const Args& a, int threads, cudaStream_t stream) {
+  switch (vq) {
+    case kF16: launch<CODEC, kF16>(a, threads, stream); return 0;
+    case kU8: launch<CODEC, kU8>(a, threads, stream); return 0;
+    case kU4: launch<CODEC, kU4>(a, threads, stream); return 0;
+    case kPq: launch<CODEC, kPq>(a, threads, stream); return 0;
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launch on `stream`; returns cudaGetLastError() (0 on success).
-int rows_dot_dotvbyte_f16(const void* Q, const void* docs, const void* vals,
-                          const void* nnz, const void* ctrl, const void* data,
-                          void* out, int nq, int dim, int nd, int C, int n_rows,
-                          int L, int ctrl_w, int data_w, float scale,
-                          void* stream) {
+// Launch the (codec, vq) variant on `stream`; returns cudaGetLastError()
+// (0 on success), or cudaErrorInvalidValue for a shape or variant the
+// kernel does not take. Codec and vq numbers are the enums above.
+int rows_dot(int codec, int vq, const void* Q, const void* docs, const void* vals,
+             const void* nnz, const void* p0, const void* p1, const void* v0,
+             const void* v1, void* out, int nq, int dim, int nd, int C, int n_rows,
+             int L, int vals_w, int p0_w, int p1_w, float scale, void* stream) {
   const int threads = ((L / 8 + 31) / 32) * 32;
-  if (threads < 32 || threads > 1024 || nq <= 0 || C <= 0 || nd <= 0 ||
+  if (L % 8 || threads < 32 || threads > 1024 || nq <= 0 || C <= 0 || nd <= 0 ||
       nd > 65535)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)C, (unsigned)nd);
-  rows_dot_dotvbyte_f16_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-      (const float*)Q, (const int*)docs, (const __half*)vals, (const int*)nnz,
-      (const uint8_t*)ctrl, (const uint8_t*)data, (float*)out, nq, dim, nd, C,
-      n_rows, L, ctrl_w, data_w, scale);
+  const Args a{(const float*)Q, (const int*)docs, vals, (const int*)nnz, p0, p1,
+               (const float*)v0, (const float*)v1, (float*)out, nq, dim, nd, C,
+               n_rows, L, vals_w, p0_w, p1_w, scale};
+  const cudaStream_t s = (cudaStream_t)stream;
+  int rc;
+  switch (codec) {
+    case kUncompressed: rc = launch_vq<kUncompressed>(vq, a, threads, s); break;
+    case kDotVByte: rc = launch_vq<kDotVByte>(vq, a, threads, s); break;
+    case kStreamVByte: rc = launch_vq<kStreamVByte>(vq, a, threads, s); break;
+    case kBitpack: rc = launch_vq<kBitpack>(vq, a, threads, s); break;
+    default: rc = (int)cudaErrorInvalidValue;
+  }
+  if (rc != 0) return rc;
   return (int)cudaGetLastError();
 }
 

@@ -354,9 +354,7 @@ def load_manifest(path) -> dict:
 
 
 def check_manifest_names(manifest: Mapping[str, Any], where) -> None:
-    """Version / engine / codec / value-format / vq validation. A value
-    codec the reference knows but the port has not ported raises
-    NotImplementedError (ROADMAP queue A2)."""
+    """Version / engine / codec / value-format / vq validation."""
     version = manifest.get("version")
     if version != MANIFEST_VERSION:
         raise ArtifactError(
@@ -385,7 +383,6 @@ def check_manifest_names(manifest: Mapping[str, Any], where) -> None:
             f"unknown value codec {vq!r} at {where}; have "
             f"{list(value_codecs.VALUE_CODECS)}"
         )
-    value_codecs.check_vq(vq)
 
 
 def check_array_spec(

@@ -18,7 +18,7 @@ from repro_torch.core.seismic import SeismicIndex, SeismicParams
 from repro_torch.data import synthetic
 from repro_torch.serve.api import RetrieverConfig
 from repro_torch.serve.engines.seismic import SeismicEngine
-from torch_cases import edge_docs
+from torch_cases import VARIANTS, edge_docs, wide_docs
 
 SIZES = [(2048, 400), (30522, 200)]
 
@@ -103,9 +103,10 @@ def test_seismic_arrays_match_reference(collections, block_size, n_postings):
 
 
 def test_unported_value_codec_raises():
+    """Every value codec of the reference packs; an unknown name raises."""
     fwd = ForwardIndex.from_docs([(np.array([1, 2]), np.array([0.5, 1.0]))], 16, "f16")
-    with pytest.raises(NotImplementedError, match="queue A2"):
-        layout.pack_rows(fwd, codec="dotvbyte", vq="u8_sq")
+    rows = layout.pack_rows(fwd, codec="dotvbyte", vq="u8_sq")
+    assert rows.vals_rows.dtype == np.uint8 and "vq_lo_rows" in rows.payload
     with pytest.raises(ValueError, match="unknown value codec"):
         layout.pack_rows(fwd, codec="dotvbyte", vq="nope")
 
@@ -128,3 +129,45 @@ def test_gap_helpers_and_control_bits_match_reference(collections):
         dotvbyte.control_bits(np.array([70000]))
     with pytest.raises(ValueError, match="strictly increasing"):
         base.gaps_from_components(np.array([3, 3]))
+
+
+@pytest.mark.parametrize("codec,vq", VARIANTS, ids=[f"{c}-{v}" for c, v in VARIANTS])
+def test_pack_rows_every_variant_matches_reference(collections, codec, vq):
+    ref, port = collections
+    r = ref_layout.pack_rows(ref.fwd, codec=codec, vq=vq)
+    p = layout.pack_rows(port.fwd, codec=codec, vq=vq)
+    assert p.l_max == r.l_max and p.vq == r.vq == vq
+    assert_same_arrays(p.arrays(), r.arrays())
+
+
+@pytest.mark.parametrize("codec,vq", VARIANTS, ids=[f"{c}-{v}" for c, v in VARIANTS])
+def test_pack_rows_edge_docs_every_variant_match_reference(codec, vq):
+    """Edge rows, a forced capacity and shard-local ``doc_range`` packs;
+    for the codecs that take them, gaps past 2**16 too."""
+    dim = 30522
+    docs = edge_docs(dim, np.random.default_rng(4), n_random=12)
+    if codec != "dotvbyte":
+        dim = 1 << 25
+        docs += wide_docs(dim, np.random.default_rng(5), n_random=3)
+    for kw in ({}, {"l_max": 384}, {"doc_range": (1, 9)}):
+        ref = ref_layout.pack_rows(RefForwardIndex.from_docs(docs, dim, "f16"),
+                                   codec=codec, vq=vq, **kw)
+        port = layout.pack_rows(ForwardIndex.from_docs(docs, dim, "f16"),
+                                codec=codec, vq=vq, **kw)
+        assert port.l_max == ref.l_max
+        assert_same_arrays(port.arrays(), ref.arrays())
+
+
+@pytest.mark.parametrize("codec,vq", [("streamvbyte", "u8_sq"), ("bitpack", "pq"),
+                                      ("uncompressed", "u4_sq")])
+def test_seismic_arrays_every_codec_match_reference(collections, codec, vq):
+    ref, port = collections
+    kw = dict(n_postings=40, block_size=8)
+    params = dict(cut=8, block_budget=512, n_probe=64, **kw)
+    want = RefSeismicEngine().arrays_from_index(
+        RefSeismicIndex.build(ref.fwd, RefSeismicParams(**kw)),
+        RefConfig(engine="seismic", codec=codec, vq=vq, params=params))
+    got = SeismicEngine().arrays_from_index(
+        SeismicIndex.build(port.fwd, SeismicParams(**kw)),
+        RetrieverConfig(engine="seismic", codec=codec, vq=vq, params=params))
+    assert_same_arrays(got, want)

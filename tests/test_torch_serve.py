@@ -149,8 +149,8 @@ def test_artifact_errors(collection, tmp_path):
     mf.write_text(text.replace('"version": 1', '"version": 99'))
     with pytest.raises(api.ArtifactError, match="version"):
         api.open_retriever(tmp_path / "a", device="cpu")
-    mf.write_text(text.replace('"vq": "f16"', '"vq": "pq"'))
-    with pytest.raises(NotImplementedError, match="queue A2"):
+    mf.write_text(text.replace('"vq": "f16"', '"vq": "u2_sq"'))
+    with pytest.raises(api.ArtifactError, match="unknown value codec"):
         api.open_retriever(tmp_path / "a", device="cpu")
     with pytest.raises(api.ArtifactError, match="no manifest"):
         api.open_retriever(tmp_path / "missing", device="cpu")
@@ -165,6 +165,31 @@ def test_cli_runs_end_to_end(tmp_path, capsys):
     assert len(lines) == 2 and "backend=cuda" in lines[0] and "backend=torch" in lines[1]
     assert "roundtrip=ids-identical" in lines[1] and "(CPU)" in lines[1]
     assert (tmp_path / "seismic-dotvbyte" / "manifest.json").is_file()
+
+
+def test_cli_compare_codecs_sweeps_one_host_index(tmp_path, capsys):
+    """``--compare-codecs`` builds the Seismic host index once and serves
+    every row codec over it; compression is lossless, so recall is the
+    same for every codec, and the bits per component are the reference's."""
+    from repro.data import synthetic as ref_syn
+    from repro.core.forward_index import ForwardIndex as RefForwardIndex
+
+    argv = ["--device", "cpu", "--n-docs", "150", "--n-queries", "3", "--compare-codecs"]
+    serve_cli.main(argv + ["--save-index", str(tmp_path)])
+    serve_cli.main(argv + ["--load-index", str(tmp_path), "--backend", "torch"])
+    out = capsys.readouterr().out
+    assert out.count("host index built") == 1
+    lines = [ln for ln in out.splitlines() if "recall@10=" in ln]
+    assert [ln.split("codec=")[1].split()[0] for ln in lines] == sorted(
+        ["uncompressed", "dotvbyte", "streamvbyte", "bitpack"]) * 2
+    assert len({ln.split("recall@10=")[1].split()[0] for ln in lines}) == 1
+    fwd = ref_syn.generate_collection(ref_syn.splade_config(150, 3, 0), value_format="f16").fwd
+    ref = RefForwardIndex(fwd.components, fwd.values, fwd.offsets, fwd.dim, fwd.value_format)
+    for ln in lines:
+        codec = ln.split("codec=")[1].split()[0]
+        bits = 8 * ref.storage_bytes(codec)["components"] / ref.total_nnz
+        assert f"({bits:.1f} bits/comp vs 16.0 raw" in ln
+    assert all("roundtrip=ids-identical" in ln for ln in lines[4:])
 
 
 def test_import_leaves_jax_and_reference_out():

@@ -5,6 +5,11 @@ import numpy as np
 #: positions in :func:`edge_docs`' output
 EMPTY, FULL, ONE_BYTE, TWO_BYTE, EMPTY2 = range(5)
 
+#: every row codec × value codec the rows kernel serves
+CODECS = ("uncompressed", "dotvbyte", "streamvbyte", "bitpack")
+VQS = ("f16", "u8_sq", "u4_sq", "pq")
+VARIANTS = [(c, v) for c in CODECS for v in VQS]
+
 
 def edge_docs(dim, rng, n_random=40, full=256):
     """(components, values) documents that reach every row case:
@@ -17,6 +22,21 @@ def edge_docs(dim, rng, n_random=40, full=256):
     docs.append((np.arange(300, dim, max(300, dim // 60))[:50], rng.gamma(2, .5, 50)))
     docs.append((np.zeros(0, np.int64), np.zeros(0, np.float32)))
     for n in rng.integers(1, 200, size=n_random):
+        docs.append((np.sort(rng.choice(dim, size=int(n), replace=False)),
+                     rng.gamma(2, .5, int(n))))
+    return docs
+
+
+def wide_docs(dim, rng, n_random=12):
+    """Documents over a vocabulary wider than 2**16 (StreamVByte codes 2
+    and, past 2**24, 3; bitpack widths above 16): one whose gaps take
+    every byte length the vocabulary allows, one of width-5 gaps that
+    straddle u32 words, then random docs. DotVByte cannot encode them."""
+    comps = np.cumsum([0, 7, 300, 70_000, 1 << 24])
+    comps = comps[comps < dim]
+    docs = [(comps, rng.gamma(2, .5, len(comps))),
+            (np.arange(0, 31 * 37, 31), rng.gamma(2, .5, 37))]
+    for n in rng.integers(1, 120, size=n_random):
         docs.append((np.sort(rng.choice(dim, size=int(n), replace=False)),
                      rng.gamma(2, .5, int(n))))
     return docs
