@@ -9,7 +9,8 @@ no result:
 
 1. device and build — the card's name and power limit; every CUDA kernel
    of the port built from ``src/repro_torch/kernels/csrc`` (one ``nvcc``
-   per source, started together), with ptxas' register/spill report per
+   per library: the rows kernel and the four parts of the block-scan
+   kernel, started together), with ptxas' register/spill report per
    kernel variant;
 2. kernel vs plain — every variant of the rows kernel (row codec
    uncompressed / dotvbyte / streamvbyte / bitpack × value codec f16 /
@@ -18,7 +19,16 @@ no result:
    forms (shared ``nd = 1`` and per-query ``nd = nq``), on sentinel,
    empty, full-capacity, 1-byte-gap, 2-byte-gap and word-straddling
    rows; and, for the codecs that take gaps past 16 bits, a small case
-   at a vocabulary of 2**24 + 2**20 (StreamVByte codes 2 and 3);
+   at a vocabulary of 2**24 + 2**20 (StreamVByte codes 2 and 3). The
+   rows kernel again on f32 and fixedu8 values (vq f16 reads the stored
+   dtype), and ``Retriever.build`` over an f32 and a fixedu8 collection
+   served with ``backend="cuda"``. Every block-scan entry (dotvbyte,
+   streamvbyte and bitpack at the per-block width, single and batched;
+   bitpack at each static width its packs hold) against its plain
+   version, on f32 / f16 / fixedu8 values, i32 / i8 ``seg``, T = 128 and
+   512, blocks that close on D = 5 slots, docs longer than T, empty
+   docs, a one-doc corpus and, for StreamVByte and bitpack, dim
+   2**24 + 2**20;
 3. main path — a SPLADE-statistics collection (``--n-docs``, default
    100,000 of MsMarco's 8,842,240, seed 0; 64 queries) and ONE Seismic
    host index. DotVByte/f16 is served as before: ``Retriever`` built,
@@ -37,7 +47,16 @@ no result:
    kernel's time (CUDA events) beside its plain version and its bound at
    the Seismic and flat shapes, with ``torch.sparse.mm`` (cuSPARSE) over
    the same scores as the flat shape's library yardstick;
-5. one JSON line of kernels, the card line, and as the last line
+5. the full scan — the same collection packed into blocks (T = 512)
+   for dotvbyte, streamvbyte and bitpack, every document scored through
+   ``ops.score_*_batch`` (nq = 64), ``ops.score_*`` and
+   ``score_bitpack_bucketed``. The block-scan launch counts are zeroed
+   just before and read just after. Each result is held against
+   ``torch.sparse.mm`` over the uncompressed CSR (rtol = atol = 1e-4) and
+   its top-10 against ``exact_top_k``; the kernel alone, the whole entry
+   (kernel + scatter), the plain version, the bound and the library
+   call are timed;
+6. one JSON line of kernels, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -140,19 +159,45 @@ def device_breakdown(name: str, fn, card: str, reps: int = 5) -> None:
         log(f"      {ms:8.4f} ms {100 * ms / total:5.1f}%  {key[:90]}")
 
 
+#: mangled template arguments → storage names
+_MANGLED = {"f": "f32", "6__half": "f16", "h": "u8", "i": "i32", "a": "i8"}
+
+
 def ptxas_report(log_text: str) -> dict[str, list[str]]:
-    """ptxas' ``-v`` lines per rows-kernel variant (by template args)."""
-    from repro_torch.kernels import rows_dot
+    """ptxas' ``-v`` lines per kernel variant (by template args): rows
+    ``<codec, vq, value storage>`` and block scan ``<code, value
+    storage, seg storage>``."""
+    from repro_torch.kernels import block_scan, rows_dot
     from repro_torch.core.values import VALUE_CODECS
 
     out, cur = {}, None
     for line in log_text.splitlines():
-        m = re.search(r"rows_dot_kernelILi(\d)ELi(\d)E", line)
-        if m and ("Compiling entry" in line or "Function properties" in line):
-            cur = rows_dot.variant_name(rows_dot.CODECS[int(m[1])], VALUE_CODECS[int(m[2])])
+        rows = re.search(r"rows_dot_kernelILi(\d)ELi(\d)E(f|6__half|h)?", line)
+        scan = re.search(r"block_scan_kernelILi(\d+)E(f|6__half|h)(i|a)E", line)
+        if (rows or scan) and ("Compiling entry" in line or "Function properties" in line):
+            if rows:
+                cur = rows_dot.variant_name(rows_dot.CODECS[int(rows[1])],
+                                            VALUE_CODECS[int(rows[2])])
+                if rows[3] and VALUE_CODECS[int(rows[2])] == "f16":  # the stored dtype
+                    cur += f"[{_MANGLED[rows[3]]}]"
+            else:
+                code = int(scan[1])
+                codec = block_scan.CODECS[min(code, 2)] + (f"_w{code - 2}" if code > 2 else "")
+                cur = f"block_scan_{codec}[{_MANGLED[scan[2]]},{_MANGLED[scan[3]]}]"
         elif cur and ("Used" in line or "spill" in line):
             out.setdefault(cur, []).append(line.split(":", 1)[-1].strip())
     return out
+
+
+def regs_spills(lines: list[str]) -> str:
+    """ptxas' lines of one variant → "<registers> regs, <spill stores>/<spill
+    loads> B spilled"."""
+    text = " ".join(lines)
+    regs = re.search(r"Used (\d+) registers", text)
+    st = re.search(r"(\d+) bytes spill stores", text)
+    ld = re.search(r"(\d+) bytes spill loads", text)
+    return (f"{regs[1] if regs else '?'} regs, {st[1] if st else '?'}/{ld[1] if ld else '?'}"
+            " B spilled")
 
 
 def rows_bound(codec: str, Q, docs, arrays) -> tuple[float, str]:
@@ -264,6 +309,235 @@ def same_topk(ids_a, sc_a, ids_b, sc_b) -> int:
     return int(diff.sum())
 
 
+#: block-scan entry → (codec, batched); bitpack_w is the bucketed static width
+BLOCK_ENTRIES = {
+    "block_scan_dotvbyte": ("dotvbyte", False),
+    "block_scan_dotvbyte_batch": ("dotvbyte", True),
+    "block_scan_streamvbyte": ("streamvbyte", False),
+    "block_scan_streamvbyte_batch": ("streamvbyte", True),
+    "block_scan_bitpack": ("bitpack", False),
+    "block_scan_bitpack_batch": ("bitpack", True),
+    "block_scan_bitpack_w": ("bitpack", False),
+}
+BLOCK_CODECS = ("dotvbyte", "streamvbyte", "bitpack")
+
+
+def scan_fn(codec: str, batched: bool):
+    """The block-scan entry ``<codec>_block_scores[_batch]``."""
+    from repro_torch.kernels import block_scan
+
+    return getattr(block_scan, f"{codec}_block_scores" + ("_batch" if batched else ""))
+
+
+def scan_args(packed) -> list:
+    """The block-scan entry's stream arguments of a pack held as tensors."""
+    keys = ("ctrl", "data") if packed.codec != "bitpack" else ("words", "widths")
+    return [getattr(packed, k) for k in (*keys, "seg", "start_pos", "start_abs", "vals")]
+
+
+def bucket_streams(packed, sel, words) -> dict:
+    """One width bucket's streams (``ops.width_buckets``)."""
+    return {"words": words, **{k: getattr(packed, k)[sel]
+                               for k in ("seg", "start_pos", "start_abs", "vals")}}
+
+
+def check_close(name: str, got, want) -> float:
+    """Kernel vs plain → max abs difference; exits at a disagreement."""
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    if not torch.allclose(got, want, rtol=RTOL, atol=ATOL):
+        raise SystemExit(f"block-scan kernel disagrees with its plain version at {name} "
+                         f"(max_abs_err={err:.3e}, rtol={RTOL}, atol={ATOL})")
+    return err
+
+
+def check_blocks(name: str, Q, packed, max_err: dict) -> str:
+    """Every block-scan entry of the pack's codec against its plain
+    version: batched (Q), single (Q[0]) and, for bitpack, each static
+    width the pack holds. These launches compare; they are not the main
+    path's."""
+    from repro_torch.kernels import block_scan, ops
+
+    codec, scale = packed.codec, float(packed.value_format.scale)
+    streams = {k: v for k, v in packed.as_dict().items() if k != "doc_ids"}
+    plain = block_scan.block_scores_plain(codec, Q, streams, scale=scale)
+    single, batch = scan_fn(codec, False), scan_fn(codec, True)
+    errs = {f"block_scan_{codec}_batch": check_close(
+                f"{name} batch", batch(Q, *scan_args(packed), scale=scale), plain),
+            f"block_scan_{codec}": check_close(
+                f"{name} single", single(Q[0], *scan_args(packed), scale=scale), plain[0])}
+    widths = []
+    if codec == "bitpack":
+        err_w = 0.0
+        for w, sel, words in ops.width_buckets(packed):
+            b = bucket_streams(packed, sel, words)
+            got = block_scan.bitpack_block_scores_w(Q[0], *b.values(), width=w, scale=scale)
+            want = block_scan.block_scores_plain("bitpack", Q[:1], b, scale=scale, width=w)[0]
+            err_w = max(err_w, check_close(f"{name} width {w}", got, want))
+            widths.append(w)
+        errs["block_scan_bitpack_w"] = err_w
+    for k, v in errs.items():
+        max_err[k] = max(max_err.get(k, 0.0), v)
+    return (f"B={packed.n_blocks} max_abs_err " + ", ".join(
+        f"{k[len('block_scan_'):]} {v:.1e}" for k, v in errs.items())
+        + (f" (widths {widths})" if widths else ""))
+
+
+def tie_aware_topk(name: str, ids, scores, truth_ids, truth_scores) -> int:
+    """Top-k ids equal to the exact top-k, except where the exact scores
+    of two differing positions are tied (rtol TIE_RTOL) → the number of
+    such positions; exits otherwise."""
+    diff = ids != truth_ids
+    if diff.any() and not np.allclose(scores[diff], truth_scores[diff], rtol=TIE_RTOL, atol=0):
+        raise SystemExit(f"{name}: top-k ids differ from exact_top_k at untied positions")
+    np.testing.assert_allclose(scores, truth_scores, rtol=1e-4, atol=1e-4)
+    return int(diff.sum())
+
+
+def scan_bound(packed, nq: int, dim: int, words_bytes: int | None = None):
+    """Least time for one full-scan entry on these inputs: every stream of
+    the pack read once (bitpack's bucketed entry: the tight bucket words
+    in place of the padded ones), Q read once and the nq × n_docs f32
+    scores written once, over the HBM rate; against one multiply-add (2
+    FLOP) per (query, live entry) at the f32 peak."""
+    n_bytes = sum(int(a.nbytes) for a in packed.as_dict().values())
+    if words_bytes is not None:
+        n_bytes += words_bytes - int(packed.words.nbytes)
+    n_bytes += 4 * nq * dim + 4 * nq * packed.n_docs
+    pairs = nq * int((packed.seg >= 0).sum())
+    t_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * 2 * pairs / F32_FLOP_PER_S
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def full_scan(fwd, Q, truth, csr, card: str, max_err: dict) -> list[dict]:
+    """Phase 5: the full-scan path over the main collection → the
+    block-scan entries' kernel-line records."""
+    from repro_torch.core.layout import pack_blocks
+    from repro_torch.kernels import block_scan, ops
+    from repro_torch.serve.api import top_k
+
+    nq, dim = Q.shape
+    packs = {}
+    for codec in BLOCK_CODECS:
+        t0 = time.perf_counter()
+        p = pack_blocks(fwd, codec=codec, block_size=512)
+        secs = time.perf_counter() - t0
+        streams = ", ".join(f"{k} {a.nbytes / 2**20:.1f}" for k, a in p.as_dict().items())
+        log(f"    pack_blocks({codec}, T=512): B={p.n_blocks}, D={p.max_docs_per_block}; MiB "
+            f"{streams}; payload_bytes {p.payload_bytes()} in {secs:.1f}s")
+        packs[codec] = p.to(Q.device)
+    q0 = Q[0]
+
+    # the path: every entry once, counts zeroed just before and read just after
+    block_scan.reset_launches()
+    results = {}
+    for codec, p in packs.items():
+        single, batch = ops.block_scorers(codec)
+        results[f"block_scan_{codec}_batch"] = batch(Q, p)
+        results[f"block_scan_{codec}"] = single(q0, p)
+    results["block_scan_bitpack_w"] = ops.score_bitpack_bucketed(q0, packs["bitpack"])
+    torch.cuda.synchronize()
+    launches = dict(block_scan.variant_launches)
+    log("    full-scan launches: " + ", ".join(f"{k}={v}" for k, v in launches.items()))
+    missing = [k for k, v in launches.items() if v <= 0]
+    if missing:
+        raise SystemExit(f"the full scan did not launch {missing}")
+
+    # checks: torch.sparse.mm over the uncompressed CSR and exact_top_k
+    Qt = Q.t().contiguous()
+    q_col = q0.unsqueeze(1).contiguous()
+    lib = {True: torch.sparse.mm(csr, Qt).t(), False: torch.sparse.mm(csr, q_col).t()}
+    for entry, got in results.items():
+        batched = BLOCK_ENTRIES[entry][1]
+        want = lib[batched] if batched else lib[False][0]
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+        sc, ids = top_k(got if batched else got.unsqueeze(0), 10)
+        swaps = sum(tie_aware_topk(f"{entry} query {i}", ids[i].cpu().numpy(),
+                                   sc[i].cpu().numpy(), *truth[i]) for i in range(ids.shape[0]))
+        log(f"    {entry}: scores == sparse.mm (rtol=atol=1e-4); top-10 == exact_top_k "
+            f"for {ids.shape[0]} queries ({swaps} tied swaps)")
+
+    # timings at the main path's shapes, and kernel vs plain there
+    lib_ms = {True: cuda_ms(lambda: torch.sparse.mm(csr, Qt), 10),
+              False: cuda_ms(lambda: torch.sparse.mm(csr, q_col), 20)}
+    log(f"    torch.sparse.mm (CSR {fwd.n_docs}x{fwd.dim}, {fwd.total_nnz} nnz): "
+        f"x Q.T {lib_ms[True]:.4f} ms, x q {lib_ms[False]:.4f} ms ({card})")
+    out = []
+    for entry, (codec, batched) in BLOCK_ENTRIES.items():
+        p = packs[codec]
+        scale = float(p.value_format.scale)
+        Qx = Q if batched else Q[:1]
+        single, batch = ops.block_scorers(codec)
+        if entry == "block_scan_bitpack_w":
+            buckets = [(w, bucket_streams(p, sel, words)) for w, sel, words in ops.width_buckets(p)]
+
+            def kernel():
+                return [block_scan.bitpack_block_scores_w(q0, *b.values(), width=w, scale=scale)
+                        for w, b in buckets]
+
+            def plain():
+                return [block_scan.block_scores_plain("bitpack", Qx, b, scale=scale, width=w)[0]
+                        for w, b in buckets]
+
+            def whole():
+                return ops.score_bitpack_bucketed(q0, p)
+
+            err = max(check_close(f"{entry} @ 100k width {w}", g, e)
+                      for (w, _), g, e in zip(buckets, kernel(), plain()))
+            bound_ms, bound_by = scan_bound(p, 1, dim, sum(int(b["words"].nbytes)
+                                                           for _, b in buckets))
+        else:
+            args = scan_args(p)
+            fn = scan_fn(codec, batched)
+            streams = {k: v for k, v in p.as_dict().items() if k != "doc_ids"}
+
+            def kernel():
+                return fn(Q if batched else q0, *args, scale=scale)
+
+            def plain():
+                r = block_scan.block_scores_plain(codec, Qx, streams, scale=scale)
+                return r if batched else r[0]
+
+            def whole():
+                return (batch(Q, p) if batched else single(q0, p))
+
+            err = check_close(f"{entry} @ 100k", kernel(), plain())
+            bound_ms, bound_by = scan_bound(p, Qx.shape[0], dim)
+        max_err[entry] = max(max_err.get(entry, 0.0), err)
+        ms = cuda_ms(kernel, 10 if batched else 20)
+        entry_ms = cuda_ms(whole, 10 if batched else 20)
+        plain_ms = cuda_ms(plain, 2 if batched else 3, 1)
+        inter = 4 * Qx.shape[0] * p.n_blocks * p.max_docs_per_block
+        log(f"  {entry}: kernel {ms:.4f} ms, entry (kernel + scatter) {entry_ms:.4f} ms, "
+            f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by}, sparse.mm "
+            f"{lib_ms[batched]:.4f} ms; [nq,B,D] intermediate {inter / 2**20:.1f} MiB = "
+            f"{1e3 * inter / HBM_BYTES_PER_S:.4f} ms written once at the HBM rate; "
+            f"max_abs_err {max_err[entry]:.2e} ({card})")
+        out.append({
+            "name": entry,
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/block_scan.cu",
+            "replaces": block_scan.ENTRIES[entry],
+            "launches": launches[entry],
+            "max_abs_err": max_err[entry],
+            "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+            "library_ms": lib_ms[batched],
+            "entry_ms": entry_ms,
+            "nq": Qx.shape[0],
+            "n_blocks": p.n_blocks,
+            "intermediate_bytes": inter,
+        })
+    device_breakdown("full scan dotvbyte batch", lambda: ops.score_dotvbyte_batch(Q, packs[
+        "dotvbyte"]), card)
+    device_breakdown("full scan dotvbyte single", lambda: ops.score_dotvbyte(q0, packs[
+        "dotvbyte"]), card)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="smoke run of the port on one GPU")
     ap.add_argument("--n-docs", type=int, default=100_000,
@@ -278,7 +552,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from repro_torch.core.forward_index import ForwardIndex
-    from repro_torch.core.layout import pack_rows
+    from repro_torch.core.layout import pack_blocks, pack_rows
     from repro_torch.core.seismic import exact_top_k, recall_at_k
     from repro_torch.data.synthetic import generate_collection, splade_config
     from repro_torch.kernels import build, rows_dot
@@ -299,15 +573,26 @@ def main() -> int:
     built = build.compile_kernels(build.SOURCES)
     log(f"    built {sorted(built)} in {time.perf_counter() - t0:.2f}s")
     for name, info in built.items():
-        for variant, lines in sorted(ptxas_report(info["log"] or "").items()):
-            log(f"    {variant}: " + "; ".join(lines))
+        log(f"    {name}: nvcc {info['seconds']:.1f}s")
+        report = ptxas_report(info["log"] or "")
+        for variant, lines in sorted(report.items()):
+            if variant.startswith("rows_dot"):
+                log(f"    {variant}: " + "; ".join(lines))
+        groups = {}
+        for variant, lines in sorted(report.items()):
+            if variant.startswith("block_scan"):
+                entry, storage = variant[:-1].split("[")
+                groups.setdefault(entry, []).append(f"{storage} {regs_spills(lines)}")
+        for entry, items in groups.items():
+            log(f"    {entry}: " + "; ".join(items))
     phase_s["1 build"] = time.perf_counter() - t_start
 
     # -- 2. every variant vs plain at real widths ---------------------------------
     t0 = time.perf_counter()
     rng = np.random.default_rng(0)
     dim, nq, C = 30522, N_QUERIES, 4096
-    fwd_e = ForwardIndex.from_docs(edge_docs(dim, 256, 3000, rng), dim, value_format="f16")
+    e_docs = edge_docs(dim, 256, 3000, rng)
+    fwd_e = ForwardIndex.from_docs(e_docs, dim, value_format="f16")
     Qe = torch.from_numpy(sparse_queries(nq, dim, 43, rng)).to(dev)
     n_e = fwd_e.n_docs
     ids = rng.integers(0, n_e + 1, size=(nq, C)).astype(np.int32)
@@ -340,7 +625,69 @@ def main() -> int:
         log(f"  {names[codec, vq]:28s} max_abs_err nd=1 {errs[0]:.2e}, nd=nq {errs[1]:.2e}"
             f"{wide} ok")
     del Qw
+    # vq f16 reads the values as stored: f32 and fixedu8 rows too
+    for vf in ("f32", "fixedu8"):
+        fwd_v = ForwardIndex.from_docs(e_docs, dim, value_format=vf)
+        errs = []
+        for codec in rows_dot.CODECS:
+            arrays = {k: torch.from_numpy(v).to(dev)
+                      for k, v in pack_rows(fwd_v, codec=codec).arrays().items()}
+            scale_v = float(fwd_v.value_format.scale)
+            errs += [check_kernel(codec, f"{names[codec, 'f16']} {vf} nd=1", Qe,
+                                  ids[:1].contiguous(), arrays, scale_v),
+                     check_kernel(codec, f"{names[codec, 'f16']} {vf} nd=nq", Qe, ids, arrays,
+                                  scale_v)]
+            max_err[codec, "f16"] = max(max_err[codec, "f16"], *errs[-2:])
+        log(f"  rows kernel on {vf} values (vq f16), 4 codecs x nd=1/nq: max_abs_err "
+            f"{max(errs):.2e} ok")
+    # Retriever.build over f32 and fixedu8 collections, served on the card
+    for vf in ("f32", "fixedu8"):
+        col_v = generate_collection(splade_config(2000, 8, 1), value_format=vf)
+        Qv = np.stack([col_v.query_dense(i) for i in range(col_v.n_queries)])
+        ret = Retriever.build(col_v.fwd, RetrieverConfig(engine="flat", codec="dotvbyte",
+                                                         backend="cuda", k=10))
+        before = rows_dot.variant_launches[names["dotvbyte", "f16"]]
+        got_ids, got_sc = (t.cpu().numpy() for t in ret.search(Qv))
+        if rows_dot.variant_launches[names["dotvbyte", "f16"]] <= before:
+            raise SystemExit(f"the {vf} Retriever did not launch the rows kernel")
+        swaps = sum(tie_aware_topk(f"{vf} flat query {i}", got_ids[i], got_sc[i],
+                                   *exact_top_k(col_v.fwd, Qv[i], 10))
+                    for i in range(len(Qv)))
+        log(f"  Retriever.build({vf} collection, flat, dotvbyte, backend=cuda): ids == "
+            f"exact_top_k for {len(Qv)} queries ({swaps} tied swaps)")
     phase_s["2 kernel vs plain"] = time.perf_counter() - t0
+
+    # -- 2b. every block-scan entry vs plain on edge packs ---------------------------
+    t0 = time.perf_counter()
+    block_err: dict[str, float] = {}
+    b_docs = edge_docs(dim, 700, 600, rng)  # docs up to 700 entries: longer than T
+    Qb = torch.from_numpy(rng.random((nq, dim)).astype(np.float32)).to(dev)
+    log(f"[2b] block-scan kernel vs plain (nq={nq}, dim={dim}; rtol={RTOL}, atol={ATOL}):")
+    for vf in ("f32", "f16", "fixedu8"):
+        fwd_b = ForwardIndex.from_docs(b_docs, dim, value_format=vf)
+        for codec in BLOCK_CODECS:
+            for T, seg, D in ((128, np.int32, None), (512, np.int32, None), (128, np.int8, 5),
+                              (512, np.int8, None)):
+                packed = pack_blocks(fwd_b, codec=codec, block_size=T, max_docs_per_block=D,
+                                     seg_dtype=seg).to(dev)
+                name = f"{codec} {vf} T={T} seg={np.dtype(seg).name} D={packed.max_docs_per_block}"
+                log(f"  {name}: " + check_blocks(name, Qb, packed, block_err))
+    one = ForwardIndex.from_docs([(np.sort(rng.choice(dim, 1500, replace=False)),
+                                   rng.gamma(2.0, 0.5, 1500))], dim, value_format="f16")
+    wide_b = ForwardIndex.from_docs(
+        wide_docs(wide_dim, rng) + [(np.array([i, wide_dim - 1 - i]), np.ones(2))
+                                    for i in range(200)], wide_dim, value_format="f16")
+    Qwb = torch.rand((2, wide_dim), device=dev, generator=torch.Generator(dev).manual_seed(1))
+    for codec in BLOCK_CODECS:
+        log(f"  {codec} one-doc corpus (1500 entries, T=512): " + check_blocks(
+            f"{codec} one-doc", Qb, pack_blocks(one, codec=codec).to(dev), block_err))
+        if codec != "dotvbyte":  # DotVByte stores 16-bit gaps only
+            log(f"  {codec} dim {wide_dim} (T=256, D=200; a block's gap sum passes 2**31): "
+                + check_blocks(f"{codec} wide", Qwb, pack_blocks(
+                    wide_b, codec=codec, block_size=256, max_docs_per_block=200).to(dev),
+                    block_err))
+    del Qwb
+    phase_s["2b block scan vs plain"] = time.perf_counter() - t0
 
     # -- 3. the main path -----------------------------------------------------
     t0 = time.perf_counter()
@@ -515,10 +862,17 @@ def main() -> int:
     shutil.rmtree(ROOT / "build" / "chip_smoke", ignore_errors=True)
     phase_s["4 checks + timings"] = time.perf_counter() - t0
 
-    # -- 5. summary -------------------------------------------------------------
+    # -- 5. the full scan ------------------------------------------------------------
+    t0 = time.perf_counter()
+    log(f"[5] full scan of the {fwd.n_docs}-doc collection (nq={nq}):")
+    n_rows = len(kernels)
+    kernels += full_scan(fwd, Q, truth, csr, card, block_err)
+    phase_s["5 full scan"] = time.perf_counter() - t0
+
+    # -- 6. summary -------------------------------------------------------------
     log("phases: " + ", ".join(f"{k} {v:.1f}s" for k, v in phase_s.items()))
-    log(f"ported kernels: {len(kernels)} rows_dot variants ok; total "
-        f"{time.perf_counter() - t_start:.0f}s")
+    log(f"ported kernels: {n_rows} rows_dot variants and {len(kernels) - n_rows} block-scan "
+        f"entries ok; total {time.perf_counter() - t_start:.0f}s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,21 +1,26 @@
 """The forward index (paper §1-§2): doc_id → sparse vector, CSR layout
 (numpy; a copy of the parts of ``repro/core/forward_index.py`` the
-serving path and the paper's space metric need).
+serving path, the full scan and the paper's space metric need).
 
 Three arrays, as the paper describes: ``components`` (nonzero
 coordinate ids), ``values`` (their values), ``offsets`` (row pointers).
 Values may be stored as f32, f16 or fixedU8; quantisation is applied
 at build time and dequantisation fused into the scoring path.
+
+Also the packed block layout of the full scan (``PackedBlocks``):
+documents split into self-contained blocks of ``block_size`` entries,
+each fragment opening with its absolute first component stored out of
+band (``start_abs``), so every block decodes on its own.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterable
+from typing import Iterable, Mapping
 
 import numpy as np
 
-__all__ = ["ValueFormat", "ForwardIndex", "VALUE_FORMATS"]
+__all__ = ["ValueFormat", "ForwardIndex", "PackedBlocks", "pack_forward_index", "VALUE_FORMATS"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,3 +134,137 @@ class ForwardIndex:
             "values": int(self.values.nbytes),
             "offsets": int(self.offsets.nbytes),
         }
+
+
+#: the optional array fields of ``PackedBlocks``, in ``as_dict`` order
+_BLOCK_OPTIONAL = ("ctrl", "data", "words", "widths", "comps", "vq_lo", "vq_scale", "vq_codebook")
+
+
+@dataclasses.dataclass
+class PackedBlocks:
+    """Self-contained fixed-size blocks for the full scan.
+
+    Shapes (B = n_blocks, T = block_size, D = max docs/block):
+
+    ============  =========  ==================================================
+    field         shape      meaning
+    ============  =========  ==================================================
+    seg           i32 [B,T]  local doc-slot id per element, -1 for padding
+                             (i8 in the slim layout)
+    start_pos     i32 [B,D]  element index of each slot's first element
+    start_abs     i32 [B,D]  absolute first component of each fragment
+    vals          [B,T]      stored-dtype values (0 for padding), or u8 codes
+                             under a quantized ``vq``
+    doc_ids       i32 [B,D]  global doc id per slot, -1 for unused slots
+    ctrl          u8 [B,T/8] DotVByte controls — or [B,T/4] StreamVByte
+                             2-bit controls (lane-padded)
+    data          u8 [B,DP]  byte stream, padded (dotvbyte/streamvbyte)
+    words         u32[B,W]   bitpack words (codec="bitpack")
+    widths        i32 [B]    bitpack bit-width per block (codec="bitpack")
+    comps         i32 [B,T]  absolute components (codec="uncompressed")
+    ============  =========  ==================================================
+
+    Gap streams encode the within-fragment gaps with the fragment-first
+    gap forced to 0; absolutes live in ``start_abs``. Built by
+    ``core.layout.pack_blocks`` with numpy arrays; :meth:`to` moves
+    every array onto a torch device for the scoring paths."""
+
+    codec: str
+    block_size: int
+    n_docs: int
+    dim: int
+    value_format: ValueFormat
+    seg: np.ndarray
+    start_pos: np.ndarray
+    start_abs: np.ndarray
+    vals: np.ndarray
+    doc_ids: np.ndarray
+    ctrl: np.ndarray | None = None
+    data: np.ndarray | None = None
+    words: np.ndarray | None = None
+    widths: np.ndarray | None = None
+    comps: np.ndarray | None = None
+    #: value codec: quantized vqs store u8 codes in ``vals`` plus
+    #: per-block clip ranges or a shared codebook
+    vq: str = "f16"
+    vq_lo: np.ndarray | None = None
+    vq_scale: np.ndarray | None = None
+    vq_codebook: np.ndarray | None = None
+
+    @property
+    def n_blocks(self) -> int:
+        return self.seg.shape[0]
+
+    @property
+    def max_docs_per_block(self) -> int:
+        return self.doc_ids.shape[1]
+
+    def as_dict(self) -> dict:
+        """Every populated array field, keyed by name."""
+        out = {
+            "seg": self.seg,
+            "start_pos": self.start_pos,
+            "start_abs": self.start_abs,
+            "vals": self.vals,
+            "doc_ids": self.doc_ids,
+        }
+        for k in _BLOCK_OPTIONAL:
+            a = getattr(self, k)
+            if a is not None:
+                out[k] = a
+        return out
+
+    def payload_bytes(self) -> int:
+        """Bytes the scoring path streams from device memory."""
+        return sum(int(a.nbytes) for a in self.as_dict().values())
+
+    @classmethod
+    def from_dict(
+        cls,
+        arrays: Mapping,
+        *,
+        codec: str,
+        block_size: int,
+        n_docs: int,
+        dim: int,
+        value_format: str,
+        vq: str = "f16",
+    ) -> "PackedBlocks":
+        """A pack from its ``as_dict()`` arrays plus metadata — how a
+        reference pack crosses into the port byte for byte."""
+        unknown = set(arrays) - {"seg", "start_pos", "start_abs", "vals", "doc_ids",
+                                 *_BLOCK_OPTIONAL}
+        if unknown:
+            raise ValueError(f"unknown PackedBlocks fields {sorted(unknown)}")
+        return cls(codec=codec, block_size=int(block_size), n_docs=int(n_docs),
+                   dim=int(dim), value_format=VALUE_FORMATS[value_format], vq=vq,
+                   **{k: np.asarray(v) for k, v in arrays.items()})
+
+    def to(self, device) -> "PackedBlocks":
+        """The same pack with every array a torch tensor on ``device``."""
+        import torch
+
+        def move(a):
+            if isinstance(a, torch.Tensor):
+                return a.to(device)
+            return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+        return dataclasses.replace(self, **{k: move(v) for k, v in self.as_dict().items()})
+
+
+def pack_forward_index(
+    fwd: ForwardIndex,
+    codec: str = "dotvbyte",
+    block_size: int = 512,
+    max_docs_per_block: int | None = None,
+    seg_dtype=np.int32,
+    vq: str = "f16",
+    vq_clip=None,
+) -> PackedBlocks:
+    """Build the packed block layout from a CSR forward index (an alias
+    of ``core.layout.pack_blocks`` under the reference's import path)."""
+    from .layout import pack_blocks
+
+    return pack_blocks(fwd, codec=codec, block_size=block_size,
+                       max_docs_per_block=max_docs_per_block, seg_dtype=seg_dtype,
+                       vq=vq, vq_clip=vq_clip)

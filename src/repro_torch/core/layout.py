@@ -1,13 +1,19 @@
-"""Codec-pluggable packed row layout — the one place a gap stream
-becomes device arrays (a copy of the row half of
-``repro/core/layout.py``; every packed array is byte-identical to the
-reference's).
+"""Codec-pluggable packed layouts — the one place a gap stream becomes
+device arrays (a copy of ``repro/core/layout.py`` without its sharded
+helpers; every packed array is byte-identical to the reference's).
 
-The row form ``[N+1, L]`` holds one fixed-capacity row per document for
-the serve engines' candidate rescoring (``pack_rows`` →
-``PackedRows``); the ``+1`` row is the all-zero sentinel that
-out-of-corpus candidate ids gather. Row gaps carry the absolute first
-component (per-document alignment), so a plain cumsum rebuilds the ids.
+A ``ForwardIndex`` reaches the device in two fixed-shape forms:
+
+* the block form ``[B, T]`` (``pack_blocks`` → ``PackedBlocks``):
+  documents greedily packed into self-contained blocks for the full
+  scan. The fragment-first gap is 0 and the fragment's absolute first
+  component lives in ``start_abs``, so every block decodes on its own;
+* the row form ``[N+1, L]`` (``pack_rows`` → ``PackedRows``): one
+  fixed-capacity row per document for the serve engines' candidate
+  rescoring; the ``+1`` row is the all-zero sentinel that out-of-corpus
+  candidate ids gather. Row gaps carry the absolute first component
+  (per-document alignment), so a plain cumsum rebuilds the ids.
+
 Four layouts are registered: ``uncompressed`` (absolute components,
 decode-free), ``dotvbyte``, ``streamvbyte`` and ``bitpack``; each packs
 under every value codec (``core/values.py``).
@@ -17,8 +23,7 @@ for the TPU: ``l_max`` rounds up to ``LANE_MULTIPLE`` (=128, times the
 value codec's pack factor) and the ctrl/data/words streams pad their
 trailing dim to a multiple of 128. Decoders therefore slice the control
 stream tight (``L // 8`` bytes for DotVByte, ``L // 4`` for
-StreamVByte) before decoding. The block form (``pack_blocks``) serves
-only the full-scan path and is not ported yet (ROADMAP queue A8).
+StreamVByte) before decoding.
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ from . import values as value_codecs
 from .codecs.bitpack import bit_widths, pack_block
 from .codecs.dotvbyte import control_bits
 from .codecs.streamvbyte import byte_codes
-from .forward_index import ForwardIndex, ValueFormat
+from .forward_index import ForwardIndex, PackedBlocks, ValueFormat
 
 __all__ = [
     "LayoutCodec",
@@ -40,7 +45,9 @@ __all__ = [
     "get_layout",
     "available_layouts",
     "PackedRows",
+    "pack_blocks",
     "pack_rows",
+    "BLOCK_PAD_VALUES",
     "LANE_MULTIPLE",
 ]
 
@@ -221,6 +228,151 @@ class BitpackLayout(LayoutCodec):
         from .scoring import decode_gaps_bitpack
 
         return decode_gaps_bitpack(arrays["words"], arrays["widths"], block_size)
+
+
+# ---------------------------------------------------------------------------
+# block form  [B, T]
+# ---------------------------------------------------------------------------
+
+#: pad values for stacking block arrays across shards
+BLOCK_PAD_VALUES = {"seg": -1, "doc_ids": -1}
+
+
+def _fragments(
+    fwd: ForwardIndex, block_size: int, max_docs: int
+) -> list[list[tuple[int, int, int]]]:
+    """Greedy first-fit packing of doc fragments into blocks.
+
+    Returns per-block lists of (doc_id, start_nnz, end_nnz) fragments.
+    A block closes when T components or D doc slots are used; an empty
+    document takes no slot."""
+    blocks: list[list[tuple[int, int, int]]] = []
+    cur: list[tuple[int, int, int]] = []
+    used = 0
+    for d, n in enumerate(np.diff(fwd.offsets).tolist()):
+        pos = 0
+        while pos < n:
+            if used == block_size or len(cur) == max_docs:
+                blocks.append(cur)
+                cur, used = [], 0
+            take = min(n - pos, block_size - used)
+            cur.append((d, pos, pos + take))
+            used += take
+            pos += take
+    if cur:
+        blocks.append(cur)
+    return blocks
+
+
+def _resolve_absolute(gaps, seg, start_pos, start_abs):
+    """numpy mirror of ``scoring.components_from_gaps`` for the
+    decode-free layout: gaps + out-of-band absolutes → component ids."""
+    D = start_pos.shape[1]
+    t = np.cumsum(gaps.astype(np.int64), axis=1)
+    tp = np.take_along_axis(t, start_pos.astype(np.int64), axis=1)
+    segc = np.clip(seg, 0, D - 1).astype(np.int64)
+    base = np.take_along_axis(start_abs.astype(np.int64), segc, axis=1)
+    tseg = np.take_along_axis(tp, segc, axis=1)
+    return np.where(seg >= 0, base + t - tseg, 0).astype(np.int32)
+
+
+def pack_blocks(
+    fwd: ForwardIndex,
+    codec: str = "dotvbyte",
+    block_size: int = 512,
+    max_docs_per_block: int | None = None,
+    seg_dtype=np.int32,
+    vq: str = "f16",
+    vq_clip: tuple[float, float] | None = None,
+) -> PackedBlocks:
+    """Build the packed block layout under any registered codec.
+
+    ``block_size`` (T) must be a multiple of 128; ``max_docs_per_block``
+    (D) defaults to T // 8. ``seg_dtype=np.int8`` is the slim metadata
+    layout (D ≤ 127). ``vq`` selects the value codec: ``"f16"`` stores
+    the raw storage dtype; the quantized codecs replace ``vals`` with u8
+    codes plus per-block clip ranges or a shared codebook. ``vq_clip``
+    overrides the fitted ranges with one global (lo, hi).
+
+    The reference fills the arrays fragment by fragment; here the
+    fragments' entries are placed with one vectorised scatter, to the
+    same bytes."""
+    value_codecs.check_vq(vq)
+    lc = get_layout(codec)
+    if block_size % 128:
+        raise ValueError("block_size must be a multiple of 128 (TPU lanes)")
+    T = block_size
+    D = max_docs_per_block or T // 8
+    if np.dtype(seg_dtype) == np.int8 and D > 127:
+        raise ValueError("int8 seg needs max_docs_per_block <= 127")
+    frags = _fragments(fwd, T, D)
+    B = len(frags)
+
+    # one row per fragment: block, slot, doc, [lo, hi) within the doc
+    f_block = np.repeat(np.arange(B), [len(f) for f in frags])
+    f_slot = np.concatenate([np.arange(len(f)) for f in frags]) if B else np.zeros(0, np.int64)
+    f = np.asarray([x for fl in frags for x in fl], dtype=np.int64).reshape(-1, 3)
+    f_doc, f_lo, f_hi = f[:, 0], f[:, 1], f[:, 2]
+    f_n = f_hi - f_lo
+    f_first = np.cumsum(f_n) - f_n  # first entry of each fragment, flat
+    # position of each fragment inside its block: fragments before it
+    # in the same block, summed
+    blk_first = np.zeros(B, np.int64)
+    if B:
+        blk_first[1:] = np.cumsum(np.bincount(f_block, weights=f_n, minlength=B))[:-1]
+    f_pos = f_first - blk_first[f_block]
+
+    n_ent = int(f_n.sum())
+    e_frag = np.repeat(np.arange(len(f_n)), f_n)
+    e_k = np.arange(n_ent) - f_first[e_frag]
+    e_block = f_block[e_frag]
+    e_pos = f_pos[e_frag] + e_k
+    src = fwd.offsets[f_doc].astype(np.int64)[e_frag] + f_lo[e_frag] + e_k
+    comps = fwd.components[src].astype(np.int64)
+    g = np.zeros(n_ent, np.int64)
+    g[1:] = comps[1:] - comps[:-1]
+    g[f_first[f_n > 0]] = 0  # fragment-first gap forced to 0; absolute out-of-band
+
+    seg = np.full((B, T), -1, dtype=seg_dtype)
+    start_pos = np.zeros((B, D), dtype=np.int32)
+    start_abs = np.zeros((B, D), dtype=np.int32)
+    vals = np.zeros((B, T), dtype=fwd.values.dtype)
+    doc_ids = np.full((B, D), -1, dtype=np.int32)
+    gaps_all = np.zeros((B, T), dtype=np.uint32)
+    gaps_all[e_block, e_pos] = g.astype(np.uint32)
+    seg[e_block, e_pos] = f_slot[e_frag]
+    vals[e_block, e_pos] = fwd.values[src]
+    start_pos[f_block, f_slot] = f_pos
+    start_abs[f_block, f_slot] = comps[f_first]
+    doc_ids[f_block, f_slot] = f_doc
+
+    vals, vq_extras = value_codecs.encode_block_values(vals, seg, vq, clip=vq_clip)
+    out = PackedBlocks(
+        codec=codec,
+        block_size=T,
+        n_docs=fwd.n_docs,
+        dim=fwd.dim,
+        value_format=fwd.value_format,
+        seg=seg,
+        start_pos=start_pos,
+        start_abs=start_abs,
+        vals=vals,
+        doc_ids=doc_ids,
+        vq=vq,
+    )
+    for field, arr in vq_extras.items():
+        setattr(out, field, arr)
+    if lc.decode_free:
+        out.comps = _resolve_absolute(gaps_all, seg, start_pos, start_abs)
+        return out
+    for field, arr in lc.encode(gaps_all).items():
+        setattr(out, field, arr)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# row form  [N+1, L]
+# ---------------------------------------------------------------------------
 
 
 @dataclasses.dataclass

@@ -1,5 +1,21 @@
-"""Candidate-row rescoring — the row half of ``repro/core/scoring.py``,
-written in torch.
+"""Scoring over the packed forward index, written in torch: the port of
+``repro/core/scoring.py`` (its jnp paths).
+
+**Full scan (block form).** ``score_packed{,_batch}`` take the inner
+product of every document with a query through ``PackedBlocks``
+(``layout.pack_blocks``): decode each block's gaps, rebase them per
+fragment to absolute components (``components_from_gaps``), gather the
+query, multiply by the dequantized values and segment-sum per document
+(``combine_block_scores``). Every codec (uncompressed included) and
+every value codec; it reaches no kernel, as the reference's
+``score_packed`` reaches none. The tile program the block kernels run
+(per-slot prefix-sum differences, ``block_slot_scores``, then
+``scatter_block_scores``) is ``kernels/block_scan.py``. The prefix sum
+of a block's gaps runs across all of its fragments and can pass 2**31
+at wide vocabularies, where the reference's int32 wraps; here it is
+int64.
+
+**Candidate-row rescoring.**
 
 Every serve engine spends its rescoring time here: gather the packed
 rows (``layout.pack_rows``) of the candidate documents, decode their
@@ -32,6 +48,16 @@ from . import values as value_codecs
 from .layout import get_layout
 
 __all__ = [
+    "dequantise_values",
+    "block_values",
+    "decode_block_gaps",
+    "components_from_gaps",
+    "block_products",
+    "combine_block_scores",
+    "scatter_block_scores",
+    "block_slot_scores",
+    "score_packed",
+    "score_packed_batch",
     "decode_gaps_dotvbyte",
     "decode_gaps_streamvbyte",
     "decode_gaps_bitpack",
@@ -45,8 +71,9 @@ __all__ = [
 #: ``pack_rows`` output is codec payload
 _ROW_COMMON_KEYS = ("vals_rows", "nnz_rows", "comps_rows")
 
-#: elements of one [nq, C, L] product tensor the plain path materialises
-#: at a time (bounds its working set at a flat engine's full scan)
+#: elements of one [nq, C, L] (rows) or [nq, B, T] (blocks) product
+#: tensor the plain paths materialise at a time (bounds their working
+#: set at a full scan)
 _CHUNK_ELEMS = 1 << 25
 
 
@@ -105,6 +132,192 @@ def decode_gaps_bitpack(words: torch.Tensor, widths: torch.Tensor, block_size: i
     hi = torch.where(off > 0, torch.gather(w, -1, wi + 1) << (32 - off), 0)
     mask = (1 << width) - 1
     return ((lo | hi) & mask).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# block form [B, T]: the full scan
+# ---------------------------------------------------------------------------
+
+
+def dequantise_values(vals: torch.Tensor, scale: float) -> torch.Tensor:
+    return vals.to(torch.float32) * scale
+
+
+def decode_block_gaps(codec: str, arrays, block_size: int) -> torch.Tensor:
+    """Codec-dispatching gap decode over a block pack's streams
+    (ctrl/data or words/widths) → gaps i32 [B, T]. The lane-padded
+    control streams are sliced tight before the decode."""
+    if codec == "dotvbyte":
+        return decode_gaps_dotvbyte(arrays["ctrl"][:, : block_size // 8], arrays["data"])
+    if codec == "streamvbyte":
+        return decode_gaps_streamvbyte(arrays["ctrl"][:, : block_size // 4], arrays["data"])
+    if codec == "bitpack":
+        return decode_gaps_bitpack(arrays["words"], arrays["widths"], block_size)
+    raise ValueError(f"no device decoder for codec {codec!r}")
+
+
+def components_from_gaps(
+    gaps: torch.Tensor, seg: torch.Tensor, start_pos: torch.Tensor, start_abs: torch.Tensor
+) -> torch.Tensor:
+    """Segmented prefix-sum rebase: gaps (u32 bits) [B, T] → absolute
+    components i64 [B, T].
+
+    ``comp[i] = start_abs[s] + t[i] - t[start_pos[s]]`` with ``t`` the
+    inclusive cumsum of the gaps and ``s = clamp(seg[i], 0, D - 1)``;
+    padding (seg < 0) maps to component 0."""
+    seg = seg.long()
+    D = start_pos.shape[-1]
+    t = torch.cumsum(gaps.long() & 0xFFFFFFFF, dim=-1)
+    tp = torch.gather(t, -1, start_pos.long().clamp(0, t.shape[-1] - 1))  # [B, D]
+    segc = seg.clamp(0, D - 1)
+    base = torch.gather(start_abs.long(), -1, segc)
+    tseg = torch.gather(tp, -1, segc)
+    return torch.where(seg >= 0, base + t - tseg, 0)
+
+
+def _gather_query(Q: torch.Tensor, comps: torch.Tensor) -> torch.Tensor:
+    """``Q[..., comps]`` for Q [nq, V] and comps [*S] → [nq, *S]; a
+    component outside [0, V) gathers 0 (torch indexing would raise)."""
+    V = Q.shape[-1]
+    valid = (comps >= 0) & (comps < V)
+    return torch.where(valid, Q[:, comps.clamp(0, V - 1)], 0.0)
+
+
+def block_products(q: torch.Tensor, comps, vals_f, seg) -> torch.Tensor:
+    """q-gather · values, zeroed on padding: [B, T] f32 (q [V]), or
+    [nq, B, T] for a query batch Q [nq, V]."""
+    qv = _gather_query(q if q.dim() == 2 else q.unsqueeze(0), comps)
+    prod = qv * vals_f * (seg >= 0)
+    return prod if q.dim() == 2 else prod[0]
+
+
+def combine_block_scores(prod, seg, doc_ids, n_docs: int) -> torch.Tensor:
+    """Per-element products [..., B, T] → per-document scores
+    [..., n_docs] by one global segment sum over each element's doc."""
+    seg = seg.long()
+    segc = seg.clamp(0, doc_ids.shape[-1] - 1)
+    gdoc = torch.gather(doc_ids.long(), -1, segc)
+    gdoc = torch.where((seg >= 0) & (gdoc >= 0) & (gdoc < n_docs), gdoc, n_docs)
+    return _segment_sum(prod, gdoc, n_docs)
+
+
+def scatter_block_scores(block_scores, doc_ids, n_docs: int) -> torch.Tensor:
+    """[..., B, D] per-slot scores + doc ids [B, D] → [..., n_docs];
+    slots whose id is -1 (or outside the corpus) drop."""
+    ids = doc_ids.long()
+    ids = torch.where((ids >= 0) & (ids < n_docs), ids, n_docs)
+    return _segment_sum(block_scores, ids, n_docs)
+
+
+#: discard buckets of :func:`_segment_sum`: entries that drop are spread
+#: over this many, so the card's atomic adds do not all contend for one
+#: address (a full scan drops ~93% of its B·D slots: the unused ones)
+_DISCARD_BUCKETS = 4096
+
+
+def _segment_sum(vals: torch.Tensor, ids: torch.Tensor, n_docs: int) -> torch.Tensor:
+    """Sum ``vals [..., *S]`` into ``n_docs`` buckets by ``ids [*S]``; an
+    id outside [0, n_docs) drops → [..., n_docs]."""
+    lead = vals.shape[: vals.dim() - ids.dim()]
+    flat = vals.reshape(*lead, -1) if lead else vals.reshape(1, -1)
+    ids = ids.reshape(-1)
+    spread = torch.arange(ids.numel(), device=ids.device) % _DISCARD_BUCKETS
+    ids = torch.where((ids >= 0) & (ids < n_docs), ids, n_docs + spread)
+    out = torch.zeros((flat.shape[0], n_docs + _DISCARD_BUCKETS), dtype=torch.float32,
+                      device=vals.device)
+    out.index_add_(1, ids, flat.to(torch.float32))
+    out = out[:, :n_docs]
+    return out.reshape(*lead, n_docs) if lead else out[0]
+
+
+def block_slot_scores(prod: torch.Tensor, start_pos: torch.Tensor) -> torch.Tensor:
+    """Per-element products [..., B, T] → per-slot scores [..., B, D].
+
+    Inside a block the slots' fragments are contiguous runs in position
+    order, so slot d sums ``[start_pos[d], end_d)`` with ``end_d =
+    start_pos[d+1]`` where that is larger, else T: a difference of the
+    exclusive prefix sum of the products. Slot 0 is always used and a
+    later slot iff ``start_pos[d] > 0``; unused slots score 0."""
+    T = prod.shape[-1]
+    sp = start_pos.long()
+    cz = torch.cat([torch.zeros_like(prod[..., :1]), torch.cumsum(prod, dim=-1)], dim=-1)
+    nxt = torch.cat([sp[..., 1:], torch.zeros_like(sp[..., :1])], dim=-1)
+    ends = torch.where(nxt > sp, nxt, T).clamp(0, T)
+    used = torch.cat([torch.ones_like(sp[..., :1], dtype=torch.bool), sp[..., 1:] > 0], dim=-1)
+    lead = prod.shape[:-2]
+    ends = ends.expand(*lead, *ends.shape)
+    starts = sp.clamp(0, T).expand(*lead, *sp.shape)
+    scores = torch.gather(cz, -1, ends) - torch.gather(cz, -1, starts)
+    return scores * used
+
+
+def block_values(vals, scale: float, vq: str = "f16", vq_lo=None, vq_scale=None, vq_cb=None):
+    """Block values → scaled f32: the stored dtype under ``vq="f16"``,
+    else u8 codes dequantized through ``values.decode_codes`` (per-block
+    ``vq_lo``/``vq_scale`` columns, or the PQ codebook)."""
+    if vq == "f16":
+        return dequantise_values(vals, scale)
+    cb = vq_cb.to(torch.float32).reshape(-1) if vq == "pq" else None
+    return value_codecs.decode_codes(vq, vals, vq_lo, vq_scale, cb) * scale
+
+
+def _block_values(packed, blocks: slice) -> torch.Tensor:
+    """The pack's values of ``blocks``, dequantized and scaled → f32
+    [b, T]."""
+    sq = packed.vq in ("u8_sq", "u4_sq")
+    return block_values(packed.vals[blocks], float(packed.value_format.scale), packed.vq,
+                        packed.vq_lo[blocks] if sq else None,
+                        packed.vq_scale[blocks] if sq else None, packed.vq_codebook)
+
+
+def _block_components(packed, blocks: slice) -> torch.Tensor:
+    """Absolute components i64 [b, T] of ``blocks``."""
+    if get_layout(packed.codec).decode_free:
+        return packed.comps[blocks].long()
+    streams = {k: _take_rows(getattr(packed, k), blocks)
+               for k in ("ctrl", "data", "words", "widths") if getattr(packed, k) is not None}
+    gaps = decode_block_gaps(packed.codec, streams, packed.block_size)
+    return components_from_gaps(gaps, packed.seg[blocks], packed.start_pos[blocks],
+                                packed.start_abs[blocks])
+
+
+def _on_tensors(packed, q):
+    """(pack, query) as tensors on one device: the pack's own when it
+    holds tensors, else the query's (the CPU for a numpy query)."""
+    if isinstance(packed.seg, torch.Tensor):
+        device = packed.seg.device
+    else:
+        device = q.device if isinstance(q, torch.Tensor) else torch.device("cpu")
+        packed = packed.to(device)
+    return packed, torch.as_tensor(q, dtype=torch.float32).to(device)
+
+
+def score_packed_batch(Q, packed) -> torch.Tensor:
+    """Scores of every document for a batch of dense queries
+    ``Q [nq, ≥dim]`` → f32 [nq, n_docs], over chunks of blocks that
+    bound the working set."""
+    packed, Q = _on_tensors(packed, Q)
+    Q = Q[:, : packed.dim]
+    nq, T = Q.shape[0], packed.block_size
+    out = torch.zeros((nq, packed.n_docs), dtype=torch.float32, device=Q.device)
+    step = max(1, _CHUNK_ELEMS // max(nq * T, 1))
+    for b0 in range(0, packed.n_blocks, step):
+        blocks = slice(b0, b0 + step)
+        prod = block_products(Q, _block_components(packed, blocks),
+                              _block_values(packed, blocks), packed.seg[blocks])
+        out += combine_block_scores(prod, packed.seg[blocks], packed.doc_ids[blocks],
+                                    packed.n_docs)
+    return out
+
+
+def score_packed(q, packed) -> torch.Tensor:
+    """Scores of every document for one dense query → f32 [n_docs]."""
+    return score_packed_batch(torch.as_tensor(q).reshape(1, -1), packed)[0]
+
+
+# ---------------------------------------------------------------------------
+# row form [N+1, L]: candidate rescoring
+# ---------------------------------------------------------------------------
 
 
 def decode_doc_rows(codec: str, payload, l_max: int | None = None) -> torch.Tensor:

@@ -12,7 +12,9 @@ pq       ``PQ_M``              codebook gather: sub-vectors of PQ_M
 ======== ===================== =======================================
 
 The codes ride inside ``vals_rows`` (u8, width divided by the pack
-factor); the per-row clip ranges ride as f32 ``[N+1, 1]`` payload
+factor) and, in the block form, inside ``PackedBlocks.vals`` with
+per-block clip ranges ``vq_lo``/``vq_scale`` f32 ``[B, 1]``
+(:func:`encode_block_values`); the per-row clip ranges ride as f32 ``[N+1, 1]`` payload
 columns (``vq_lo_rows``/``vq_scale_rows`` for u8, ``vq_lo4_rows``/
 ``vq_scale4_rows`` for u4) and the PQ codebook as f32 ``[PQ_K, PQ_M]``
 ``vq_codebook``, so artifacts carry them like any array. The vq of a
@@ -47,6 +49,7 @@ __all__ = [
     "pack_nibbles",
     "fit_pq_codebook",
     "encode_rows_values",
+    "encode_block_values",
     "unpack_nibbles",
     "dequant_sq",
     "dequant_pq",
@@ -216,16 +219,42 @@ def encode_rows_values(
             codes = pack_nibbles(codes)
         lo_key, sc_key = _SQ_KEYS[vq]
         return codes, {lo_key: lo, sc_key: step}
-    # pq: fit on live sub-vectors only (a sub-vector is live when its
-    # first element is); dead sub-vectors get code 0, so only the live
-    # ones are assigned
-    v = np.where(live, vals_rows.astype(np.float32), 0.0)
+    return _pq_encode(vals_rows, live, pq_seed)
+
+
+def _pq_encode(vals: np.ndarray, live: np.ndarray, pq_seed: int):
+    """PQ codes of a [R, W] value matrix: the codebook is fit on the live
+    sub-vectors only (a sub-vector is live when its first element is);
+    dead sub-vectors get code 0, so only the live ones are assigned."""
+    v = np.where(live, vals.astype(np.float32), 0.0)
     sub_live = live[:, ::PQ_M]
     live_sv = v.reshape(-1, PQ_M)[sub_live.reshape(-1)]
     cb = fit_pq_codebook(live_sv, seed=pq_seed)
     codes = np.zeros(sub_live.shape, dtype=np.uint8)
     codes[sub_live] = _pq_codes(live_sv, cb).reshape(-1)
     return codes, {"vq_codebook": cb}
+
+
+def encode_block_values(
+    vals: np.ndarray,  # [B, T] storage dtype
+    seg: np.ndarray,  # [B, T], -1 = padding
+    vq: str,
+    clip: tuple[float, float] | None = None,
+    pq_seed: int = 0,
+):
+    """Block-form mirror of :func:`encode_rows_values`: per-BLOCK clip
+    ranges (``vq_lo``/``vq_scale`` f32 [B, 1]) or the shared codebook;
+    an element is live where ``seg >= 0``."""
+    check_vq(vq)
+    if vq == "f16":
+        return vals, {}
+    live = np.asarray(seg) >= 0
+    if vq in _SQ_KEYS:
+        codes, lo, step = _sq_codes(vals, live, _MAXCODE[vq], clip)
+        if vq == "u4_sq":
+            codes = pack_nibbles(codes)
+        return codes, {"vq_lo": lo, "vq_scale": step}
+    return _pq_encode(vals, live, pq_seed)
 
 
 # ---------------------------------------------------------------------------

@@ -11,8 +11,9 @@
 //   docs  i32 [nd, C]         candidate row ids; nd == 1 shares one set with
 //                             every query (flat), nd == nq gives each query
 //                             its own set (Seismic)
-//   vals  [n_rows, vals_w]    f16 values (vq f16, vals_w = L) or u8 codes
-//                             (u8_sq: vals_w = L; u4_sq and pq: vals_w = L/2)
+//   vals  [n_rows, vals_w]    values as stored under vq f16 (f32, f16 or fixedu8
+//                             u8; vals_w = L) or u8 codes (u8_sq: vals_w = L;
+//                             u4_sq and pq: vals_w = L/2)
 //   nnz   i32 [n_rows]        live entries per row
 //   p0,p1 codec payload:      uncompressed  comps i32 [n_rows, p0_w]
 //                             dotvbyte      ctrl u8 [n_rows, p0_w >= L/8],
@@ -36,7 +37,9 @@
 //   bitpack      gap j is bits [j*w, j*w + w) of the row's u32 words, LSB
 //                first, w = widths[row]; a gap may straddle two words.
 //   uncompressed absolute components, no decode.
-// Values: f16 as stored; u8_sq lo + code * step; u4_sq the same on 4-bit codes,
+// The decoders and block scans live in gaps.cuh, shared with block_scan.cu.
+// Values: under vq f16 the stored value converted to f32 (the reference casts
+// whatever dtype is stored; the wrapper's scale is 1/32 for fixedu8); u8_sq lo + code * step; u4_sq the same on 4-bit codes,
 // entry 2i in the low nibble of byte i; pq entry j is codebook[code[j/2]*2 + j%2].
 // The dequant multiply and add are rounded separately (__fmul_rn, __fadd_rn),
 // so every value equals the plain torch version's bit for bit; only the order
@@ -68,61 +71,23 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "gaps.cuh"
+
 namespace {
+
+using namespace repro;
 
 enum Codec { kUncompressed = 0, kDotVByte = 1, kStreamVByte = 2, kBitpack = 3 };
 enum Vq { kF16 = 0, kU8 = 1, kU4 = 2, kPq = 3 };
+// value storage under vq f16 (the reference's raw-dtype values): the
+// ForwardIndex's f32, f16 or fixedu8 values as stored
+enum Vals { kValsF32 = 0, kValsF16 = 1, kValsU8 = 2 };
 
-constexpr unsigned kFull = 0xffffffffu;
 constexpr int kPqEntries = 256 * 2;
 
-__device__ __forceinline__ unsigned warp_inclusive_scan(unsigned x) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const unsigned y = __shfl_up_sync(kFull, x, o);
-    if (lane >= o) x += y;
-  }
-  return x;
-}
-
-// Exclusive prefix sum over the block, modulo 2^32. blockDim.x is a multiple
-// of 32; `scratch` holds 32 words. Every thread of the block must call it.
-__device__ __forceinline__ unsigned block_exclusive_scan(unsigned x, unsigned* scratch) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-  const unsigned incl = warp_inclusive_scan(x);
-  if (n_warps == 1) return incl - x;
-  if (lane == 31) scratch[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    const unsigned w = lane < n_warps ? scratch[lane] : 0u;
-    scratch[lane] = warp_inclusive_scan(w) - w;
-  }
-  __syncthreads();
-  const unsigned out = incl - x + scratch[warp];
-  __syncthreads();  // scratch is reused by the next scan
-  return out;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
-  return x;
-}
-
-// Sum over the block; the result is valid in thread 0. Every thread must call it.
-__device__ __forceinline__ float block_sum(float x, float* scratch) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-  x = warp_sum(x);
-  if (n_warps == 1) return x;
-  if (lane == 0) scratch[warp] = x;
-  __syncthreads();
-  if (warp == 0) x = warp_sum(lane < n_warps ? scratch[lane] : 0.f);
-  __syncthreads();  // scratch is reused by the next query's sum
-  return x;
-}
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__half v) { return __half2float(v); }
+__device__ __forceinline__ float to_float(uint8_t v) { return (float)v; }
 
 struct Args {
   const float* Q;
@@ -143,66 +108,27 @@ struct Args {
 template <int CODEC>
 __device__ __forceinline__ void decode_gaps(const Args& a, int doc, int nnz, int t,
                                             unsigned* iscratch, unsigned gap[8]) {
-  const bool live = 8 * t < nnz;
-  if constexpr (CODEC == kDotVByte) {
+  if constexpr (CODEC == kDotVByte || CODEC == kStreamVByte) {
     const uint8_t* ctrl = static_cast<const uint8_t*>(a.p0) + (size_t)doc * a.p0_w;
     const uint8_t* row = static_cast<const uint8_t*>(a.p1) + (size_t)doc * a.p1_w;
-    const int byte = live ? ctrl[t] : 0;
-    unsigned off = block_exclusive_scan(live ? 8 + __popc(byte) : 0, iscratch);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int two = (byte >> j) & 1;
-      unsigned g = 0;
-      if (8 * t + j < nnz && off + two < (unsigned)a.p1_w) {
-        g = row[off];
-        if (two) g |= (unsigned)row[off + 1] << 8;
-      }
-      off += 1 + two;
-      gap[j] = g;
-    }
-  } else if constexpr (CODEC == kStreamVByte) {
-    const uint8_t* ctrl = static_cast<const uint8_t*>(a.p0) + (size_t)doc * a.p0_w;
-    const uint8_t* row = static_cast<const uint8_t*>(a.p1) + (size_t)doc * a.p1_w;
-    const unsigned codes = live ? ctrl[2 * t] | ((unsigned)ctrl[2 * t + 1] << 8) : 0u;
-    unsigned n_bytes = 0;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) n_bytes += ((codes >> (2 * j)) & 3u) + 1;
-    unsigned off = block_exclusive_scan(live ? n_bytes : 0u, iscratch);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int len = (int)((codes >> (2 * j)) & 3u) + 1;
-      unsigned g = 0;
-      if (8 * t + j < nnz && off + len <= (unsigned)a.p1_w)
-        for (int b = 0; b < len; ++b) g |= (unsigned)row[off + b] << (8 * b);
-      off += len;
-      gap[j] = g;
-    }
+    if constexpr (CODEC == kDotVByte)
+      decode_dotvbyte8(ctrl, row, a.p1_w, t, nnz, iscratch, gap);
+    else
+      decode_streamvbyte8(ctrl, row, a.p1_w, t, nnz, iscratch, gap);
   } else {  // kBitpack
     const uint32_t* words = static_cast<const uint32_t*>(a.p0) + (size_t)doc * a.p0_w;
-    const int w = min(max(static_cast<const int*>(a.p1)[doc], 0), 32);
-    const uint64_t mask = (1ull << w) - 1;  // 64-bit: w may be 32
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int e = 8 * t + j;
-      unsigned g = 0;
-      if (e < nnz) {
-        const int bit = e * w;
-        const int wi = bit >> 5, off = bit & 31;
-        const uint64_t lo = wi < a.p0_w ? words[wi] : 0u;
-        const uint64_t hi = off && wi + 1 < a.p0_w ? words[wi + 1] : 0u;
-        g = (unsigned)(((lo >> off) | (hi << (32 - off))) & mask);
-      }
-      gap[j] = g;
-    }
+    decode_bitpack8<0>(words, a.p0_w, static_cast<const int*>(a.p1)[doc], t, nnz, gap);
   }
 }
 
-template <int VQ>
+// VT is the value storage type under vq f16 (float, __half or uint8_t);
+// the quantized vqs read u8 codes.
+template <int VQ, typename VT>
 __device__ __forceinline__ float dequant(const Args& a, int doc, int e,
                                          const float* cb, float lo, float step) {
   const uint8_t* codes = static_cast<const uint8_t*>(a.vals) + (size_t)doc * a.vals_w;
   if constexpr (VQ == kF16)
-    return __half2float(static_cast<const __half*>(a.vals)[(size_t)doc * a.vals_w + e]);
+    return to_float(static_cast<const VT*>(a.vals)[(size_t)doc * a.vals_w + e]);
   if constexpr (VQ == kU8) return __fadd_rn(lo, __fmul_rn((float)codes[e], step));
   if constexpr (VQ == kU4) {
     const int byte = codes[e >> 1];
@@ -211,7 +137,7 @@ __device__ __forceinline__ float dequant(const Args& a, int doc, int e,
   return cb[codes[e >> 1] * 2 + (e & 1)];  // kPq
 }
 
-template <int CODEC, int VQ>
+template <int CODEC, int VQ, typename VT = __half>
 __global__ void rows_dot_kernel(const Args a) {
   __shared__ unsigned iscratch[32];
   __shared__ float fscratch[32];
@@ -253,7 +179,7 @@ __global__ void rows_dot_kernel(const Args a) {
       run += gap[j];
       gap[j] = run;
     }
-    const unsigned base = block_exclusive_scan(run, iscratch);
+    const unsigned base = block_exclusive_scan<unsigned>(run, iscratch);
 #pragma unroll
     for (int j = 0; j < 8; ++j) comp[j] = (int)(gap[j] + base);
   }
@@ -265,7 +191,7 @@ __global__ void rows_dot_kernel(const Args a) {
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     const int e = 8 * t + j;
-    val[j] = e < nnz ? dequant<VQ>(a, doc, e, cb, lo, step) * a.scale : 0.f;
+    val[j] = e < nnz ? dequant<VQ, VT>(a, doc, e, cb, lo, step) * a.scale : 0.f;
   }
   for (int q = q_lo; q < q_hi; ++q) {
     const float* qrow = a.Q + (size_t)q * a.dim;
@@ -278,15 +204,22 @@ __global__ void rows_dot_kernel(const Args a) {
   }
 }
 
-template <int CODEC, int VQ>
+template <int CODEC, int VQ, typename VT = __half>
 void launch(const Args& a, int threads, cudaStream_t stream) {
-  rows_dot_kernel<CODEC, VQ><<<dim3((unsigned)a.C, (unsigned)a.nd), threads, 0, stream>>>(a);
+  rows_dot_kernel<CODEC, VQ, VT><<<dim3((unsigned)a.C, (unsigned)a.nd), threads, 0, stream>>>(a);
 }
 
 template <int CODEC>
-int launch_vq(int vq, const Args& a, int threads, cudaStream_t stream) {
+int launch_vq(int vq, int vals_t, const Args& a, int threads, cudaStream_t stream) {
+  if (vq == kF16) {
+    switch (vals_t) {
+      case kValsF32: launch<CODEC, kF16, float>(a, threads, stream); return 0;
+      case kValsF16: launch<CODEC, kF16, __half>(a, threads, stream); return 0;
+      case kValsU8: launch<CODEC, kF16, uint8_t>(a, threads, stream); return 0;
+    }
+    return (int)cudaErrorInvalidValue;
+  }
   switch (vq) {
-    case kF16: launch<CODEC, kF16>(a, threads, stream); return 0;
     case kU8: launch<CODEC, kU8>(a, threads, stream); return 0;
     case kU4: launch<CODEC, kU4>(a, threads, stream); return 0;
     case kPq: launch<CODEC, kPq>(a, threads, stream); return 0;
@@ -300,8 +233,9 @@ extern "C" {
 
 // Launch the (codec, vq) variant on `stream`; returns cudaGetLastError()
 // (0 on success), or cudaErrorInvalidValue for a shape or variant the
-// kernel does not take. Codec and vq numbers are the enums above.
-int rows_dot(int codec, int vq, const void* Q, const void* docs, const void* vals,
+// kernel does not take. Codec, vq and (under vq f16) value storage numbers
+// are the enums above.
+int rows_dot(int codec, int vq, int vals_t, const void* Q, const void* docs, const void* vals,
              const void* nnz, const void* p0, const void* p1, const void* v0,
              const void* v1, void* out, int nq, int dim, int nd, int C, int n_rows,
              int L, int vals_w, int p0_w, int p1_w, float scale, void* stream) {
@@ -315,10 +249,10 @@ int rows_dot(int codec, int vq, const void* Q, const void* docs, const void* val
   const cudaStream_t s = (cudaStream_t)stream;
   int rc;
   switch (codec) {
-    case kUncompressed: rc = launch_vq<kUncompressed>(vq, a, threads, s); break;
-    case kDotVByte: rc = launch_vq<kDotVByte>(vq, a, threads, s); break;
-    case kStreamVByte: rc = launch_vq<kStreamVByte>(vq, a, threads, s); break;
-    case kBitpack: rc = launch_vq<kBitpack>(vq, a, threads, s); break;
+    case kUncompressed: rc = launch_vq<kUncompressed>(vq, vals_t, a, threads, s); break;
+    case kDotVByte: rc = launch_vq<kDotVByte>(vq, vals_t, a, threads, s); break;
+    case kStreamVByte: rc = launch_vq<kStreamVByte>(vq, vals_t, a, threads, s); break;
+    case kBitpack: rc = launch_vq<kBitpack>(vq, vals_t, a, threads, s); break;
     default: rc = (int)cudaErrorInvalidValue;
   }
   if (rc != 0) return rc;

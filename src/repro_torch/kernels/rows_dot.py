@@ -12,6 +12,10 @@ decodes the gaps, prefix-sums them to components, dequantizes the
 values, gathers ``Q[:, comps]`` and takes the masked dot with
 ``vals · scale``.
 
+Under ``vq="f16"`` the values ride in their storage dtype — the
+``ForwardIndex``'s f32, f16 or fixedu8 (u8, scale 1/32) — and the
+kernel reads that dtype, as the reference casts whatever is stored.
+
 ``docs`` is ``[nd, C]`` with ``nd ∈ {1, nq}``: one candidate set shared
 by the query batch (flat; each row decoded once, scored for every
 query) or one set per query (Seismic). The work is bound by bytes; see
@@ -65,12 +69,16 @@ launches = 0
 #: the same, per variant
 variant_launches = {variant_name(c, v): 0 for c, v in VARIANTS}
 
-#: rows_dot(codec, vq, 9 pointers, nq, dim, nd, C, n_rows, L, vals_w,
-#: p0_w, p1_w, scale, stream)
+#: rows_dot(codec, vq, vals_t, 9 pointers, nq, dim, nd, C, n_rows, L,
+#: vals_w, p0_w, p1_w, scale, stream)
 _ARGTYPES = (
-    [ctypes.c_int] * 2 + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
+    [ctypes.c_int] * 3 + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
     + [ctypes.c_float, ctypes.c_void_p]
 )
+
+#: value storage the kernel reads under vq f16, in its enum order
+#: (csrc/rows_dot.cu ``Vals``); the quantized vqs store u8 codes
+VALUE_DTYPES = (torch.float32, torch.float16, torch.uint8)
 
 #: codec → (payload stream names, their dtypes)
 _PAYLOAD = {
@@ -128,9 +136,12 @@ def _check(codec, vq, arrays, Q, docs):
     """Validate dtypes, shapes and contiguity → the kernel's operands
     (vals, nnz, p0, p1, v0, v1; absent ones None) and the logical L."""
     names, dtypes = _PAYLOAD[codec]
-    vals_dtype = torch.float16 if vq == "f16" else torch.uint8
+    vals = arrays["vals_rows"]
+    if vq == "f16" and vals.dtype not in VALUE_DTYPES:
+        raise ValueError(f"vals_rows must be one of {VALUE_DTYPES} under vq f16, got {vals.dtype}")
+    vals_dtype = vals.dtype if vq == "f16" else torch.uint8
     want = {"Q": (Q, torch.float32, 2), "docs": (docs, torch.int32, 2),
-            "vals_rows": (arrays["vals_rows"], vals_dtype, 2),
+            "vals_rows": (vals, vals_dtype, 2),
             "nnz_rows": (arrays["nnz_rows"], torch.int32, 1)}
     for k, dt in zip(names, dtypes):
         want[k] = (arrays[k], dt, 1 if k == "widths_rows" else 2)
@@ -185,6 +196,7 @@ def _launch(codec, vq, Q, docs, streams, scale):
         stream = torch.cuda.current_stream(Q.device).cuda_stream
         rc = fn(
             CODECS.index(codec), value_codecs.VALUE_CODECS.index(vq),
+            VALUE_DTYPES.index(vals.dtype),
             Q.data_ptr(), docs.data_ptr(), vals.data_ptr(), nnz.data_ptr(),
             ptr(p0), ptr(p1), ptr(v0), ptr(v1), out.data_ptr(),
             nq, dim, nd, C, vals.shape[0], L, vals.shape[1], width(p0), width(p1),
