@@ -9,26 +9,29 @@ no result:
 
 1. device and build — the card's name and power limit; every CUDA kernel
    of the port built from ``src/repro_torch/kernels/csrc`` (one ``nvcc``
-   per library: the rows kernel and the four parts of the block-scan
+   per library: the rows kernel and the six parts of the block-scan
    kernel, started together), with ptxas' register/spill report per
-   kernel variant;
+   kernel variant and scoring stage;
 2. kernel vs plain — every variant of the rows kernel (row codec
    uncompressed / dotvbyte / streamvbyte / bitpack × value codec f16 /
    u8_sq / u4_sq / pq) against its plain torch version on the card at
    real widths (dim 30522, C = 4096, nq = 64), in both candidate-set
-   forms (shared ``nd = 1`` and per-query ``nd = nq``), on sentinel,
-   empty, full-capacity, 1-byte-gap, 2-byte-gap and word-straddling
-   rows; and, for the codecs that take gaps past 16 bits, a small case
-   at a vocabulary of 2**24 + 2**20 (StreamVByte codes 2 and 3). The
-   rows kernel again on f32 and fixedu8 values (vq f16 reads the stored
-   dtype), and ``Retriever.build`` over an f32 and a fixedu8 collection
-   served with ``backend="cuda"``. Every block-scan entry (dotvbyte,
-   streamvbyte and bitpack at the per-block width, single and batched;
-   bitpack at each static width its packs hold) against its plain
-   version, on f32 / f16 / fixedu8 values, i32 / i8 ``seg``, T = 128 and
-   512, blocks that close on D = 5 slots, docs longer than T, empty
-   docs, a one-doc corpus and, for StreamVByte and bitpack, dim
-   2**24 + 2**20;
+   forms (shared ``nd = 1`` and per-query ``nd = nq``), the shared form
+   also at nq 1, 7, 32, 65 and 200 in both scoring stages (entry lanes,
+   query lanes), on sentinel, empty, full-capacity, 1-byte-gap,
+   2-byte-gap and word-straddling rows; and, for the codecs that take
+   gaps past 16 bits, a small case at a vocabulary of 2**24 + 2**20
+   (StreamVByte codes 2 and 3). The rows kernel again on f32 and fixedu8
+   values (vq f16 reads the stored dtype), and ``Retriever.build`` over
+   an f32 and a fixedu8 collection served with ``backend="cuda"``. Every
+   block-scan entry (dotvbyte, streamvbyte and bitpack at the per-block
+   width, single and batched; bitpack at each static width its packs
+   hold) against its plain version in both output modes — slot scores,
+   and the fused scan (scores of documents, both stages, the static
+   widths added into one result) against the slot scores scattered —
+   on f32 / f16 / fixedu8 values, i32 / i8 ``seg``, T = 128 and 512,
+   blocks that close on D = 5 slots, docs longer than T, empty docs, a
+   one-doc corpus and, for StreamVByte and bitpack, dim 2**24 + 2**20;
 3. main path — a SPLADE-statistics collection (``--n-docs``, default
    100,000 of MsMarco's 8,842,240, seed 0; 64 queries) and ONE Seismic
    host index. DotVByte/f16 is served as before: ``Retriever`` built,
@@ -46,16 +49,21 @@ no result:
    (``ForwardIndex.storage_bytes``) and stored row bytes, and the
    kernel's time (CUDA events) beside its plain version and its bound at
    the Seismic and flat shapes, with ``torch.sparse.mm`` (cuSPARSE) over
-   the same scores as the flat shape's library yardstick;
+   the same scores as the flat shape's library yardstick; the stage
+   sweep of the rows kernel at the flat shape (both stages at nq 1–64);
 5. the full scan — the same collection packed into blocks (T = 512)
    for dotvbyte, streamvbyte and bitpack, every document scored through
    ``ops.score_*_batch`` (nq = 64), ``ops.score_*`` and
-   ``score_bitpack_bucketed``. The block-scan launch counts are zeroed
-   just before and read just after. Each result is held against
-   ``torch.sparse.mm`` over the uncompressed CSR (rtol = atol = 1e-4) and
-   its top-10 against ``exact_top_k``; the kernel alone, the whole entry
-   (kernel + scatter), the plain version, the bound and the library
-   call are timed;
+   ``score_bitpack_bucketed``, which run the fused kernel (the block
+   scan with its scatter in the epilogue). The block-scan launch counts
+   are zeroed just before and read just after: every entry must have
+   launched the fused mode, and no slot-score launch. Each result is
+   held against ``torch.sparse.mm`` over the uncompressed CSR (rtol =
+   atol = 1e-4) and its top-10 against ``exact_top_k``; the fused call
+   (in both stages), the whole entry, the slot-score kernel, both plain
+   versions, the bound and the library call are timed, the stage sweep
+   of the fused call is taken, and the profile of the batched entry
+   must show no ``index_add_``;
 6. one JSON line of kernels, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 """
@@ -89,6 +97,11 @@ TIE_RTOL = 1e-5
 
 #: queries per search batch; candidates per query at the Seismic shape
 N_QUERIES = 64
+#: batch sizes at which phase 2 checks the rows kernel's shared form in
+#: both stages (across the 32-lane and 128-query tile edges)
+SHARED_NQ = (1, 7, 32, 65, 200)
+#: batch sizes of the stage sweep that sets QUERY_LANES_MIN_NQ
+SWEEP_NQ = (1, 2, 4, 6, 8, 16, 32, 64)
 SEISMIC_PARAMS = dict(cut=8, block_budget=512, n_probe=64, n_postings=2000, block_size=64)
 #: the flat engine's variants: every row codec at f16, dotvbyte at every vq
 FLAT_VARIANTS = {(c, "f16") for c in ("uncompressed", "dotvbyte", "streamvbyte", "bitpack")} | {
@@ -133,9 +146,10 @@ def host_ms(fn, reps: int) -> list[float]:
     return out
 
 
-def device_breakdown(name: str, fn, card: str, reps: int = 5) -> None:
+def device_breakdown(name: str, fn, card: str, reps: int = 5) -> set[str]:
     """Print one search's device busy time, idle share and top kernels,
-    from ``torch.profiler`` over ``reps`` warm calls."""
+    from ``torch.profiler`` over ``reps`` warm calls → the names of every
+    host op and kernel traced."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -150,13 +164,15 @@ def device_breakdown(name: str, fn, card: str, reps: int = 5) -> None:
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = {e.key: e.self_device_time_total / 1e3 / reps for e in kernels}
     total = sum(busy.values())
+    seen = {e.key for e in prof.key_averages()}
     if total <= 0:
         log(f"    profile {name}: device time not measured (no device events traced)")
-        return
+        return seen
     log(f"    profile {name}: wall {wall_ms:.3f} ms/search, device busy {total:.3f} ms "
         f"(idle share {1 - total / wall_ms:.2f}) ({card}); top kernels:")
     for key, ms in sorted(busy.items(), key=lambda kv: -kv[1])[:6]:
         log(f"      {ms:8.4f} ms {100 * ms / total:5.1f}%  {key[:90]}")
+    return seen
 
 
 #: mangled template arguments → storage names
@@ -172,14 +188,15 @@ def ptxas_report(log_text: str) -> dict[str, list[str]]:
 
     out, cur = {}, None
     for line in log_text.splitlines():
-        rows = re.search(r"rows_dot_kernelILi(\d)ELi(\d)E(f|6__half|h)?", line)
+        rows = re.search(r"rows_dot_(shared_)?kernelILi(\d)ELi(\d)E(f|6__half|h)?", line)
         scan = re.search(r"block_scan_kernelILi(\d+)E(f|6__half|h)(i|a)E", line)
         if (rows or scan) and ("Compiling entry" in line or "Function properties" in line):
             if rows:
-                cur = rows_dot.variant_name(rows_dot.CODECS[int(rows[1])],
-                                            VALUE_CODECS[int(rows[2])])
-                if rows[3] and VALUE_CODECS[int(rows[2])] == "f16":  # the stored dtype
-                    cur += f"[{_MANGLED[rows[3]]}]"
+                cur = rows_dot.variant_name(rows_dot.CODECS[int(rows[2])],
+                                            VALUE_CODECS[int(rows[3])])
+                if rows[4] and VALUE_CODECS[int(rows[3])] == "f16":  # the stored dtype
+                    cur += f"[{_MANGLED[rows[4]]}]"
+                cur += " query lanes" if rows[1] else " entry lanes"
             else:
                 code = int(scan[1])
                 codec = block_scan.CODECS[min(code, 2)] + (f"_w{code - 2}" if code > 2 else "")
@@ -283,13 +300,15 @@ def sparse_queries(nq: int, dim: int, nnz: int, rng) -> np.ndarray:
     return Q
 
 
-def check_kernel(codec, name, Q, docs, arrays, scale=1.0) -> float:
-    """Kernel vs plain on the card at one shape → max abs difference.
-    These launches compare; they are not the main path's."""
+def check_kernel(codec, name, Q, docs, arrays, scale=1.0, stage=None, want=None) -> float:
+    """Kernel (in ``stage``; default: the wrapper's pick) vs plain on the
+    card at one shape → max abs difference. These launches compare; they
+    are not the main path's."""
     from repro_torch.kernels import rows_dot
 
-    got = rows_dot.rows_scores_for_codec(codec, arrays, Q, docs, scale)
-    want = rows_dot.rows_scores_plain(codec, arrays, Q, docs, scale)
+    got = rows_dot.rows_scores_for_codec(codec, arrays, Q, docs, scale, stage=stage)
+    if want is None:
+        want = rows_dot.rows_scores_plain(codec, arrays, Q, docs, scale)
     torch.cuda.synchronize()
     err = float((got - want).abs().max()) if got.numel() else 0.0
     if not torch.allclose(got, want, rtol=RTOL, atol=ATOL):
@@ -320,6 +339,8 @@ BLOCK_ENTRIES = {
     "block_scan_bitpack_w": ("bitpack", False),
 }
 BLOCK_CODECS = ("dotvbyte", "streamvbyte", "bitpack")
+#: the kernels' scoring stages (both kernels name them alike)
+STAGES = ("entry_lanes", "query_lanes")
 
 
 def scan_fn(codec: str, batched: bool):
@@ -351,35 +372,53 @@ def check_close(name: str, got, want) -> float:
     return err
 
 
-def check_blocks(name: str, Q, packed, max_err: dict) -> str:
+def check_blocks(name: str, Q, packed, max_err: dict, fused_err: dict) -> str:
     """Every block-scan entry of the pack's codec against its plain
-    version: batched (Q), single (Q[0]) and, for bitpack, each static
-    width the pack holds. These launches compare; they are not the main
-    path's."""
+    version, in both output modes: slot scores batched (Q), single
+    (Q[0]) and, for bitpack, at each static width the pack holds; the
+    fused scan (scores of documents) batched and single in both scoring
+    stages, and bucketed into one result. These launches compare; they
+    are not the main path's."""
+    from repro_torch.core.scoring import scatter_block_scores
     from repro_torch.kernels import block_scan, ops
 
     codec, scale = packed.codec, float(packed.value_format.scale)
     streams = {k: v for k, v in packed.as_dict().items() if k != "doc_ids"}
+    ids, n_docs = packed.doc_ids, packed.n_docs
     plain = block_scan.block_scores_plain(codec, Q, streams, scale=scale)
+    plain_docs = scatter_block_scores(plain, ids, n_docs)
     single, batch = scan_fn(codec, False), scan_fn(codec, True)
-    errs = {f"block_scan_{codec}_batch": check_close(
+    entry = f"block_scan_{codec}"
+    errs = {f"{entry}_batch": check_close(
                 f"{name} batch", batch(Q, *scan_args(packed), scale=scale), plain),
-            f"block_scan_{codec}": check_close(
+            entry: check_close(
                 f"{name} single", single(Q[0], *scan_args(packed), scale=scale), plain[0])}
+    fused = {f"{entry}_batch": 0.0, entry: 0.0}
+    for stage in STAGES:
+        for e, Qx, want in ((f"{entry}_batch", Q, plain_docs), (entry, Q[:1], plain_docs[:1])):
+            got = block_scan.scan_scores(e, codec, Qx, streams, ids, n_docs, scale=scale,
+                                         stage=stage)
+            fused[e] = max(fused[e], check_close(f"{name} {e} fused {stage}", got, want))
     widths = []
     if codec == "bitpack":
-        err_w = 0.0
+        err_w, total, want_total = 0.0, None, torch.zeros_like(plain_docs[:1])
         for w, sel, words in ops.width_buckets(packed):
             b = bucket_streams(packed, sel, words)
             got = block_scan.bitpack_block_scores_w(Q[0], *b.values(), width=w, scale=scale)
             want = block_scan.block_scores_plain("bitpack", Q[:1], b, scale=scale, width=w)[0]
             err_w = max(err_w, check_close(f"{name} width {w}", got, want))
+            total = block_scan.scan_scores("block_scan_bitpack_w", "bitpack", Q[:1], b,
+                                           ids[sel], n_docs, scale=scale, width=w, out=total)
+            want_total += scatter_block_scores(want.unsqueeze(0), ids[sel], n_docs)
             widths.append(w)
         errs["block_scan_bitpack_w"] = err_w
-    for k, v in errs.items():
-        max_err[k] = max(max_err.get(k, 0.0), v)
-    return (f"B={packed.n_blocks} max_abs_err " + ", ".join(
+        fused["block_scan_bitpack_w"] = check_close(f"{name} bucketed fused", total, want_total)
+    for into, new in ((max_err, errs), (fused_err, fused)):
+        for k, v in new.items():
+            into[k] = max(into.get(k, 0.0), v)
+    return (f"B={packed.n_blocks} max_abs_err slots " + ", ".join(
         f"{k[len('block_scan_'):]} {v:.1e}" for k, v in errs.items())
+        + "; fused " + ", ".join(f"{k[len('block_scan_'):]} {v:.1e}" for k, v in fused.items())
         + (f" (widths {widths})" if widths else ""))
 
 
@@ -410,7 +449,7 @@ def scan_bound(packed, nq: int, dim: int, words_bytes: int | None = None):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def full_scan(fwd, Q, truth, csr, card: str, max_err: dict) -> list[dict]:
+def full_scan(fwd, Q, truth, csr, card: str, max_err: dict, fused_err: dict) -> list[dict]:
     """Phase 5: the full-scan path over the main collection → the
     block-scan entries' kernel-line records."""
     from repro_torch.core.layout import pack_blocks
@@ -439,10 +478,16 @@ def full_scan(fwd, Q, truth, csr, card: str, max_err: dict) -> list[dict]:
     results["block_scan_bitpack_w"] = ops.score_bitpack_bucketed(q0, packs["bitpack"])
     torch.cuda.synchronize()
     launches = dict(block_scan.variant_launches)
-    log("    full-scan launches: " + ", ".join(f"{k}={v}" for k, v in launches.items()))
-    missing = [k for k, v in launches.items() if v <= 0]
+    fused = dict(block_scan.fused_launches)
+    stages = dict(block_scan.stage_launches)
+    log("    full-scan launches (all / fused): " + ", ".join(
+        f"{k}={v}/{fused[k]}" for k, v in launches.items())
+        + "; by stage " + ", ".join(f"{k}={v}" for k, v in stages.items()))
+    missing = [k for k, v in fused.items() if v <= 0]
     if missing:
-        raise SystemExit(f"the full scan did not launch {missing}")
+        raise SystemExit(f"the full scan did not launch the fused kernel for {missing}")
+    if any(launches[k] != fused[k] for k in launches):
+        raise SystemExit("the full scan launched the slot-score mode on its path")
 
     # checks: torch.sparse.mm over the uncompressed CSR and exact_top_k
     Qt = Q.t().contiguous()
@@ -451,6 +496,8 @@ def full_scan(fwd, Q, truth, csr, card: str, max_err: dict) -> list[dict]:
     for entry, got in results.items():
         batched = BLOCK_ENTRIES[entry][1]
         want = lib[batched] if batched else lib[False][0]
+        # f32 sums in another order, and a document's fragments added by
+        # atomics in no fixed order: 1e-4 covers both at these magnitudes
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
         sc, ids = top_k(got if batched else got.unsqueeze(0), 10)
         swaps = sum(tie_aware_topk(f"{entry} query {i}", ids[i].cpu().numpy(),
@@ -470,23 +517,37 @@ def full_scan(fwd, Q, truth, csr, card: str, max_err: dict) -> list[dict]:
         Qx = Q if batched else Q[:1]
         single, batch = ops.block_scorers(codec)
         if entry == "block_scan_bitpack_w":
-            buckets = [(w, bucket_streams(p, sel, words)) for w, sel, words in ops.width_buckets(p)]
+            buckets = [(w, bucket_streams(p, sel, words), p.doc_ids[sel])
+                       for w, sel, words in ops.width_buckets(p)]
 
             def kernel():
                 return [block_scan.bitpack_block_scores_w(q0, *b.values(), width=w, scale=scale)
-                        for w, b in buckets]
+                        for w, b, _ in buckets]
 
             def plain():
                 return [block_scan.block_scores_plain("bitpack", Qx, b, scale=scale, width=w)[0]
-                        for w, b in buckets]
+                        for w, b, _ in buckets]
+
+            def fused_call():
+                total = None
+                for w, b, ids in buckets:
+                    total = block_scan.scan_scores(entry, "bitpack", Qx, b, ids, p.n_docs,
+                                                   scale=scale, width=w, out=total)
+                return total
+
+            def fused_plain():
+                return sum(block_scan.scan_scores_plain("bitpack", Qx, b, ids, p.n_docs,
+                                                        scale=scale, width=w)
+                           for w, b, ids in buckets)
 
             def whole():
                 return ops.score_bitpack_bucketed(q0, p)
 
             err = max(check_close(f"{entry} @ 100k width {w}", g, e)
-                      for (w, _), g, e in zip(buckets, kernel(), plain()))
+                      for (w, _, _), g, e in zip(buckets, kernel(), plain()))
             bound_ms, bound_by = scan_bound(p, 1, dim, sum(int(b["words"].nbytes)
-                                                           for _, b in buckets))
+                                                           for _, b, _ in buckets))
+            stage_ms = {}
         else:
             args = scan_args(p)
             fn = scan_fn(codec, batched)
@@ -499,42 +560,89 @@ def full_scan(fwd, Q, truth, csr, card: str, max_err: dict) -> list[dict]:
                 r = block_scan.block_scores_plain(codec, Qx, streams, scale=scale)
                 return r if batched else r[0]
 
+            def fused_call(stage=None):
+                return block_scan.scan_scores(entry, codec, Qx, streams, p.doc_ids, p.n_docs,
+                                              scale=scale, stage=stage)
+
+            def fused_plain():
+                return block_scan.scan_scores_plain(codec, Qx, streams, p.doc_ids, p.n_docs,
+                                                    scale=scale)
+
             def whole():
                 return (batch(Q, p) if batched else single(q0, p))
 
             err = check_close(f"{entry} @ 100k", kernel(), plain())
             bound_ms, bound_by = scan_bound(p, Qx.shape[0], dim)
+            # both stages of the fused call, the picked one first
+            stage_ms = {st: cuda_ms(lambda: fused_call(st), 10) for st in STAGES}
         max_err[entry] = max(max_err.get(entry, 0.0), err)
+        f_err = check_close(f"{entry} @ 100k fused", fused_call(), fused_plain())
+        fused_err[entry] = max(fused_err.get(entry, 0.0), f_err)
         ms = cuda_ms(kernel, 10 if batched else 20)
+        fused_ms = cuda_ms(fused_call, 10 if batched else 20)
         entry_ms = cuda_ms(whole, 10 if batched else 20)
         plain_ms = cuda_ms(plain, 2 if batched else 3, 1)
+        fused_plain_ms = cuda_ms(fused_plain, 2 if batched else 3, 1)
+        stage = block_scan.pick_stage(Qx.shape[0])
         inter = 4 * Qx.shape[0] * p.n_blocks * p.max_docs_per_block
-        log(f"  {entry}: kernel {ms:.4f} ms, entry (kernel + scatter) {entry_ms:.4f} ms, "
-            f"plain {plain_ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by}, sparse.mm "
-            f"{lib_ms[batched]:.4f} ms; [nq,B,D] intermediate {inter / 2**20:.1f} MiB = "
-            f"{1e3 * inter / HBM_BYTES_PER_S:.4f} ms written once at the HBM rate; "
-            f"max_abs_err {max_err[entry]:.2e} ({card})")
+        log(f"  {entry}: fused {fused_ms:.4f} ms ({stage}; "
+            + ", ".join(f"{k} {v:.4f}" for k, v in stage_ms.items())
+            + f"), entry {entry_ms:.4f} ms, slot-score kernel {ms:.4f} ms (its [nq,B,D] "
+            f"output {inter / 2**20:.1f} MiB, not on the path), plain {plain_ms:.3f} / fused "
+            f"plain {fused_plain_ms:.3f} ms, bound {bound_ms:.4f} ms by {bound_by}, sparse.mm "
+            f"{lib_ms[batched]:.4f} ms; max_abs_err slots {max_err[entry]:.2e}, fused "
+            f"{fused_err[entry]:.2e} ({card})")
         out.append({
             "name": entry,
             "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/block_scan.cu",
             "replaces": block_scan.ENTRIES[entry],
             "launches": launches[entry],
-            "max_abs_err": max_err[entry],
+            "max_abs_err": max(max_err[entry], fused_err[entry]),
             "ms": ms,
             "plain_ms": plain_ms,
             "bound_ms": bound_ms,
             "bound_by": bound_by,
             "library_ms": lib_ms[batched],
+            "fused_ms": fused_ms,
+            "fused_launches": fused[entry],
+            "fused_plain_ms": fused_plain_ms,
+            "fused_max_abs_err": fused_err[entry],
+            "fused_ms_by_stage": stage_ms,
+            "stage": stage,
             "entry_ms": entry_ms,
             "nq": Qx.shape[0],
             "n_blocks": p.n_blocks,
-            "intermediate_bytes": inter,
+            "slot_scores_bytes": inter,
         })
-    device_breakdown("full scan dotvbyte batch", lambda: ops.score_dotvbyte_batch(Q, packs[
-        "dotvbyte"]), card)
+    out[list(BLOCK_ENTRIES).index("block_scan_dotvbyte_batch")]["stage_sweep"] = stage_sweep(
+        "fused block scan, dotvbyte", lambda Qn, st: block_scan.scan_scores(
+            "block_scan_dotvbyte_batch", "dotvbyte", Qn,
+            {k: v for k, v in packs["dotvbyte"].as_dict().items() if k != "doc_ids"},
+            packs["dotvbyte"].doc_ids, fwd.n_docs, stage=st), Q, card)
+    ops_seen = device_breakdown("full scan dotvbyte batch", lambda: ops.score_dotvbyte_batch(
+        Q, packs["dotvbyte"]), card)
+    if any("index_add" in k for k in ops_seen):
+        raise SystemExit("the batched full scan still runs an index_add_ scatter")
+    log("    the batched full scan ran no index_add_ (profiler: "
+        f"{len(ops_seen)} distinct host ops and kernels)")
     device_breakdown("full scan dotvbyte single", lambda: ops.score_dotvbyte(q0, packs[
         "dotvbyte"]), card)
+    return out
+
+
+def stage_sweep(name: str, call, Q, card: str) -> dict:
+    """Device time of ``call(Q[:n], stage)`` in both scoring stages at
+    every batch size of SWEEP_NQ → ``{stage: {nq: ms}}``; the data behind
+    QUERY_LANES_MIN_NQ."""
+    out = {st: {} for st in STAGES}
+    for n in SWEEP_NQ:
+        Qn = Q[:n].contiguous()
+        for st in STAGES:
+            out[st][n] = cuda_ms(lambda: call(Qn, st), 10)
+    log(f"    stage sweep, {name} (ms; {card}): " + "; ".join(
+        f"nq {n}: entry {out['entry_lanes'][n]:.4f}, query {out['query_lanes'][n]:.4f}"
+        for n in SWEEP_NQ))
     return out
 
 
@@ -575,12 +683,12 @@ def main() -> int:
     for name, info in built.items():
         log(f"    {name}: nvcc {info['seconds']:.1f}s")
         report = ptxas_report(info["log"] or "")
-        for variant, lines in sorted(report.items()):
-            if variant.startswith("rows_dot"):
-                log(f"    {variant}: " + "; ".join(lines))
         groups = {}
         for variant, lines in sorted(report.items()):
-            if variant.startswith("block_scan"):
+            if variant.startswith("rows_dot"):
+                name, stage = variant.rsplit(" ", 2)[0], " ".join(variant.rsplit(" ", 2)[1:])
+                groups.setdefault(name, []).append(f"{stage} {regs_spills(lines)}")
+            else:
                 entry, storage = variant[:-1].split("[")
                 groups.setdefault(entry, []).append(f"{storage} {regs_spills(lines)}")
         for entry, items in groups.items():
@@ -598,13 +706,14 @@ def main() -> int:
     ids = rng.integers(0, n_e + 1, size=(nq, C)).astype(np.int32)
     ids[:, :6] = [n_e, 0, 1, 2, 3, 4]  # sentinel, empty, full, 1-byte, straddle, 2-byte
     ids = torch.from_numpy(ids).to(dev)
+    Qs = torch.from_numpy(sparse_queries(max(SHARED_NQ), dim, 43, rng)).to(dev)
     wide_dim = (1 << 24) + (1 << 20)
     fwd_w = ForwardIndex.from_docs(wide_docs(wide_dim, rng), wide_dim, value_format="f16")
     Qw = torch.rand((2, wide_dim), device=dev, generator=torch.Generator(dev).manual_seed(0))
     ids_w = torch.arange(fwd_w.n_docs + 1, dtype=torch.int32, device=dev)
     max_err = {v: 0.0 for v in variants}
-    log(f"[2] rows kernel vs plain on edge rows (N={n_e}, dim={dim}, nq={nq}, C={C}; "
-        f"rtol={RTOL}, atol={ATOL}):")
+    log(f"[2] rows kernel vs plain on edge rows (N={n_e}, dim={dim}, nq={nq}, C={C}; the "
+        f"shared form also at nq {list(SHARED_NQ)} in both stages; rtol={RTOL}, atol={ATOL}):")
     for codec, vq in variants:
         rows = pack_rows(fwd_e, codec=codec, vq=vq)
         assert rows.l_max == 256, rows.l_max
@@ -612,6 +721,13 @@ def main() -> int:
         errs = [check_kernel(codec, f"{names[codec, vq]} nd=1", Qe, ids[:1].contiguous(),
                              arrays, 0.5),
                 check_kernel(codec, f"{names[codec, vq]} nd=nq", Qe, ids, arrays, 0.5)]
+        shared = []
+        for n in SHARED_NQ:  # the shared form across the lane and tile edges, both stages
+            Qn, set1 = Qs[:n], ids[:1].contiguous()
+            want = rows_dot.rows_scores_plain(codec, arrays, Qn, set1, 0.5)
+            shared += [check_kernel(codec, f"{names[codec, vq]} nd=1 nq={n} {st}", Qn, set1,
+                                    arrays, 0.5, st, want) for st in rows_dot.STAGES]
+        errs[0] = max(errs[0], *shared)
         wide = ""
         if codec != "dotvbyte":  # DotVByte stores 16-bit gaps only
             wa = {k: torch.from_numpy(v).to(dev)
@@ -622,8 +738,8 @@ def main() -> int:
                                   ids_w.unsqueeze(0).repeat(2, 1), wa)]
             wide = f", dim {wide_dim} nd=1/nq {errs[2]:.2e}/{errs[3]:.2e}"
         max_err[codec, vq] = max(errs)
-        log(f"  {names[codec, vq]:28s} max_abs_err nd=1 {errs[0]:.2e}, nd=nq {errs[1]:.2e}"
-            f"{wide} ok")
+        log(f"  {names[codec, vq]:28s} max_abs_err nd=1 {errs[0]:.2e} (both stages), nd=nq "
+            f"{errs[1]:.2e}{wide} ok")
     del Qw
     # vq f16 reads the values as stored: f32 and fixedu8 rows too
     for vf in ("f32", "fixedu8"):
@@ -660,6 +776,7 @@ def main() -> int:
     # -- 2b. every block-scan entry vs plain on edge packs ---------------------------
     t0 = time.perf_counter()
     block_err: dict[str, float] = {}
+    fused_err: dict[str, float] = {}
     b_docs = edge_docs(dim, 700, 600, rng)  # docs up to 700 entries: longer than T
     Qb = torch.from_numpy(rng.random((nq, dim)).astype(np.float32)).to(dev)
     log(f"[2b] block-scan kernel vs plain (nq={nq}, dim={dim}; rtol={RTOL}, atol={ATOL}):")
@@ -671,7 +788,7 @@ def main() -> int:
                 packed = pack_blocks(fwd_b, codec=codec, block_size=T, max_docs_per_block=D,
                                      seg_dtype=seg).to(dev)
                 name = f"{codec} {vf} T={T} seg={np.dtype(seg).name} D={packed.max_docs_per_block}"
-                log(f"  {name}: " + check_blocks(name, Qb, packed, block_err))
+                log(f"  {name}: " + check_blocks(name, Qb, packed, block_err, fused_err))
     one = ForwardIndex.from_docs([(np.sort(rng.choice(dim, 1500, replace=False)),
                                    rng.gamma(2.0, 0.5, 1500))], dim, value_format="f16")
     wide_b = ForwardIndex.from_docs(
@@ -680,12 +797,12 @@ def main() -> int:
     Qwb = torch.rand((2, wide_dim), device=dev, generator=torch.Generator(dev).manual_seed(1))
     for codec in BLOCK_CODECS:
         log(f"  {codec} one-doc corpus (1500 entries, T=512): " + check_blocks(
-            f"{codec} one-doc", Qb, pack_blocks(one, codec=codec).to(dev), block_err))
+            f"{codec} one-doc", Qb, pack_blocks(one, codec=codec).to(dev), block_err, fused_err))
         if codec != "dotvbyte":  # DotVByte stores 16-bit gaps only
             log(f"  {codec} dim {wide_dim} (T=256, D=200; a block's gap sum passes 2**31): "
                 + check_blocks(f"{codec} wide", Qwb, pack_blocks(
                     wide_b, codec=codec, block_size=256, max_docs_per_block=200).to(dev),
-                    block_err))
+                    block_err, fused_err))
     del Qwb
     phase_s["2b block scan vs plain"] = time.perf_counter() - t0
 
@@ -810,6 +927,7 @@ def main() -> int:
                                2 if slow else 3, 1)
             bound_ms, bound_by = rows_bound(codec, Q, docs, arrays)
             shapes.append(dict(shape=shape, nq=nq, nd=docs.shape[0], C=docs.shape[1],
+                               stage=rows_dot.pick_stage(nq, docs.shape[0]),
                                launches_per_search=per_search.get((shape, codec, vq)),
                                ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                                library_ms=lib_ms if slow else None, max_abs_err=err))
@@ -857,6 +975,11 @@ def main() -> int:
             "bits_per_component": bits,
             "row_bytes": row_bytes[codec, vq],
         })
+    dv = seismic["dotvbyte", "f16"].arrays
+    kernels[[k["name"] for k in kernels].index(names["dotvbyte", "f16"])]["stage_sweep"] = \
+        stage_sweep("rows kernel at the flat shape, dotvbyte f16",
+                    lambda Qn, st: rows_dot.rows_scores_for_codec("dotvbyte", dv, Qn, docs_f,
+                                                                  scale, stage=st), Q, card)
     device_breakdown("seismic dotvbyte f16", lambda: base.search(Q), card)
     device_breakdown("flat dotvbyte f16", lambda: flat["dotvbyte", "f16"].search(Q), card)
     shutil.rmtree(ROOT / "build" / "chip_smoke", ignore_errors=True)
@@ -866,7 +989,7 @@ def main() -> int:
     t0 = time.perf_counter()
     log(f"[5] full scan of the {fwd.n_docs}-doc collection (nq={nq}):")
     n_rows = len(kernels)
-    kernels += full_scan(fwd, Q, truth, csr, card, block_err)
+    kernels += full_scan(fwd, Q, truth, csr, card, block_err, fused_err)
     phase_s["5 full scan"] = time.perf_counter() - t0
 
     # -- 6. summary -------------------------------------------------------------

@@ -40,8 +40,9 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch
 #: every kernel source of the port, by name
 SOURCES = ("rows_dot", "block_scan")
 
-#: sources compiled in several parts (the others in one)
-PARTS = {"block_scan": 4}
+#: sources compiled in several parts (the others in one): with the rows
+#: kernel, one nvcc for each of the chip machine's 8 cores but one
+PARTS = {"block_scan": 6}
 
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -1,6 +1,8 @@
-// Block scans and gap decoders shared by the port's kernels (rows_dot.cu,
-// block_scan.cu). One thread owns 8 consecutive entries, 8t..8t+7, of a row
-// or packed block; blockDim.x is a multiple of 32.
+// Block scans, gap decoders and the query-lane scoring loop shared by the
+// port's kernels (rows_dot.cu, block_scan.cu). One thread owns 8 consecutive
+// entries, 8t..8t+7, of a row or packed block; blockDim.x is a multiple of
+// 32. A decoder's scans run over the whole block, or over one warp when
+// `warp` is set (then t is the lane and each warp decodes its own row).
 //
 // Stream formats (gaps are u32; the caller prefix-sums them):
 //   dotvbyte     gap j has control bit j%8 of byte j/8 (LSB first): 0 means one
@@ -58,6 +60,16 @@ __device__ __forceinline__ V block_exclusive_scan(V x, V* scratch) {
   return out;
 }
 
+// Exclusive prefix sum over one warp (`warp`) or the whole block. `warp` must
+// be uniform across the block; every thread of the scope must call it.
+template <typename V>
+__device__ __forceinline__ V group_exclusive_scan(V x, V* scratch, bool warp) {
+  if (!warp) return block_exclusive_scan<V>(x, scratch);
+  const V incl = warp_inclusive_scan(x);
+  const V excl = __shfl_up_sync(kFull, incl, 1);
+  return (threadIdx.x & 31) ? excl : V(0);
+}
+
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
@@ -81,10 +93,11 @@ __device__ __forceinline__ float block_sum(float x, float* scratch) {
 // gives its first data byte. Every thread must call it (the scan).
 __device__ __forceinline__ void decode_dotvbyte8(const uint8_t* ctrl, const uint8_t* data,
                                                  int data_w, int t, int n,
-                                                 unsigned* scratch, unsigned gap[8]) {
+                                                 unsigned* scratch, unsigned gap[8],
+                                                 bool warp = false) {
   const bool live = 8 * t < n;
   const int byte = live ? ctrl[t] : 0;
-  unsigned off = block_exclusive_scan<unsigned>(live ? 8 + __popc(byte) : 0, scratch);
+  unsigned off = group_exclusive_scan<unsigned>(live ? 8 + __popc(byte) : 0, scratch, warp);
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     const int two = (byte >> j) & 1;
@@ -102,13 +115,14 @@ __device__ __forceinline__ void decode_dotvbyte8(const uint8_t* ctrl, const uint
 // 8 gaps' byte lengths gives its first data byte. Every thread must call it.
 __device__ __forceinline__ void decode_streamvbyte8(const uint8_t* ctrl, const uint8_t* data,
                                                     int data_w, int t, int n,
-                                                    unsigned* scratch, unsigned gap[8]) {
+                                                    unsigned* scratch, unsigned gap[8],
+                                                    bool warp = false) {
   const bool live = 8 * t < n;
   const unsigned codes = live ? ctrl[2 * t] | ((unsigned)ctrl[2 * t + 1] << 8) : 0u;
   unsigned n_bytes = 0;
 #pragma unroll
   for (int j = 0; j < 8; ++j) n_bytes += ((codes >> (2 * j)) & 3u) + 1;
-  unsigned off = block_exclusive_scan<unsigned>(live ? n_bytes : 0u, scratch);
+  unsigned off = group_exclusive_scan<unsigned>(live ? n_bytes : 0u, scratch, warp);
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     const int len = (int)((codes >> (2 * j)) & 3u) + 1;
@@ -142,6 +156,43 @@ __device__ __forceinline__ void decode_bitpack8(const uint32_t* words, int words
       g = (unsigned)(((lo >> off) | (hi << (32 - off))) & mask);
     }
     gap[j] = g;
+  }
+}
+
+// -- the query-lane stage ------------------------------------------------------
+//
+// A decoded entry: its component and its scaled value. A dead entry (padding,
+// or a component outside the vocabulary) is {0, 0.f}: it gathers Qt row 0 and
+// adds nothing.
+struct __align__(8) Ent {
+  int c;
+  float v;
+};
+
+// Queries a block scores per launch column (grid.y): lane l of a warp owns
+// queries q0 + l + 32k, k < kLaneQueries. A tile of Qt (dim x 128 f32, 15.6 MB
+// at dim 30,522) stays in the 50 MB L2 at any batch size.
+constexpr int kQueryTile = 128;
+constexpr int kLaneQueries = kQueryTile / 32;
+
+// acc[k] += Qt[c, q0 + lane + 32k] * v over a run of n entries. Qt is the
+// query batch transposed, [dim, nq]: every lane reads the same entry (a
+// shared-memory broadcast) and its own queries of that entry's Qt row, so one
+// entry costs one coalesced 128-byte read per k and no cross-lane step. nt,
+// the queries of this tile, is uniform across the warp. Products and sums are
+// rounded as plain operations (no fused multiply-add), as the plain versions
+// round them.
+__device__ __forceinline__ void score_run(const Ent* ent, int n, const float* Qt, int nq,
+                                          int q0, int nt, float acc[kLaneQueries]) {
+  const int lane = threadIdx.x & 31;
+  const float* base = Qt + q0 + lane;
+#pragma unroll 4
+  for (int e = 0; e < n; ++e) {
+    const Ent x = ent[e];
+    const float* row = base + (size_t)(unsigned)x.c * nq;
+#pragma unroll
+    for (int k = 0; k < kLaneQueries; ++k)
+      if (lane + 32 * k < nt) acc[k] = __fadd_rn(acc[k], __fmul_rn(row[32 * k], x.v));
   }
 }
 

@@ -6,13 +6,18 @@ f32 ``[n_docs]``; the ``_batch`` forms take ``Q [nq, ≥dim]`` and return
 ``[nq, n_docs]`` (each block decoded once for the whole batch);
 ``score_bitpack_bucketed`` runs one static-width scan per distinct
 bitpack width over word streams sliced tight to ``⌈T·w/32⌉`` words.
-Each runs the block-scan kernel (``kernels/block_scan.py``) and then
-``scoring.scatter_block_scores`` (an ``index_add_``) to documents.
+Each runs ``block_scan.scan_scores``: on CUDA tensors the block-scan
+kernel in its scatter mode, which adds every used slot's score straight
+into the documents' scores (no ``[nq, B, D]`` slot scores, no
+``index_add_``); the batched result is a transposed view of the
+kernel's doc-major accumulator. On CPU tensors the kernel's plain
+version and ``scoring.scatter_block_scores`` (an ``index_add_``) run,
+as in the reference.
 
 The pack (``PackedBlocks``) may hold numpy arrays, which go to
 ``device`` (``cuda`` unless the caller asks for the CPU), or tensors,
 which are used where they lie. On CUDA tensors the kernel launches or
-the call raises; on CPU tensors the kernel's plain version runs. The
+the call raises. The
 block kernels read raw stored values only: a pack under a quantized
 value codec raises a ``ValueError`` (``scoring.score_packed`` serves
 every vq).
@@ -23,7 +28,6 @@ from __future__ import annotations
 import torch
 
 from .. import resolve_device
-from ..core.scoring import scatter_block_scores
 from . import block_scan
 
 __all__ = [
@@ -59,17 +63,23 @@ def _prepare(Q, packed, codec: str, device):
     return Q[:, : packed.dim].contiguous(), packed
 
 
-def _block_args(packed):
+def _streams(packed) -> dict:
+    """The pack's block streams as ``block_scan`` takes them."""
     keys = ("ctrl", "data") if packed.codec != "bitpack" else ("words", "widths")
-    return [getattr(packed, k) for k in keys] + [
-        packed.seg, packed.start_pos, packed.start_abs, packed.vals]
+    return {k: getattr(packed, k) for k in (*keys, "seg", "start_pos", "start_abs", "vals")}
 
 
-def _single(fn, codec):
+def _scan(entry, codec, Q, packed, streams=None, doc_ids=None, **kw):
+    return block_scan.scan_scores(
+        entry, codec, Q, streams or _streams(packed),
+        packed.doc_ids if doc_ids is None else doc_ids, packed.n_docs,
+        scale=float(packed.value_format.scale), **kw)
+
+
+def _single(codec):
     def score(q, packed, device=None):
         Q, packed = _prepare(torch.as_tensor(q).reshape(1, -1), packed, codec, device)
-        block = fn(Q[0], *_block_args(packed), scale=float(packed.value_format.scale))
-        return scatter_block_scores(block, packed.doc_ids, packed.n_docs)
+        return _scan(f"block_scan_{codec}", codec, Q, packed)[0]
 
     score.__name__ = f"score_{codec}"
     score.__doc__ = (f"Every document's score for one dense query through the {codec} "
@@ -77,24 +87,24 @@ def _single(fn, codec):
     return score
 
 
-def _batch(fn, codec):
+def _batch(codec):
     def score(Q, packed, device=None):
         Q, packed = _prepare(Q, packed, codec, device)
-        block = fn(Q, *_block_args(packed), scale=float(packed.value_format.scale))
-        return scatter_block_scores(block, packed.doc_ids, packed.n_docs)
+        return _scan(f"block_scan_{codec}_batch", codec, Q, packed)
 
     score.__name__ = f"score_{codec}_batch"
     score.__doc__ = (f"Every document's score for a query batch through the {codec} "
-                     f"block-scan kernel, each block decoded once: f32 [nq, n_docs].")
+                     f"block-scan kernel, each block decoded once per query tile: f32 "
+                     f"[nq, n_docs].")
     return score
 
 
-score_dotvbyte = _single(block_scan.dotvbyte_block_scores, "dotvbyte")
-score_dotvbyte_batch = _batch(block_scan.dotvbyte_block_scores_batch, "dotvbyte")
-score_streamvbyte = _single(block_scan.streamvbyte_block_scores, "streamvbyte")
-score_streamvbyte_batch = _batch(block_scan.streamvbyte_block_scores_batch, "streamvbyte")
-score_bitpack = _single(block_scan.bitpack_block_scores, "bitpack")
-score_bitpack_batch = _batch(block_scan.bitpack_block_scores_batch, "bitpack")
+score_dotvbyte = _single("dotvbyte")
+score_dotvbyte_batch = _batch("dotvbyte")
+score_streamvbyte = _single("streamvbyte")
+score_streamvbyte_batch = _batch("streamvbyte")
+score_bitpack = _single("bitpack")
+score_bitpack_batch = _batch("bitpack")
 
 
 def width_buckets(packed):
@@ -116,16 +126,18 @@ def width_buckets(packed):
 def score_bitpack_bucketed(q, packed, device=None):
     """Width-bucketed bitpack scan: one static-width kernel per distinct
     block width over that bucket's tight words (:func:`width_buckets`),
-    so the bytes read track the true compressed size: f32 [n_docs]."""
+    so the bytes read track the true compressed size; every bucket adds
+    into one result: f32 [n_docs]."""
     Q, packed = _prepare(torch.as_tensor(q).reshape(1, -1), packed, "bitpack", device)
-    scale = float(packed.value_format.scale)
-    total = torch.zeros(packed.n_docs, dtype=torch.float32, device=Q.device)
+    total = None
     for w, sel, words in width_buckets(packed):
-        block = block_scan.bitpack_block_scores_w(
-            Q[0], words, packed.seg[sel], packed.start_pos[sel], packed.start_abs[sel],
-            packed.vals[sel], width=w, scale=scale)
-        total += scatter_block_scores(block, packed.doc_ids[sel], packed.n_docs)
-    return total
+        bucket = {"words": words, **{k: getattr(packed, k)[sel]
+                                     for k in ("seg", "start_pos", "start_abs", "vals")}}
+        total = _scan("block_scan_bitpack_w", "bitpack", Q, packed, streams=bucket,
+                      doc_ids=packed.doc_ids[sel], width=w, out=total)
+    if total is None:  # a pack of no blocks
+        return torch.zeros(packed.n_docs, dtype=torch.float32, device=Q.device)
+    return total[0]
 
 
 #: codec → (single-query scorer, batch scorer): the counterpart of the

@@ -17,16 +17,20 @@ Under ``vq="f16"`` the values ride in their storage dtype — the
 kernel reads that dtype, as the reference casts whatever is stored.
 
 ``docs`` is ``[nd, C]`` with ``nd ∈ {1, nq}``: one candidate set shared
-by the query batch (flat; each row decoded once, scored for every
-query) or one set per query (Seismic). The work is bound by bytes; see
-the source for the design and PERF.md for its time on the card.
+by the query batch (flat; each row decoded once per tile of 128
+queries, scored for every query of it) or one set per query (Seismic).
+The shared form scores with lanes across queries over the transposed
+batch ``Qᵀ [dim, nq]`` from :data:`QUERY_LANES_MIN_NQ` queries on, and
+below that, like the per-query form, with lanes across entries and a
+block reduction per query. The work is bound by bytes; see the source
+for the design and PERF.md for its time on the card.
 
 :func:`rows_scores_for_codec` runs the kernel on CUDA tensors and its
 plain torch version (:func:`rows_scores_plain`) on CPU tensors; a CUDA
 call that cannot build or launch the kernel raises. ``launches`` counts
-kernel launches in total and ``variant_launches`` per variant (keyed
-:func:`variant_name`), so a run can show its main path went through
-each kernel.
+kernel launches in total, ``variant_launches`` per variant (keyed
+:func:`variant_name`) and ``stage_launches`` per scoring stage, so a
+run can show its main path went through each kernel and stage.
 """
 
 from __future__ import annotations
@@ -41,10 +45,14 @@ from . import build
 __all__ = [
     "CODECS",
     "MAX_ROW_CAPACITY",
+    "QUERY_LANES_MIN_NQ",
+    "STAGES",
     "VARIANTS",
     "launches",
     "variant_launches",
+    "stage_launches",
     "variant_name",
+    "pick_stage",
     "reset_launches",
     "rows_scores_for_codec",
     "rows_scores_plain",
@@ -64,15 +72,27 @@ def variant_name(codec: str, vq: str) -> str:
 #: every (codec, vq) the kernel is instantiated for
 VARIANTS = tuple((c, v) for c in CODECS for v in value_codecs.VALUE_CODECS)
 
+#: scoring stages in the kernel's enum order (csrc/rows_dot.cu ``Stage``)
+STAGES = ("entry_lanes", "query_lanes")
+
+#: the batch size from which the shared form (``nd = 1``) scores with
+#: lanes across queries over ``Qᵀ``; from the stage sweep of
+#: ``chip_smoke.py`` (PERF.md): on an H100 entry lanes win up to 4
+#: queries, query lanes from 8 on. The per-query form always uses entry
+#: lanes.
+QUERY_LANES_MIN_NQ = 8
+
 #: kernel launches made by :func:`rows_scores_for_codec` (CUDA tensors only)
 launches = 0
 #: the same, per variant
 variant_launches = {variant_name(c, v): 0 for c, v in VARIANTS}
+#: launches per scoring stage
+stage_launches = {name: 0 for name in STAGES}
 
-#: rows_dot(codec, vq, vals_t, 9 pointers, nq, dim, nd, C, n_rows, L,
-#: vals_w, p0_w, p1_w, scale, stream)
+#: rows_dot(codec, vq, vals_t, stage, 9 pointers, nq, dim, nd, C, n_rows,
+#: L, vals_w, p0_w, p1_w, scale, stream)
 _ARGTYPES = (
-    [ctypes.c_int] * 3 + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
+    [ctypes.c_int] * 4 + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
     + [ctypes.c_float, ctypes.c_void_p]
 )
 
@@ -96,8 +116,23 @@ def reset_launches() -> None:
     """Set every launch count to 0."""
     global launches
     launches = 0
-    for k in variant_launches:
-        variant_launches[k] = 0
+    for counts in (variant_launches, stage_launches):
+        for k in counts:
+            counts[k] = 0
+
+
+def pick_stage(nq: int, nd: int, stage: str | None = None) -> str:
+    """The scoring stage for ``nq`` queries over ``nd`` candidate sets:
+    ``stage`` if given (query lanes take the shared form only), else
+    query lanes for the shared form from :data:`QUERY_LANES_MIN_NQ`
+    queries on."""
+    if stage is None:
+        return "query_lanes" if nd == 1 and nq >= QUERY_LANES_MIN_NQ else "entry_lanes"
+    if stage not in STAGES:
+        raise ValueError(f"unknown scoring stage {stage!r}; have {list(STAGES)}")
+    if stage == "query_lanes" and nd != 1:
+        raise ValueError(f"query lanes score one shared candidate set (nd = 1), got nd = {nd}")
+    return stage
 
 
 def rows_scores_plain(codec: str, arrays, Q, docs, scale=1.0):
@@ -107,14 +142,15 @@ def rows_scores_plain(codec: str, arrays, Q, docs, scale=1.0):
     return score_rows_plain(codec, arrays, docs, Q, float(scale))
 
 
-def rows_scores_for_codec(codec: str, arrays, Q, docs, scale=1.0):
+def rows_scores_for_codec(codec: str, arrays, Q, docs, scale=1.0, stage: str | None = None):
     """Scores f32 ``[nq, C]`` of candidate rows ``docs`` (i32 ``[nd, C]``,
     ``nd ∈ {1, nq}``) against ``Q`` (f32 ``[nq, dim]``).
 
     ``arrays`` holds the row streams as ``layout.pack_rows(codec, vq)``
     lays them out (other keys are ignored); the value codec is inferred
     from its keys, and the kernel variant is ``(codec, vq)``. Candidate
-    ids must lie in ``[0, N]`` (N is the all-zero sentinel)."""
+    ids must lie in ``[0, N]`` (N is the all-zero sentinel). On the card
+    the kernel scores in ``stage`` (default: :func:`pick_stage`)."""
     if codec not in _PAYLOAD:
         raise ValueError(f"no rows kernel for codec {codec!r}; have {list(CODECS)}")
     vq = value_codecs.infer_rows_vq(arrays)
@@ -129,7 +165,8 @@ def rows_scores_for_codec(codec: str, arrays, Q, docs, scale=1.0):
     if Q.device.type != "cuda":
         raise ValueError(f"rows_scores runs on cuda or cpu tensors, got {Q.device}")
     streams = _check(codec, vq, arrays, Q, docs)
-    return _launch(codec, vq, Q, docs, streams, float(scale))
+    return _launch(codec, vq, Q, docs, streams, float(scale),
+                   pick_stage(Q.shape[0], docs.shape[0], stage))
 
 
 def _check(codec, vq, arrays, Q, docs):
@@ -179,7 +216,7 @@ def _check(codec, vq, arrays, Q, docs):
     return arrays["vals_rows"], arrays["nnz_rows"], p0, p1, v0, v1, L
 
 
-def _launch(codec, vq, Q, docs, streams, scale):
+def _launch(codec, vq, Q, docs, streams, scale, stage):
     global launches
     vals, nnz, p0, p1, v0, v1, L = streams
     lib = build.load("rows_dot")
@@ -190,14 +227,15 @@ def _launch(codec, vq, Q, docs, streams, scale):
     out = torch.empty((nq, C), dtype=torch.float32, device=Q.device)
     if nq == 0 or C == 0:
         return out
+    q_arg = Q.t().contiguous() if stage == "query_lanes" else Q
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     width = lambda t: 0 if t is None or t.dim() < 2 else t.shape[1]  # noqa: E731
     with torch.cuda.device(Q.device):
         stream = torch.cuda.current_stream(Q.device).cuda_stream
         rc = fn(
             CODECS.index(codec), value_codecs.VALUE_CODECS.index(vq),
-            VALUE_DTYPES.index(vals.dtype),
-            Q.data_ptr(), docs.data_ptr(), vals.data_ptr(), nnz.data_ptr(),
+            VALUE_DTYPES.index(vals.dtype), STAGES.index(stage),
+            q_arg.data_ptr(), docs.data_ptr(), vals.data_ptr(), nnz.data_ptr(),
             ptr(p0), ptr(p1), ptr(v0), ptr(v1), out.data_ptr(),
             nq, dim, nd, C, vals.shape[0], L, vals.shape[1], width(p0), width(p1),
             scale, stream,
@@ -206,9 +244,10 @@ def _launch(codec, vq, Q, docs, streams, scale):
         err = lib.rows_dot_error_string
         err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p
         raise RuntimeError(
-            f"rows_dot kernel launch failed ({codec}, {vq}): CUDA error {rc} "
+            f"rows_dot kernel launch failed ({codec}, {vq}, {stage}): CUDA error {rc} "
             f"({err(rc).decode()})"
         )
     launches += 1
     variant_launches[variant_name(codec, vq)] += 1
+    stage_launches[stage] += 1
     return out
