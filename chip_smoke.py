@@ -9,7 +9,7 @@ no result:
 
 1. device and build — the card's name and power limit; every CUDA kernel
    of the port built from ``src/repro_torch/kernels/csrc`` (one ``nvcc``
-   per library: the rows kernel and the six parts of the block-scan
+   per library: the rows kernel and the seven parts of the block-scan
    kernel, started together), with ptxas' register/spill report per
    kernel variant and scoring stage;
 2. kernel vs plain — every variant of the rows kernel (row codec
@@ -23,12 +23,16 @@ no result:
    gaps past 16 bits, a small case at a vocabulary of 2**24 + 2**20
    (StreamVByte codes 2 and 3). The rows kernel again on f32 and fixedu8
    values (vq f16 reads the stored dtype), and ``Retriever.build`` over
-   an f32 and a fixedu8 collection served with ``backend="cuda"``. Every
+   an f32 and a fixedu8 collection served with ``backend="cuda"``. The
+   per-query form in both its stages (row warps, entry lanes), and the
+   shared form at one query in every stage. Every
    block-scan entry (dotvbyte, streamvbyte and bitpack at the per-block
    width, single and batched; bitpack at each static width its packs
    hold) against its plain version in both output modes — slot scores,
-   and the fused scan (scores of documents, both stages, the static
-   widths added into one result) against the slot scores scattered —
+   and the fused scan (scores of documents in every stage that takes the
+   batch: the single query also in the resident-query stage where the
+   query fits in shared memory; the static widths added into one
+   result) against the slot scores scattered —
    on f32 / f16 / fixedu8 values, i32 / i8 ``seg``, T = 128 and 512,
    blocks that close on D = 5 slots, docs longer than T, empty docs, a
    one-doc corpus and, for StreamVByte and bitpack, dim 2**24 + 2**20;
@@ -40,7 +44,9 @@ no result:
    same device-resident Seismic arrays. Every variant is searched with
    ``backend="cuda"``; the flat engine runs the four row codecs at f16
    and DotVByte at the three quantized value codecs. The kernels' launch
-   counts are zeroed just before this phase and read just after;
+   counts are zeroed just before this phase and read just after: every
+   variant launched, and every Seismic search through the row-warp
+   stage;
 4. checks and timings, per variant — Seismic ids equal to
    ``backend="torch"`` (tie-aware: a position may differ only where the
    two scores agree within rtol 1e-5), f16 flat ids equal to
@@ -48,19 +54,24 @@ no result:
    clock around ``torch.cuda.synchronize()``, after a warm-up), bits per component
    (``ForwardIndex.storage_bytes``) and stored row bytes, and the
    kernel's time (CUDA events) beside its plain version and its bound at
-   the Seismic and flat shapes, with ``torch.sparse.mm`` (cuSPARSE) over
-   the same scores as the flat shape's library yardstick; the stage
-   sweep of the rows kernel at the flat shape (both stages at nq 1–64);
+   the Seismic shape (both stages) and the flat shape, with
+   ``torch.sparse.mm`` (cuSPARSE) over the same scores as the flat
+   shape's library yardstick; Seismic search latency with the row-warp
+   stage and, in turns with it, with the entry-lane stage it replaced;
+   the stage sweep of the rows kernel at the flat shape (every stage at
+   nq 1–64 where it takes the batch);
 5. the full scan — the same collection packed into blocks (T = 512)
    for dotvbyte, streamvbyte and bitpack, every document scored through
    ``ops.score_*_batch`` (nq = 64), ``ops.score_*`` and
    ``score_bitpack_bucketed``, which run the fused kernel (the block
    scan with its scatter in the epilogue). The block-scan launch counts
    are zeroed just before and read just after: every entry must have
-   launched the fused mode, and no slot-score launch. Each result is
+   launched the fused mode, no slot-score launch, and every single-query
+   launch the resident-query stage. Each result is
    held against ``torch.sparse.mm`` over the uncompressed CSR (rtol =
    atol = 1e-4) and its top-10 against ``exact_top_k``; the fused call
-   (in both stages), the whole entry, the slot-score kernel, both plain
+   (in every stage that takes it), the whole entry, the slot-score
+   kernel, both plain
    versions, the bound and the library call are timed, the stage sweep
    of the fused call is taken, and the profile of the batched entry
    must show no ``index_add_``;
@@ -71,6 +82,7 @@ no result:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import pathlib
 import re
@@ -180,27 +192,29 @@ _MANGLED = {"f": "f32", "6__half": "f16", "h": "u8", "i": "i32", "a": "i8"}
 
 
 def ptxas_report(log_text: str) -> dict[str, list[str]]:
-    """ptxas' ``-v`` lines per kernel variant (by template args): rows
-    ``<codec, vq, value storage>`` and block scan ``<code, value
-    storage, seg storage>``."""
+    """ptxas' ``-v`` lines per kernel variant (by template args) and
+    stage: rows ``<codec, vq, value storage>`` and block scan ``<code,
+    value storage, seg storage>`` (its resident-query kernel marked)."""
     from repro_torch.kernels import block_scan, rows_dot
     from repro_torch.core.values import VALUE_CODECS
 
     out, cur = {}, None
     for line in log_text.splitlines():
-        rows = re.search(r"rows_dot_(shared_)?kernelILi(\d)ELi(\d)E(f|6__half|h)?", line)
-        scan = re.search(r"block_scan_kernelILi(\d+)E(f|6__half|h)(i|a)E", line)
+        rows = re.search(r"rows_dot_(shared_|warp_)?kernelILi(\d)ELi(\d)E(f|6__half|h)?", line)
+        scan = re.search(r"block_scan_(resident_)?kernelILi(\d+)E(f|6__half|h)(i|a)E", line)
         if (rows or scan) and ("Compiling entry" in line or "Function properties" in line):
             if rows:
                 cur = rows_dot.variant_name(rows_dot.CODECS[int(rows[2])],
                                             VALUE_CODECS[int(rows[3])])
                 if rows[4] and VALUE_CODECS[int(rows[3])] == "f16":  # the stored dtype
                     cur += f"[{_MANGLED[rows[4]]}]"
-                cur += " query lanes" if rows[1] else " entry lanes"
+                cur += {"shared_": " query lanes", "warp_": " row warps"}.get(rows[1],
+                                                                              " entry lanes")
             else:
-                code = int(scan[1])
+                code = int(scan[2])
                 codec = block_scan.CODECS[min(code, 2)] + (f"_w{code - 2}" if code > 2 else "")
-                cur = f"block_scan_{codec}[{_MANGLED[scan[2]]},{_MANGLED[scan[3]]}]"
+                cur = (f"block_scan_{codec}[{_MANGLED[scan[3]]},{_MANGLED[scan[4]]}"
+                       + (" resident]" if scan[1] else "]"))
         elif cur and ("Used" in line or "spill" in line):
             out.setdefault(cur, []).append(line.split(":", 1)[-1].strip())
     return out
@@ -328,6 +342,43 @@ def same_topk(ids_a, sc_a, ids_b, sc_b) -> int:
     return int(diff.sum())
 
 
+def rows_stages(nq: int, nd: int, dim: int) -> list[str]:
+    """The rows kernel's stages that take ``nq`` queries over ``nd`` sets."""
+    from repro_torch.kernels import rows_dot
+
+    return [st for st in rows_dot.STAGES if _takes(rows_dot.pick_stage, nq, nd, st, dim=dim)]
+
+
+def scan_stages(nq: int, dim: int, T: int, D: int) -> list[str]:
+    """The block scan's stages that take ``nq`` queries at this shape."""
+    from repro_torch.kernels import block_scan
+
+    return [st for st in block_scan.STAGES if _takes(
+        block_scan.pick_stage, nq, st, dim=dim, block_size=T, slots=D)]
+
+
+def _takes(pick, *args, **kw) -> bool:
+    try:
+        pick(*args, **kw)
+        return True
+    except ValueError:
+        return False
+
+
+@contextlib.contextmanager
+def rows_stage(stage: str):
+    """Every rows-kernel call inside takes ``stage``: how the smoke times
+    a search on the stage the wrapper no longer picks."""
+    from repro_torch.kernels import rows_dot
+
+    pick = rows_dot.pick_stage
+    rows_dot.pick_stage = lambda nq, nd, st=None, *, dim: pick(nq, nd, st or stage, dim=dim)
+    try:
+        yield
+    finally:
+        rows_dot.pick_stage = pick
+
+
 #: block-scan entry → (codec, batched); bitpack_w is the bucketed static width
 BLOCK_ENTRIES = {
     "block_scan_dotvbyte": ("dotvbyte", False),
@@ -339,8 +390,6 @@ BLOCK_ENTRIES = {
     "block_scan_bitpack_w": ("bitpack", False),
 }
 BLOCK_CODECS = ("dotvbyte", "streamvbyte", "bitpack")
-#: the kernels' scoring stages (both kernels name them alike)
-STAGES = ("entry_lanes", "query_lanes")
 
 
 def scan_fn(codec: str, batched: bool):
@@ -354,12 +403,6 @@ def scan_args(packed) -> list:
     """The block-scan entry's stream arguments of a pack held as tensors."""
     keys = ("ctrl", "data") if packed.codec != "bitpack" else ("words", "widths")
     return [getattr(packed, k) for k in (*keys, "seg", "start_pos", "start_abs", "vals")]
-
-
-def bucket_streams(packed, sel, words) -> dict:
-    """One width bucket's streams (``ops.width_buckets``)."""
-    return {"words": words, **{k: getattr(packed, k)[sel]
-                               for k in ("seg", "start_pos", "start_abs", "vals")}}
 
 
 def check_close(name: str, got, want) -> float:
@@ -393,23 +436,26 @@ def check_blocks(name: str, Q, packed, max_err: dict, fused_err: dict) -> str:
                 f"{name} batch", batch(Q, *scan_args(packed), scale=scale), plain),
             entry: check_close(
                 f"{name} single", single(Q[0], *scan_args(packed), scale=scale), plain[0])}
+    T, D = packed.block_size, packed.max_docs_per_block
+    for stage in scan_stages(1, Q.shape[1], T, D):  # the single query's slots, every stage
+        got = block_scan.block_scores(entry, codec, Q[:1], streams, scale=scale, stage=stage)
+        errs[entry] = max(errs[entry], check_close(f"{name} single {stage}", got, plain[:1]))
     fused = {f"{entry}_batch": 0.0, entry: 0.0}
-    for stage in STAGES:
-        for e, Qx, want in ((f"{entry}_batch", Q, plain_docs), (entry, Q[:1], plain_docs[:1])):
+    for e, Qx, want in ((f"{entry}_batch", Q, plain_docs), (entry, Q[:1], plain_docs[:1])):
+        for stage in scan_stages(Qx.shape[0], Q.shape[1], T, D):
             got = block_scan.scan_scores(e, codec, Qx, streams, ids, n_docs, scale=scale,
                                          stage=stage)
             fused[e] = max(fused[e], check_close(f"{name} {e} fused {stage}", got, want))
     widths = []
     if codec == "bitpack":
         err_w, total, want_total = 0.0, None, torch.zeros_like(plain_docs[:1])
-        for w, sel, words in ops.width_buckets(packed):
-            b = bucket_streams(packed, sel, words)
+        for w, sel, b, b_ids in ops.width_buckets(packed):
             got = block_scan.bitpack_block_scores_w(Q[0], *b.values(), width=w, scale=scale)
             want = block_scan.block_scores_plain("bitpack", Q[:1], b, scale=scale, width=w)[0]
             err_w = max(err_w, check_close(f"{name} width {w}", got, want))
             total = block_scan.scan_scores("block_scan_bitpack_w", "bitpack", Q[:1], b,
-                                           ids[sel], n_docs, scale=scale, width=w, out=total)
-            want_total += scatter_block_scores(want.unsqueeze(0), ids[sel], n_docs)
+                                           b_ids, n_docs, scale=scale, width=w, out=total)
+            want_total += scatter_block_scores(want.unsqueeze(0), b_ids, n_docs)
             widths.append(w)
         errs["block_scan_bitpack_w"] = err_w
         fused["block_scan_bitpack_w"] = check_close(f"{name} bucketed fused", total, want_total)
@@ -488,6 +534,10 @@ def full_scan(fwd, Q, truth, csr, card: str, max_err: dict, fused_err: dict) -> 
         raise SystemExit(f"the full scan did not launch the fused kernel for {missing}")
     if any(launches[k] != fused[k] for k in launches):
         raise SystemExit("the full scan launched the slot-score mode on its path")
+    single = sum(v for k, v in launches.items() if not BLOCK_ENTRIES[k][1])
+    if stages["resident_query"] != single:
+        raise SystemExit(f"{stages['resident_query']} resident-query launches for {single} "
+                         "single-query launches: one query at this shape must take that stage")
 
     # checks: torch.sparse.mm over the uncompressed CSR and exact_top_k
     Qt = Q.t().contiguous()
@@ -516,9 +566,9 @@ def full_scan(fwd, Q, truth, csr, card: str, max_err: dict, fused_err: dict) -> 
         scale = float(p.value_format.scale)
         Qx = Q if batched else Q[:1]
         single, batch = ops.block_scorers(codec)
+        stages_here = scan_stages(Qx.shape[0], dim, p.block_size, p.max_docs_per_block)
         if entry == "block_scan_bitpack_w":
-            buckets = [(w, bucket_streams(p, sel, words), p.doc_ids[sel])
-                       for w, sel, words in ops.width_buckets(p)]
+            buckets = [(w, b, ids) for w, _, b, ids in ops.width_buckets(p)]
 
             def kernel():
                 return [block_scan.bitpack_block_scores_w(q0, *b.values(), width=w, scale=scale)
@@ -528,11 +578,11 @@ def full_scan(fwd, Q, truth, csr, card: str, max_err: dict, fused_err: dict) -> 
                 return [block_scan.block_scores_plain("bitpack", Qx, b, scale=scale, width=w)[0]
                         for w, b, _ in buckets]
 
-            def fused_call():
+            def fused_call(stage=None):
                 total = None
                 for w, b, ids in buckets:
                     total = block_scan.scan_scores(entry, "bitpack", Qx, b, ids, p.n_docs,
-                                                   scale=scale, width=w, out=total)
+                                                   scale=scale, width=w, out=total, stage=stage)
                 return total
 
             def fused_plain():
@@ -547,7 +597,6 @@ def full_scan(fwd, Q, truth, csr, card: str, max_err: dict, fused_err: dict) -> 
                       for (w, _, _), g, e in zip(buckets, kernel(), plain()))
             bound_ms, bound_by = scan_bound(p, 1, dim, sum(int(b["words"].nbytes)
                                                            for _, b, _ in buckets))
-            stage_ms = {}
         else:
             args = scan_args(p)
             fn = scan_fn(codec, batched)
@@ -573,17 +622,21 @@ def full_scan(fwd, Q, truth, csr, card: str, max_err: dict, fused_err: dict) -> 
 
             err = check_close(f"{entry} @ 100k", kernel(), plain())
             bound_ms, bound_by = scan_bound(p, Qx.shape[0], dim)
-            # both stages of the fused call, the picked one first
-            stage_ms = {st: cuda_ms(lambda: fused_call(st), 10) for st in STAGES}
         max_err[entry] = max(max_err.get(entry, 0.0), err)
-        f_err = check_close(f"{entry} @ 100k fused", fused_call(), fused_plain())
-        fused_err[entry] = max(fused_err.get(entry, 0.0), f_err)
+        # the fused call in every stage that takes it, each held against its plain version
+        want_fused = fused_plain()
+        for st in stages_here:
+            f_err = check_close(f"{entry} @ 100k fused {st}", fused_call(st), want_fused)
+            fused_err[entry] = max(fused_err.get(entry, 0.0), f_err)
+        stage_ms = {st: cuda_ms(lambda: fused_call(st), 10 if batched else 20)
+                    for st in stages_here}
         ms = cuda_ms(kernel, 10 if batched else 20)
         fused_ms = cuda_ms(fused_call, 10 if batched else 20)
         entry_ms = cuda_ms(whole, 10 if batched else 20)
         plain_ms = cuda_ms(plain, 2 if batched else 3, 1)
         fused_plain_ms = cuda_ms(fused_plain, 2 if batched else 3, 1)
-        stage = block_scan.pick_stage(Qx.shape[0])
+        stage = block_scan.pick_stage(Qx.shape[0], dim=dim, block_size=p.block_size,
+                                      slots=p.max_docs_per_block)
         inter = 4 * Qx.shape[0] * p.n_blocks * p.max_docs_per_block
         log(f"  {entry}: fused {fused_ms:.4f} ms ({stage}; "
             + ", ".join(f"{k} {v:.4f}" for k, v in stage_ms.items())
@@ -615,11 +668,13 @@ def full_scan(fwd, Q, truth, csr, card: str, max_err: dict, fused_err: dict) -> 
             "n_blocks": p.n_blocks,
             "slot_scores_bytes": inter,
         })
+    pd = packs["dotvbyte"]
     out[list(BLOCK_ENTRIES).index("block_scan_dotvbyte_batch")]["stage_sweep"] = stage_sweep(
         "fused block scan, dotvbyte", lambda Qn, st: block_scan.scan_scores(
             "block_scan_dotvbyte_batch", "dotvbyte", Qn,
-            {k: v for k, v in packs["dotvbyte"].as_dict().items() if k != "doc_ids"},
-            packs["dotvbyte"].doc_ids, fwd.n_docs, stage=st), Q, card)
+            {k: v for k, v in pd.as_dict().items() if k != "doc_ids"},
+            pd.doc_ids, fwd.n_docs, stage=st), Q, card,
+        lambda n: scan_stages(n, dim, pd.block_size, pd.max_docs_per_block))
     ops_seen = device_breakdown("full scan dotvbyte batch", lambda: ops.score_dotvbyte_batch(
         Q, packs["dotvbyte"]), card)
     if any("index_add" in k for k in ops_seen):
@@ -631,17 +686,17 @@ def full_scan(fwd, Q, truth, csr, card: str, max_err: dict, fused_err: dict) -> 
     return out
 
 
-def stage_sweep(name: str, call, Q, card: str) -> dict:
-    """Device time of ``call(Q[:n], stage)`` in both scoring stages at
-    every batch size of SWEEP_NQ → ``{stage: {nq: ms}}``; the data behind
-    QUERY_LANES_MIN_NQ."""
-    out = {st: {} for st in STAGES}
+def stage_sweep(name: str, call, Q, card: str, stages_for) -> dict:
+    """Device time of ``call(Q[:n], stage)`` in every scoring stage that
+    ``stages_for(n)`` gives, at every batch size of SWEEP_NQ → ``{stage:
+    {nq: ms}}``; the data behind the stage thresholds."""
+    out = {}
     for n in SWEEP_NQ:
         Qn = Q[:n].contiguous()
-        for st in STAGES:
-            out[st][n] = cuda_ms(lambda: call(Qn, st), 10)
+        for st in stages_for(n):
+            out.setdefault(st, {})[n] = cuda_ms(lambda: call(Qn, st), 10)
     log(f"    stage sweep, {name} (ms; {card}): " + "; ".join(
-        f"nq {n}: entry {out['entry_lanes'][n]:.4f}, query {out['query_lanes'][n]:.4f}"
+        f"nq {n}: " + ", ".join(f"{st} {ms[n]:.4f}" for st, ms in out.items() if n in ms)
         for n in SWEEP_NQ))
     return out
 
@@ -721,12 +776,14 @@ def main() -> int:
         errs = [check_kernel(codec, f"{names[codec, vq]} nd=1", Qe, ids[:1].contiguous(),
                              arrays, 0.5),
                 check_kernel(codec, f"{names[codec, vq]} nd=nq", Qe, ids, arrays, 0.5)]
+        errs[1] = max(errs[1], check_kernel(codec, f"{names[codec, vq]} nd=nq entry lanes", Qe,
+                                            ids, arrays, 0.5, "entry_lanes"))
         shared = []
-        for n in SHARED_NQ:  # the shared form across the lane and tile edges, both stages
+        for n in SHARED_NQ:  # the shared form across the lane and tile edges, every stage
             Qn, set1 = Qs[:n], ids[:1].contiguous()
             want = rows_dot.rows_scores_plain(codec, arrays, Qn, set1, 0.5)
             shared += [check_kernel(codec, f"{names[codec, vq]} nd=1 nq={n} {st}", Qn, set1,
-                                    arrays, 0.5, st, want) for st in rows_dot.STAGES]
+                                    arrays, 0.5, st, want) for st in rows_stages(n, 1, dim)]
         errs[0] = max(errs[0], *shared)
         wide = ""
         if codec != "dotvbyte":  # DotVByte stores 16-bit gaps only
@@ -738,8 +795,8 @@ def main() -> int:
                                   ids_w.unsqueeze(0).repeat(2, 1), wa)]
             wide = f", dim {wide_dim} nd=1/nq {errs[2]:.2e}/{errs[3]:.2e}"
         max_err[codec, vq] = max(errs)
-        log(f"  {names[codec, vq]:28s} max_abs_err nd=1 {errs[0]:.2e} (both stages), nd=nq "
-            f"{errs[1]:.2e}{wide} ok")
+        log(f"  {names[codec, vq]:28s} max_abs_err nd=1 {errs[0]:.2e} (every stage), nd=nq "
+            f"{errs[1]:.2e} (both stages){wide} ok")
     del Qw
     # vq f16 reads the values as stored: f32 and fixedu8 rows too
     for vf in ("f32", "fixedu8"):
@@ -870,11 +927,18 @@ def main() -> int:
         log(f"    {name:28s} rows packed + placed in {pack_s:.1f}s, "
             f"{row_bytes[codec, vq] / 2**20:.1f} MiB on the card")
     launches = dict(rows_dot.variant_launches)
+    rows_stage_launches = dict(rows_dot.stage_launches)
     log("    main path launches: " + ", ".join(f"{names[v]}={launches[names[v]]}"
-                                               for v in variants))
+                                               for v in variants)
+        + "; by stage " + ", ".join(f"{k}={v}" for k, v in rows_stage_launches.items()))
     missing = [names[v] for v in variants if launches[names[v]] <= 0]
     if missing:
         raise SystemExit(f"the main path did not launch {missing}")
+    n_seismic = sum(v for k, v in per_search.items() if k[0] == "seismic")
+    if rows_stage_launches["row_warps"] != n_seismic or n_seismic < len(variants):
+        raise SystemExit(f"{rows_stage_launches['row_warps']} row-warp launches for "
+                         f"{n_seismic} Seismic rescoring launches: the per-query form must "
+                         "take the row-warp stage")
     phase_s["3 main path"] = time.perf_counter() - t0
 
     # -- 4. checks and timings ----------------------------------------------------
@@ -912,7 +976,13 @@ def main() -> int:
         n_swapped = same_topk(ids_c, sc_c, ids_t, sc_t)
         ids_np = ids_c.cpu().numpy()
         recall = float(np.mean([recall_at_k(truth[i][0], ids_np[i]) for i in range(nq)]))
-        lat = host_ms(lambda: s_ret.search(Q), 10)
+        lat, lat_entry = [], []
+        for turn in range(4):  # entry lanes (the stage before), row warps, row warps, entry
+            if turn in (0, 3):
+                with rows_stage("entry_lanes"):
+                    lat_entry += host_ms(lambda: s_ret.search(Q), 5)
+            else:
+                lat += host_ms(lambda: s_ret.search(Q), 5)
         lat_t = host_ms(lambda: s_torch.search(Q), 5)
         comp_bytes = fwd.storage_bytes(codec)["components"]
         bits = 8 * comp_bytes / fwd.total_nnz
@@ -926,10 +996,19 @@ def main() -> int:
             plain_ms = cuda_ms(lambda: rows_dot.rows_scores_plain(codec, arrays, Q, docs, scale),
                                2 if slow else 3, 1)
             bound_ms, bound_by = rows_bound(codec, Q, docs, arrays)
+            by_stage = {}
+            if not slow:  # the per-query form in both its stages
+                for st in rows_stages(nq, docs.shape[0], fwd.dim):
+                    err = max(err, check_kernel(codec, f"{name} @ {shape} {st}", Q, docs, arrays,
+                                                scale, st))
+                    by_stage[st] = cuda_ms(lambda: rows_dot.rows_scores_for_codec(
+                        codec, arrays, Q, docs, scale, stage=st), 20)
+                max_err[codec, vq] = max(max_err[codec, vq], err)
             shapes.append(dict(shape=shape, nq=nq, nd=docs.shape[0], C=docs.shape[1],
-                               stage=rows_dot.pick_stage(nq, docs.shape[0]),
+                               stage=rows_dot.pick_stage(nq, docs.shape[0], dim=fwd.dim),
                                launches_per_search=per_search.get((shape, codec, vq)),
-                               ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                               ms=ms, ms_by_stage=by_stage, plain_ms=plain_ms,
+                               bound_ms=bound_ms, bound_by=bound_by,
                                library_ms=lib_ms if slow else None, max_abs_err=err))
         if codec == "uncompressed" and vq == "f16":
             got = rows_dot.rows_scores_for_codec(codec, arrays, Q, docs_f, scale)[:, :-1]
@@ -950,10 +1029,13 @@ def main() -> int:
         s, f = shapes
         log(f"  {name}: seismic cuda==torch ({n_swapped} tied swaps), recall@10 {recall:.4f}, "
             f"median {statistics.median(lat):.3f} ms/batch of {nq} (min {min(lat):.3f}; "
+            f"entry-lane rows kernel {statistics.median(lat_entry):.3f}; "
             f"backend=torch {statistics.median(lat_t):.3f}){flat_note}")
         log(f"    {bits:.2f} bits/comp ({100 * (1 - comp_bytes / raw_bytes):.1f}% saved vs "
             f"16 raw), rows {row_bytes[codec, vq] / 2**20:.1f} MiB; kernel @seismic "
-            f"{s['ms']:.4f} ms (plain {s['plain_ms']:.3f}, bound {s['bound_ms']:.4f} "
+            f"{s['ms']:.4f} ms ({s['stage']}; "
+            + ", ".join(f"{k} {v:.4f}" for k, v in s["ms_by_stage"].items())
+            + f"; plain {s['plain_ms']:.3f}, bound {s['bound_ms']:.4f} "
             f"{s['bound_by']}), @flat {f['ms']:.4f} ms (plain {f['plain_ms']:.3f}, bound "
             f"{f['bound_ms']:.4f} {f['bound_by']}, sparse.mm {lib_ms:.4f}) ({card})")
         kernels.append({
@@ -968,9 +1050,12 @@ def main() -> int:
             "bound_ms": s["bound_ms"],
             "bound_by": s["bound_by"],
             "library_ms": None,
+            "stage": s["stage"],
+            "ms_by_stage": s["ms_by_stage"],
             "at_shapes": shapes,
             "recall_at_10": recall,
             "search_ms_median": statistics.median(lat),
+            "search_ms_median_entry_lanes": statistics.median(lat_entry),
             "search_ms_median_torch_backend": statistics.median(lat_t),
             "bits_per_component": bits,
             "row_bytes": row_bytes[codec, vq],
@@ -979,7 +1064,8 @@ def main() -> int:
     kernels[[k["name"] for k in kernels].index(names["dotvbyte", "f16"])]["stage_sweep"] = \
         stage_sweep("rows kernel at the flat shape, dotvbyte f16",
                     lambda Qn, st: rows_dot.rows_scores_for_codec("dotvbyte", dv, Qn, docs_f,
-                                                                  scale, stage=st), Q, card)
+                                                                  scale, stage=st), Q, card,
+                    lambda n: rows_stages(n, 1, fwd.dim))
     device_breakdown("seismic dotvbyte f16", lambda: base.search(Q), card)
     device_breakdown("flat dotvbyte f16", lambda: flat["dotvbyte", "f16"].search(Q), card)
     shutil.rmtree(ROOT / "build" / "chip_smoke", ignore_errors=True)

@@ -190,6 +190,11 @@ class PackedBlocks:
     vq_lo: np.ndarray | None = None
     vq_scale: np.ndarray | None = None
     vq_codebook: np.ndarray | None = None
+    #: the bitpack width buckets, built at first use by
+    #: ``kernels.ops.width_buckets`` and kept for the pack's life; not
+    #: part of its contents (``to`` and ``replace`` start without them)
+    buckets: list | None = dataclasses.field(default=None, init=False, repr=False,
+                                              compare=False)
 
     @property
     def n_blocks(self) -> int:

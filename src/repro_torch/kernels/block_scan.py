@@ -24,10 +24,13 @@ decoded once per tile of 128 queries. Two output modes:
   D]`` intermediate and no ``index_add_`` exist. The reference scatters
   outside Pallas; the fusion is the port's own.
 
-Two scoring stages (the source has the design): from
-:data:`QUERY_LANES_MIN_NQ` queries on, lanes across queries over the
-transposed batch ``Qᵀ [dim, nq]``; below it, lanes across entries with a
-block scan per query.
+Three scoring stages (the source has the design), picked by
+:func:`pick_stage` from the shapes: for one query whose dense form fits
+in shared memory beside the warps' scratch (:func:`resident_fits`), the
+resident-query stage (a persistent grid, the query staged once per
+thread block, a warp per packed block); from :data:`QUERY_LANES_MIN_NQ`
+queries on, lanes across queries over the transposed batch ``Qᵀ [dim,
+nq]``; otherwise lanes across entries with a block scan per query.
 
 Each entry runs the kernel on CUDA tensors and its plain torch version
 (:func:`block_scores_plain`, the tile program ``tiles.py::tile_scores``
@@ -69,6 +72,7 @@ __all__ = [
     "stage_launches",
     "reset_launches",
     "pick_stage",
+    "resident_fits",
     "tile_scores",
     "tile_scores_batch",
     "block_scores",
@@ -103,7 +107,7 @@ ENTRIES = {
 }
 
 #: scoring stages in the kernel's enum order (csrc/block_scan.cu ``Stage``)
-STAGES = ("entry_lanes", "query_lanes")
+STAGES = ("entry_lanes", "query_lanes", "resident_query")
 
 #: the batch size from which the kernel scores with lanes across queries
 #: (over ``Qᵀ``) rather than lanes across entries with a block scan per
@@ -141,13 +145,36 @@ def reset_launches() -> None:
             counts[k] = 0
 
 
-def pick_stage(nq: int, stage: str | None = None) -> str:
-    """The scoring stage for ``nq`` queries: ``stage`` if given, else
-    query lanes from :data:`QUERY_LANES_MIN_NQ` queries on."""
+def resident_fits(dim: int, block_size: int, slots: int) -> bool:
+    """Whether the resident-query stage takes a query of ``dim`` floats
+    over blocks of ``block_size`` entries and ``slots`` slots: the query
+    and one warp's scratch (``block_size + 1 + slots`` words), each
+    rounded up to 16 bytes, within ``build.SMEM_OPTIN_BYTES``. At the
+    SPLADE vocabulary (30,522) that leaves room for 32 warps at T = 512
+    and 3 at T = 8192."""
+    words = lambda n: (n + 3) // 4 * 4  # noqa: E731
+    return 4 * (words(dim) + words(block_size + 1 + slots)) <= build.SMEM_OPTIN_BYTES
+
+
+def pick_stage(nq: int, stage: str | None = None, *, dim: int, block_size: int,
+               slots: int) -> str:
+    """The scoring stage for ``nq`` queries of ``dim`` components over
+    blocks of ``block_size`` entries and ``slots`` slots. Without a
+    ``stage``: resident query for one query where
+    :func:`resident_fits`, query lanes from :data:`QUERY_LANES_MIN_NQ`
+    queries on, entry lanes otherwise. A given ``stage`` is checked
+    against the same shape rules."""
+    fits = nq == 1 and resident_fits(dim, block_size, slots)
     if stage is None:
+        if fits:
+            return "resident_query"
         return "query_lanes" if nq >= QUERY_LANES_MIN_NQ else "entry_lanes"
     if stage not in STAGES:
         raise ValueError(f"unknown scoring stage {stage!r}; have {list(STAGES)}")
+    if stage == "resident_query" and not fits:
+        raise ValueError(
+            f"the resident-query stage takes one query whose {dim} floats fit in shared "
+            f"memory beside a warp's scratch (T = {block_size}, D = {slots}); got nq = {nq}")
     return stage
 
 
@@ -217,7 +244,7 @@ def block_scores(entry: str, codec: str, Q, streams, *, scale: float = 1.0, widt
         return block_scores_plain(codec, Q, streams, scale=scale, width=width)
     p0, p1 = _check(codec, Q, streams, width)
     return _launch(entry, codec, Q, streams, p0, p1, float(scale), width,
-                   pick_stage(Q.shape[0], stage))
+                   _stage(Q, streams, stage))
 
 
 def scan_scores_plain(codec: str, Q, streams, doc_ids, n_docs: int, *, scale: float = 1.0,
@@ -264,7 +291,13 @@ def scan_scores(entry: str, codec: str, Q, streams, doc_ids, n_docs: int, *,
     if not doc_ids.is_contiguous():
         raise ValueError("doc_ids must be contiguous")
     return _launch(entry, codec, Q, streams, p0, p1, float(scale), width,
-                   pick_stage(nq, stage), doc_ids=doc_ids, n_docs=n_docs, out=out)
+                   _stage(Q, streams, stage), doc_ids=doc_ids, n_docs=n_docs, out=out)
+
+
+def _stage(Q, streams, stage):
+    """:func:`pick_stage` at the shapes of checked inputs."""
+    return pick_stage(Q.shape[0], stage, dim=Q.shape[1], block_size=streams["seg"].shape[1],
+                      slots=streams["start_pos"].shape[1])
 
 
 def _route(entry, codec, width, tensors) -> str:

@@ -30,7 +30,8 @@ import shutil
 import subprocess
 import time
 
-__all__ = ["SOURCES", "PARTS", "BUILD_DIR", "compile_kernels", "libraries", "load", "nvcc_path"]
+__all__ = ["SOURCES", "PARTS", "SMEM_OPTIN_BYTES", "BUILD_DIR", "compile_kernels", "libraries",
+           "load", "nvcc_path"]
 
 _CSRC = pathlib.Path(__file__).resolve().with_name("csrc")
 
@@ -40,9 +41,14 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch
 #: every kernel source of the port, by name
 SOURCES = ("rows_dot", "block_scan")
 
+#: shared memory one thread block may opt into on the card the kernels
+#: are built for (sm_90: 227 KB); the stages that hold a query in shared
+#: memory are picked by whether it fits
+SMEM_OPTIN_BYTES = 232_448
+
 #: sources compiled in several parts (the others in one): with the rows
-#: kernel, one nvcc for each of the chip machine's 8 cores but one
-PARTS = {"block_scan": 6}
+#: kernel, one nvcc for each of the chip machine's 8 cores
+PARTS = {"block_scan": 7}
 
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

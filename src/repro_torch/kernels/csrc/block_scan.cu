@@ -51,9 +51,9 @@
 // more agree to f32 rounding. The accumulator is doc-major, so the lanes of a
 // warp, which own consecutive queries, add into one contiguous run of a row.
 //
-// Design: one thread block per packed block (grid.x) and query tile (grid.y,
-// query lanes only), T/8 threads rounded up to a warp; thread t owns entries
-// 8t..8t+7.
+// Design, batched stages: one thread block per packed block (grid.x) and query
+// tile (grid.y, query lanes only), T/8 threads rounded up to a warp; thread t
+// owns entries 8t..8t+7.
 //   1. decode the thread's 8 gaps (gaps.cuh; the byte codecs scan their byte
 //      counts, bitpack reads bit j*w directly);
 //   2. a block scan of the gap sums gives t, which goes to shared memory so
@@ -79,6 +79,36 @@
 //   0.141 / 0.191 / 0.359 / 0.668 ms with entry lanes at nq 1 / 2 / 4 / 8 and
 //   0.508 / 0.551 / 0.571 / 0.581 ms with query lanes; 5.15 vs 0.70 ms at 64
 //   (chip_smoke.py's stage sweep; PERF.md).
+// Design, the resident-query stage (stage 2; one query, where the wrapper's
+// shape rule finds room: the query's dim floats plus one warp's scratch within
+// the 227 KB a block may opt into). Under entry lanes a block of T/8 threads
+// ran three block scans in a row per packed block (byte offsets, gap sums,
+// products; three barriers each) and gathered every live entry's q[comp] from
+// L2, and 64-thread blocks left an SM half its warps. Here:
+//   - a persistent grid, one thread block per SM (as many as the occupancy API
+//     allows at this shared memory), up to kResidentWarps warps;
+//   - the dense query is staged once per thread block into shared memory (119
+//     KB at dim 30,522), so every q[comp] is a shared-memory read;
+//   - each warp takes whole packed blocks in a grid-stride loop and walks one
+//     in chunks of 256 entries (lane l owns group 32k + l, entries 8g..8g+7),
+//     with warp scans only and offsets carried from chunk to chunk: no
+//     __syncthreads inside a block's work;
+//   - the data bytes come as aligned 16-byte loads (gaps.cuh::load_window),
+//     seg and values as one or two vector loads a lane, where the streams'
+//     alignment allows (always, for packs: rows are lane-padded to 128);
+//   - a warp's scratch (T + 1 + D words) holds t, then each slot's base
+//     start_abs[d] - t[start_pos[d]], then the products' prefix sums cz over
+//     the memory of t (each lane rewrites only entries it read), so slot d is
+//     cz[end_d] - cz[start_d] with lanes across slots; the scatter adds with
+//     atomics as above. At T = 8192 the scratch is 32 KB: three warps a block.
+//   On an H100 (700 W) at 100k docs, T = 512, the kernel took 0.0785 ms of
+//   device time (dotvbyte; 2.4x the 33 us the streams take at 3.35 TB/s) and
+//   the fused call 0.080-0.105 ms over the three codecs, against 0.113-0.127
+//   on entry lanes and 0.062 for torch.sparse.mm(csr, q) (chip_smoke.py;
+//   PERF.md). It waits on each warp's chain of dependent steps, about one
+//   instruction a cycle per SM: an L2 prefetch of each warp's next block and
+//   a cp.async ring that staged it in shared memory (9 warps a block) were
+//   both slower (0.092, 0.131 ms) and are not used.
 // Products and sums are rounded as plain operations (__fmul_rn, __fadd_rn), so
 // every product equals the plain version's; only the order of the f32 sums
 // differs.
@@ -91,8 +121,9 @@
 // Template parameters: CODE (0 dotvbyte, 1 streamvbyte, 2 bitpack at the
 // per-block width, 2 + W bitpack at the static width W = 1..32), VT the value
 // storage (float, __half, uint8_t) and ST the seg storage (int32_t, int8_t):
-// 210 instantiations; the stage and the output mode are runtime arguments, so
-// they add none. So that they compile in parallel, the library is built in
+// 210 instantiations of two kernels, the batched stages' (stage and output
+// mode are runtime arguments) and the resident query's. So that they compile
+// in parallel (19-31 s on the chip machine), the library is built in
 // KERNEL_PARTS parts (kernels/build.py); part p holds the codes with
 // CODE % KERNEL_PARTS == p and refuses the others. __launch_bounds__(1024)
 // keeps every instantiation launchable at T = 8192 (1024 threads).
@@ -120,10 +151,13 @@ constexpr int kDotVByte = 0, kStreamVByte = 1, kBitpack = 2;
 constexpr int kCodes = kBitpack + 1 + 32;
 enum Vals { kValsF32 = 0, kValsF16 = 1, kValsU8 = 2 };
 enum Seg { kSegI32 = 0, kSegI8 = 1 };
-enum Stage { kEntryLanes = 0, kQueryLanes = 1 };
+enum Stage { kEntryLanes = 0, kQueryLanes = 1, kResidentQuery = 2 };
 enum Mode { kSlots = 0, kScatter = 1 };
 constexpr int kMaxT = 8 * 1024;
 constexpr size_t kDefaultSmem = 48 * 1024;
+// resident query: warps of a thread block at most (fewer where the scratch of
+// a large T leaves no room)
+constexpr int kResidentWarps = 32;
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__half v) { return __half2float(v); }
@@ -141,6 +175,10 @@ struct Args {
   float* out;
   int nq, dim, B, T, D, p0_w, p1_w, n_docs, stage, mode;
   int staged;  // query lanes, slot mode: slot scores go through shared memory
+  // resident query: floats of the staged query and words of a warp's scratch
+  // (both rounded up to 16 bytes); whether the data stream (dotvbyte and
+  // streamvbyte data, bitpack words) and seg / vals take vector loads
+  int q_words, scratch, vec_p, vec_e;
   float scale;
 };
 
@@ -304,8 +342,161 @@ __global__ void __launch_bounds__(1024) block_scan_kernel(const Args a) {
   }
 }
 
+// This lane's 8 gaps (group g) of block b, warp scope; `base` carries the
+// byte codecs' data offset from chunk to chunk. Every lane must call it.
+template <int CODE>
+__device__ __forceinline__ void decode_group(const Args& a, size_t b, int g, unsigned& base,
+                                             unsigned gap[8]) {
+  if constexpr (CODE == kDotVByte || CODE == kStreamVByte) {
+    const uint8_t* ctrl = static_cast<const uint8_t*>(a.p0) + b * a.p0_w;
+    const uint8_t* data = static_cast<const uint8_t*>(a.p1) + b * a.p1_w;
+    if constexpr (CODE == kDotVByte)
+      warp_decode_dotvbyte8(ctrl, data, a.p1_w, a.vec_p, g, a.T, base, gap);
+    else
+      warp_decode_streamvbyte8(ctrl, data, a.p1_w, a.vec_p, g, a.T, base, gap);
+  } else {
+    const uint8_t* words = static_cast<const uint8_t*>(a.p0) + b * a.p0_w * 4;
+    const int w = CODE == kBitpack ? static_cast<const int*>(a.p1)[b] : 0;
+    warp_decode_bitpack8<CODE - kBitpack>(words, 4 * a.p0_w, w, a.vec_p, g, a.T, gap);
+  }
+}
+
+// The resident-query stage (nq == 1): a persistent grid of one thread block
+// per SM; see the header.
+template <int CODE, typename VT, typename ST>
+__global__ void __launch_bounds__(1024) block_scan_resident_kernel(const Args a) {
+  extern __shared__ __align__(16) unsigned smem[];
+  const int T = a.T, D = a.D;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, n_warps = blockDim.x >> 5;
+  float* qs = reinterpret_cast<float*>(smem);
+  // the warp's scratch: t at [1, T] (then the products' prefix sums cz at
+  // [0, T]) and each slot's base start_abs[d] - t[start_pos[d]] after it
+  unsigned* ws = smem + a.q_words + (size_t)warp * a.scratch;
+  float* cz = reinterpret_cast<float*>(ws);
+  unsigned* tb = ws + T + 1;
+
+  const size_t first = (size_t)blockIdx.x * n_warps + warp;
+  if (((uintptr_t)a.Q & 15) == 0) {
+    for (int i = threadIdx.x; 4 * i + 3 < a.dim; i += blockDim.x)
+      reinterpret_cast<float4*>(qs)[i] = __ldg(reinterpret_cast<const float4*>(a.Q) + i);
+    for (int i = (a.dim & ~3) + threadIdx.x; i < a.dim; i += blockDim.x) qs[i] = a.Q[i];
+  } else {
+    for (int i = threadIdx.x; i < a.dim; i += blockDim.x) qs[i] = a.Q[i];
+  }
+  __syncthreads();
+
+  for (size_t b = first; b < (size_t)a.B; b += (size_t)gridDim.x * n_warps) {
+    const int* sp = a.sp + b * D;
+    const int* sa = a.sa + b * D;
+    const ST* seg = static_cast<const ST*>(a.seg) + b * T;
+    const VT* vals = static_cast<const VT*>(a.vals) + b * T;
+
+    // 1. gaps -> inclusive prefix sum t (modulo 2^32), 256 entries a step
+    // (two chunks an iteration, so one chunk's loads overlap the other's scans)
+    unsigned off = 0, t_run = 0;
+#pragma unroll 2
+    for (int g = lane; 8 * (g - lane) < T; g += 32) {
+      unsigned gap[8];
+      decode_group<CODE>(a, b, g, off, gap);
+      unsigned run = 0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        run += gap[j];
+        gap[j] = run;
+      }
+      const unsigned incl = warp_inclusive_scan<unsigned>(run);
+      const unsigned pre = t_run + incl - run;
+      t_run += __shfl_sync(kFull, incl, 31);
+      if (8 * g < T) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) ws[8 * g + j + 1] = pre + gap[j];
+      }
+    }
+    __syncwarp();
+    for (int d = lane; d < D; d += 32)
+      tb[d] = (unsigned)__ldg(sa + d) - ws[min(max(__ldg(sp + d), 0), T - 1) + 1];
+    __syncwarp();
+
+    // 2. rebase, gather q from shared memory, multiply; the products'
+    // prefix sums replace t (each lane rewrites only the entries it read)
+    float z_run = 0.f;
+#pragma unroll 2
+    for (int g = lane; 8 * (g - lane) < T; g += 32) {
+      float incl[8], acc = 0.f;
+      if (8 * g < T) {
+        int s[8];
+        float v[8];
+        load8(seg + 8 * g, a.vec_e, s);
+        load8(vals + 8 * g, a.vec_e, v);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          float p = 0.f;
+          if (s[j] >= 0) {
+            const unsigned c = tb[min(s[j], D - 1)] + ws[8 * g + j + 1];
+            if (c < (unsigned)a.dim) p = __fmul_rn(qs[c], __fmul_rn(v[j], a.scale));
+          }
+          acc = __fadd_rn(acc, p);
+          incl[j] = acc;
+        }
+      }
+      const float w_incl = warp_inclusive_scan<float>(acc);
+      float pre = __shfl_up_sync(kFull, w_incl, 1);
+      pre = __fadd_rn(z_run, lane ? pre : 0.f);
+      z_run = __fadd_rn(z_run, __shfl_sync(kFull, w_incl, 31));
+      if (8 * g < T) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) cz[8 * g + j + 1] = __fadd_rn(pre, incl[j]);
+      }
+    }
+    if (lane == 0) cz[0] = 0.f;
+    __syncwarp();
+
+    // 3. slot d = cz[end_d] - cz[start_d], lanes across slots
+    for (int d = lane; d < D; d += 32) {
+      int s0, end;
+      const bool used = slot_run(sp, d, D, T, s0, end);
+      const float s = used ? cz[end] - cz[s0] : 0.f;
+      if (a.mode == kSlots)
+        a.out[b * D + d] = s;
+      else if (used)
+        scatter_add(a, b, d, 0, s);
+    }
+    __syncwarp();  // the next block rewrites the scratch
+  }
+}
+
+template <int CODE, typename VT, typename ST>
+int launch_resident(Args a, cudaStream_t stream) {
+  auto kernel = block_scan_resident_kernel<CODE, VT, ST>;
+  int dev = 0, optin = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  a.q_words = (a.dim + 3) & ~3;
+  a.scratch = (a.T + 1 + a.D + 3) & ~3;
+  const size_t fixed = (size_t)a.q_words * 4, per_warp = (size_t)a.scratch * 4;
+  if (fixed + per_warp > (size_t)optin) return (int)cudaErrorInvalidValue;  // the wrapper's rule
+  size_t warps = ((size_t)optin - fixed) / per_warp;
+  warps = warps < (size_t)kResidentWarps ? warps : (size_t)kResidentWarps;
+  const size_t smem = fixed + warps * per_warp;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 32 * (int)warps, smem);
+  if (e != cudaSuccess) return (int)e;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const size_t need = ((size_t)a.B + warps - 1) / warps;
+  const size_t grid = need < (size_t)sms * per_sm ? need : (size_t)sms * per_sm;
+  a.vec_e = ((uintptr_t)a.seg & 15) == 0 && ((uintptr_t)a.vals & 15) == 0;
+  a.vec_p = CODE < kBitpack ? rows_aligned(a.p1, a.p1_w) : rows_aligned(a.p0, 4ll * a.p0_w);
+  kernel<<<(unsigned)grid, 32 * (unsigned)warps, smem, stream>>>(a);
+  return 0;
+}
+
 template <int CODE, typename VT, typename ST>
 int launch(Args a, cudaStream_t stream) {
+  if (a.stage == kResidentQuery) return launch_resident<CODE, VT, ST>(a, stream);
   const int threads = ((a.T / 8 + 31) / 32) * 32;
   const bool lanes = a.stage == kQueryLanes;
   const size_t ents = (size_t)a.T * sizeof(Ent);
@@ -365,12 +556,13 @@ int block_scan(int code, int vals_t, int seg_t, int stage, int mode, const void*
                int nq, int dim, int B, int T, int D, int p0_w, int p1_w, int n_docs,
                float scale, void* stream) {
   if (code < 0 || code >= kCodes || T <= 0 || T % 128 || T > kMaxT || D <= 0 || B <= 0 ||
-      nq <= 0 || dim <= 0 || (stage != kEntryLanes && stage != kQueryLanes) ||
+      nq <= 0 || dim <= 0 || stage < kEntryLanes || stage > kResidentQuery ||
+      (stage == kResidentQuery && nq != 1) ||
       (mode != kSlots && mode != kScatter) || (mode == kScatter && (!doc_ids || n_docs < 0)))
     return (int)cudaErrorInvalidValue;
   const Args a{(const float*)Q, p0, p1, seg, (const int*)start_pos, (const int*)start_abs,
                vals, (const int*)doc_ids, (float*)out, nq, dim, B, T, D, p0_w, p1_w,
-               n_docs, stage, mode, 0, scale};
+               n_docs, stage, mode, 0, 0, 0, 0, 0, scale};
   const int rc = dispatch(code, a, vals_t, seg_t, (cudaStream_t)stream,
                           std::make_integer_sequence<int, kCodes>{});
   if (rc != 0) return rc;

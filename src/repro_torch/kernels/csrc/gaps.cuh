@@ -17,6 +17,7 @@
 
 #pragma once
 
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -24,12 +25,14 @@ namespace repro {
 
 constexpr unsigned kFull = 0xffffffffu;
 
-template <typename V>
+// Inclusive prefix sum over each group of W lanes (W = 32: the warp; 16: a
+// half-warp). Every lane of the warp must call it.
+template <typename V, int W = 32>
 __device__ __forceinline__ V warp_inclusive_scan(V x) {
-  const int lane = threadIdx.x & 31;
+  const int lane = threadIdx.x & (W - 1);
 #pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const V y = __shfl_up_sync(kFull, x, o);
+  for (int o = 1; o < W; o <<= 1) {
+    const V y = __shfl_up_sync(kFull, x, o, W);
     if (lane >= o) x += y;
   }
   return x;
@@ -157,6 +160,211 @@ __device__ __forceinline__ void decode_bitpack8(const uint32_t* words, int words
     }
     gap[j] = g;
   }
+}
+
+// -- warp-scope decoders over 16-byte loads ------------------------------------
+//
+// The resident-query block scan and the row-warp rows kernel give a whole row
+// or packed block to one warp, in chunks of 256 entries: lane l of chunk k
+// owns the group g = 32k + l, entries 8g..8g+7. The byte codecs carry the
+// chunk's first data byte (`base`, uniform across the warp) from one chunk to
+// the next, so one warp scan per chunk gives every lane its offset. A lane's
+// data bytes (at most 16 for DotVByte, 32 for StreamVByte and bitpack) arrive
+// as a window of aligned 16-byte loads where `vec` holds (the stream's base
+// 16-byte aligned and its row width a multiple of 16 bytes), else byte by
+// byte; bytes at or past the row's width read as 0 either way, and a byte
+// gap that does not fit the row decodes as 0, as above.
+
+// Bytes [off, off + 4N) of a row `w` bytes wide, as N little-endian words.
+template <int N>
+__device__ __forceinline__ void load_window(const uint8_t* row, unsigned w, unsigned off,
+                                            bool vec, uint32_t out[N]) {
+  if (vec) {
+    constexpr int kLoads = (4 * N + 15) / 16 + 1;
+    uint32_t raw[4 * kLoads];
+    const unsigned a0 = off & ~15u;
+#pragma unroll
+    for (int c = 0; c < kLoads; ++c) {
+      const unsigned a = a0 + 16u * c;
+      const uint4 x =
+          a < w ? __ldg(reinterpret_cast<const uint4*>(row + a)) : make_uint4(0, 0, 0, 0);
+      raw[4 * c] = x.x;
+      raw[4 * c + 1] = x.y;
+      raw[4 * c + 2] = x.z;
+      raw[4 * c + 3] = x.w;
+    }
+    // realign by off % 16 bytes: whole words by selects, the rest by funnel shifts
+    const unsigned r = off & 15u, q = r >> 2, sh = 8 * (r & 3u);
+    uint32_t sel[N + 1];
+#pragma unroll
+    for (int i = 0; i <= N; ++i)
+      sel[i] = q == 0 ? raw[i] : q == 1 ? raw[i + 1] : q == 2 ? raw[i + 2] : raw[i + 3];
+#pragma unroll
+    for (int i = 0; i < N; ++i) out[i] = __funnelshift_r(sel[i], sel[i + 1], sh);
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      uint32_t x = 0;
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const unsigned p = off + 4 * i + b;
+        if (p < w) x |= (uint32_t)row[p] << (8 * b);
+      }
+      out[i] = x;
+    }
+  }
+}
+
+// Drop the low s bits (0 <= s <= 32) of an N-word window.
+template <int N>
+__device__ __forceinline__ void shift_window(uint32_t a[N], unsigned s) {
+#pragma unroll
+  for (int i = 0; i + 1 < N; ++i) a[i] = __funnelshift_rc(a[i], a[i + 1], s);
+  a[N - 1] = s >= 32 ? 0u : a[N - 1] >> s;
+}
+
+// DotVByte, warp scope (groups of W lanes; W = 16 decodes two rows a warp):
+// lane's group g reads control byte ctrl[g]; `base` is the chunk's first data
+// byte and moves past the chunk. Every lane of the warp must call it.
+template <int W = 32>
+__device__ __forceinline__ void warp_decode_dotvbyte8(const uint8_t* ctrl, const uint8_t* data,
+                                                      int data_w, bool vec, int g, int n,
+                                                      unsigned& base, unsigned gap[8]) {
+  const bool live = 8 * g < n;
+  const int byte = live ? __ldg(ctrl + g) : 0;
+  const unsigned len = live ? 8 + __popc(byte) : 0;
+  const unsigned incl = warp_inclusive_scan<unsigned, W>(len);
+  unsigned off = base + incl - len;
+  base += __shfl_sync(kFull, incl, W - 1, W);
+  uint32_t win[4] = {0, 0, 0, 0};
+  if (live) load_window<4>(data, (unsigned)data_w, off, vec, win);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const unsigned two = (byte >> j) & 1;
+    gap[j] = 8 * g + j < n && off + 1 + two <= (unsigned)data_w
+                 ? win[0] & (two ? 0xffffu : 0xffu) : 0u;
+    off += 1 + two;
+    shift_window<4>(win, 8 + 8 * two);
+  }
+}
+
+// StreamVByte, warp scope: lane's group g reads control bytes 2g and 2g+1.
+template <int W = 32>
+__device__ __forceinline__ void warp_decode_streamvbyte8(const uint8_t* ctrl,
+                                                         const uint8_t* data, int data_w,
+                                                         bool vec, int g, int n,
+                                                         unsigned& base, unsigned gap[8]) {
+  const bool live = 8 * g < n;
+  const unsigned codes =
+      live ? __ldg(ctrl + 2 * g) | ((unsigned)__ldg(ctrl + 2 * g + 1) << 8) : 0u;
+  unsigned len = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) len += ((codes >> (2 * j)) & 3u) + 1;
+  len = live ? len : 0u;
+  const unsigned incl = warp_inclusive_scan<unsigned, W>(len);
+  unsigned off = base + incl - len;
+  base += __shfl_sync(kFull, incl, W - 1, W);
+  uint32_t win[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  if (live) load_window<8>(data, (unsigned)data_w, off, vec, win);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const unsigned k = ((codes >> (2 * j)) & 3u) + 1;  // bytes of gap j
+    gap[j] = 8 * g + j < n && off + k <= (unsigned)data_w
+                 ? (k == 4 ? win[0] : win[0] & ((1u << (8 * k)) - 1)) : 0u;
+    off += k;
+    shift_window<8>(win, 8 * k);
+  }
+}
+
+// Bitpack at width w (clamped to [0, 32]; W > 0 fixes it at compile time), warp
+// scope in form only (no scan): group g's 8 gaps are the w bytes from byte g*w
+// of the row's words (`words_w` bytes wide); words past the row read as 0.
+template <int W>
+__device__ __forceinline__ void warp_decode_bitpack8(const uint8_t* words, int words_w, int w,
+                                                     bool vec, int g, int n, unsigned gap[8]) {
+  if constexpr (W > 0) w = W;
+  w = min(max(w, 0), 32);
+  const uint32_t mask = w == 32 ? 0xffffffffu : (1u << w) - 1;
+  uint32_t win[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  if (8 * g < n) load_window<8>(words, (unsigned)words_w, (unsigned)(g * w), vec, win);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    gap[j] = 8 * g + j < n ? win[0] & mask : 0u;
+    shift_window<8>(win, (unsigned)w);
+  }
+}
+
+// Eight consecutive elements from p, widened; with `vec`, p is aligned to the
+// eight elements' size (at most 16 bytes) and read in one or two vector loads.
+__device__ __forceinline__ void load8(const int32_t* p, bool vec, int out[8]) {
+  if (vec) {
+    const int4 x = __ldg(reinterpret_cast<const int4*>(p)),
+               y = __ldg(reinterpret_cast<const int4*>(p) + 1);
+    out[0] = x.x, out[1] = x.y, out[2] = x.z, out[3] = x.w;
+    out[4] = y.x, out[5] = y.y, out[6] = y.z, out[7] = y.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) out[j] = p[j];
+  }
+}
+
+__device__ __forceinline__ void load8(const int8_t* p, bool vec, int out[8]) {
+  if (vec) {
+    const uint2 x = __ldg(reinterpret_cast<const uint2*>(p));
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      out[j] = (int)(int8_t)(((j < 4 ? x.x : x.y) >> (8 * (j & 3))) & 0xff);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) out[j] = p[j];
+  }
+}
+
+__device__ __forceinline__ void load8(const float* p, bool vec, float out[8]) {
+  if (vec) {
+    const float4 x = __ldg(reinterpret_cast<const float4*>(p)),
+                 y = __ldg(reinterpret_cast<const float4*>(p) + 1);
+    out[0] = x.x, out[1] = x.y, out[2] = x.z, out[3] = x.w;
+    out[4] = y.x, out[5] = y.y, out[6] = y.z, out[7] = y.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) out[j] = p[j];
+  }
+}
+
+__device__ __forceinline__ void load8(const __half* p, bool vec, float out[8]) {
+  if (vec) {
+    const uint4 x = __ldg(reinterpret_cast<const uint4*>(p));
+    const uint32_t w[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      out[j] = __half2float(__ushort_as_half((unsigned short)(w[j >> 1] >> (16 * (j & 1)))));
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) out[j] = __half2float(p[j]);
+  }
+}
+
+__device__ __forceinline__ void load8(const uint8_t* p, bool vec, float out[8]) {
+  if (vec) {
+    const uint2 x = __ldg(reinterpret_cast<const uint2*>(p));
+#pragma unroll
+    for (int j = 0; j < 8; ++j) out[j] = (float)(((j < 4 ? x.x : x.y) >> (8 * (j & 3))) & 0xff);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) out[j] = (float)p[j];
+  }
+}
+
+// Ask L2 for the 128-byte line at p, without waiting or using a register.
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];" ::"l"(p));
+}
+
+// Whether a stream's rows, `row_bytes` apart from `base` on, are 16-byte
+// aligned: the condition of the `vec` paths above.
+inline bool rows_aligned(const void* base, long long row_bytes) {
+  return ((uintptr_t)base & 15) == 0 && row_bytes % 16 == 0;
 }
 
 // -- the query-lane stage ------------------------------------------------------

@@ -45,11 +45,46 @@
 // so every value equals the plain torch version's bit for bit; only the order
 // of the final f32 sums differs.
 //
-// Two scoring stages, picked by the wrapper (kernels/rows_dot.py):
+// Three scoring stages, picked by the wrapper (kernels/rows_dot.py):
 //
-// Entry lanes (every per-query form, nd == nq, and the shared form below
-// QUERY_LANES_MIN_NQ queries): one thread block per (candidate, set), L/8
-// threads (rounded up to a warp); thread t owns entries 8t..8t+7:
+// Row warps (the per-query form, nd == nq: Seismic's one launch a search, and
+// one query over one set; where a query row fits in shared memory). Under
+// entry lanes this form was a grid of C x nd one-warp blocks (262,144 at 64 x
+// 4,096): the 32-blocks-per-SM limit held an SM to half its warps, each
+// warp's life was one serial chain of loads, and the blocks resident on an SM
+// belonged to several queries, so their Q gathers (one 32-byte L2 sector per
+// live entry, ~1 GB a search at 100k docs) missed L1. Here:
+//   - a persistent grid, one block of kRowThreads threads an SM; block i takes
+//     the i-th share of the tasks (kWarpRows = 8 consecutive candidates of one
+//     set each) in set order and stages each set's query row in shared memory
+//     once (119 KB at dim 30,522; at most two sets a block at the Seismic
+//     shape), so every Q gather is a shared-memory read;
+//   - each warp takes tasks in turn: lanes 0..7 load the task's row ids and
+//     lengths in two loads, and load the next task's ids and ask L2 for its
+//     rows' first lines before this task's decode;
+//   - a warp scores its rows two at a time, a half-warp each (SPLADE rows hold
+//     ~119 entries: one 128-entry chunk, where a whole warp left half its
+//     lanes idle and ran one row's chain of loads at a time); a lane owns 8
+//     entries of a chunk, the byte codecs' offsets and the components are
+//     half-warp scans with a carry, so rows past 128 entries loop over chunks
+//     with no barrier (gaps.cuh's warp_decode_*<16>), and a row's value loads
+//     are issued before its decode waits on ctrl and data;
+//   - data bytes come as aligned 16-byte loads (gaps.cuh::load_window), f16
+//     values as one 16-byte load a lane, f32 as two, u8 codes as one 8-byte
+//     and u4 / pq codes as one 4-byte load, where the stream's rows are
+//     16-byte aligned (always, for packs), else element by element;
+//   - lane r keeps row c0 + r's score, and lanes 0..7 write out[set, c0 : c0 +
+//     8] as one 32-byte run.
+//   On an H100 (700 W) at the Seismic shape (64 queries x 4,096 candidates of
+//   100k docs, L = 256) the 16 variants took 0.122-0.185 ms against
+//   0.176-0.335 ms on entry lanes in the same run (dotvbyte/f16 0.163 vs
+//   0.220), 9-20x their byte bounds (chip_smoke.py; PERF.md): each warp waits
+//   on its rows' chains of dependent loads.
+//
+// Entry lanes (the shared form below QUERY_LANES_MIN_NQ queries, and the
+// per-query form where a query row does not fit in shared memory): one thread
+// block per (candidate, set), L/8 threads (rounded up to a warp); thread t
+// owns entries 8t..8t+7:
 //   1. byte codecs: a block-wide exclusive scan of the thread's data-byte count
 //      gives the offset of its first data byte (bitpack needs no scan: entry j
 //      starts at bit j*w);
@@ -83,7 +118,7 @@
 // ms; 5.25 vs 0.55 ms at 64 (chip_smoke.py's stage sweep; PERF.md).
 // The work is bound by bytes (the gathered rows, Q and the scores); at the
 // flat shape the batch's Qt reads from L2 dominate. cp.async/TMA row staging
-// and vector loads are later work.
+// is later work.
 //
 // Ids outside [0, n_rows) score 0, and a decoded component outside [0, dim)
 // contributes 0, so a corrupt index never reads outside its buffers.
@@ -105,13 +140,19 @@ enum Vq { kF16 = 0, kU8 = 1, kU4 = 2, kPq = 3 };
 enum Vals { kValsF32 = 0, kValsF16 = 1, kValsU8 = 2 };
 
 constexpr int kPqEntries = 256 * 2;
-enum Stage { kEntryLanes = 0, kQueryLanes = 1 };
+enum Stage { kEntryLanes = 0, kQueryLanes = 1, kRowWarps = 2 };
 // the query-lane stage: rows a block decodes at most, entries they may hold
 // together, warps when a warp decodes a row alone (L <= 256)
 constexpr int kMaxRows = 8;
 constexpr int kRowEntries = 4096;
-constexpr int kRowWarps = 4;
+constexpr int kDecodeWarps = 4;
 constexpr size_t kDefaultSmem = 48 * 1024;
+// the row-warp stage: candidates a warp scores in turn (one task), and
+// threads of a block (one block an SM: the query row takes most of the
+// shared memory; 768 threads leave 85 registers a thread)
+constexpr int kWarpRows = 8;
+constexpr int kRowThreads = 768;
+constexpr int kRowLanes = 16;  // lanes a row takes: a half-warp
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__half v) { return __half2float(v); }
@@ -129,6 +170,9 @@ struct Args {
   float* out;
   int nq, dim, nd, C, n_rows, L, vals_w, p0_w, p1_w;
   int rows;  // query lanes: candidates a block decodes
+  // row warps: whether the payload streams (p0: uncompressed comps, bitpack
+  // words; p1: dotvbyte / streamvbyte data) and the values take vector loads
+  int vec_p0, vec_p1, vec_v;
   float scale;
 };
 
@@ -316,8 +360,205 @@ __global__ void __launch_bounds__(1024) rows_dot_shared_kernel(const Args a) {
   }
 }
 
+// Row-warp stage: group g's components and scaled values of row `doc`, over a
+// group of W lanes (`off` and `t_run` carry the data offset and the components
+// from one chunk of 8W entries to the next) -> the mask of live entries (inside
+// nnz and the vocabulary); dead entries have component 0 and value 0. Nothing
+// of the row is read where nnz is 0. Every lane of the warp must call it.
+template <int CODEC, int VQ, typename VT>
+__device__ __forceinline__ unsigned row_group(const Args& a, int doc, int nnz, int g,
+                                              unsigned& off, unsigned& t_run, const float* cb,
+                                              float lo, float step, int comp[8],
+                                              float val[8]) {
+  const bool live = 8 * g < nnz;
+  // values first: their loads do not wait on the decode
+  float v[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  if (live) {
+    if constexpr (VQ == kF16) {
+      load8(static_cast<const VT*>(a.vals) + (size_t)doc * a.vals_w + 8 * g, a.vec_v, v);
+    } else if constexpr (VQ == kU8) {
+      load8(static_cast<const uint8_t*>(a.vals) + (size_t)doc * a.vals_w + 8 * g, a.vec_v, v);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) v[j] = __fadd_rn(lo, __fmul_rn(v[j], step));
+    } else {  // u4_sq, pq: 8 entries in 4 bytes
+      const uint8_t* codes = static_cast<const uint8_t*>(a.vals) + (size_t)doc * a.vals_w + 4 * g;
+      const uint32_t w = a.vec_v ? __ldg(reinterpret_cast<const uint32_t*>(codes))
+                                 : codes[0] | codes[1] << 8 | codes[2] << 16 |
+                                       (uint32_t)codes[3] << 24;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int byte = (w >> (8 * (j >> 1))) & 0xff;
+        if constexpr (VQ == kU4)
+          v[j] = __fadd_rn(lo, __fmul_rn((float)((j & 1) ? byte >> 4 : byte & 15), step));
+        else
+          v[j] = cb[byte * 2 + (j & 1)];
+      }
+    }
+  }
+  if constexpr (CODEC == kUncompressed) {
+    const int* row = static_cast<const int*>(a.p0) + (size_t)doc * a.p0_w + 8 * g;
+    if (live && a.vec_p0 && 8 * g + 8 <= a.p0_w) {
+      load8(row, true, comp);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) comp[j] = live && 8 * g + j < a.p0_w ? row[j] : 0;
+    }
+  } else {
+    unsigned gap[8];
+    if constexpr (CODEC == kDotVByte || CODEC == kStreamVByte) {
+      const uint8_t* ctrl = static_cast<const uint8_t*>(a.p0) + (size_t)doc * a.p0_w;
+      const uint8_t* data = static_cast<const uint8_t*>(a.p1) + (size_t)doc * a.p1_w;
+      if constexpr (CODEC == kDotVByte)
+        warp_decode_dotvbyte8<kRowLanes>(ctrl, data, a.p1_w, a.vec_p1, g, nnz, off, gap);
+      else
+        warp_decode_streamvbyte8<kRowLanes>(ctrl, data, a.p1_w, a.vec_p1, g, nnz, off, gap);
+    } else {  // kBitpack
+      const uint8_t* words = static_cast<const uint8_t*>(a.p0) + (size_t)doc * a.p0_w * 4;
+      warp_decode_bitpack8<0>(words, 4 * a.p0_w, nnz ? static_cast<const int*>(a.p1)[doc] : 0,
+                              a.vec_p0, g, nnz, gap);
+    }
+    unsigned run = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      run += gap[j];
+      gap[j] = run;
+    }
+    const unsigned incl = warp_inclusive_scan<unsigned, kRowLanes>(run);
+    const unsigned pre = t_run + incl - run;
+    t_run += __shfl_sync(kFull, incl, kRowLanes - 1, kRowLanes);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) comp[j] = (int)(pre + gap[j]);
+  }
+  unsigned mask = 0;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const bool ok = 8 * g + j < nnz && (unsigned)comp[j] < (unsigned)a.dim;
+    mask |= (unsigned)ok << j;
+    comp[j] = ok ? comp[j] : 0;
+    val[j] = ok ? v[j] * a.scale : 0.f;
+  }
+  return mask;
+}
+
+// Row-warp stage: the doc id of row c0 + lane of set `set` on lanes below
+// kWarpRows (-1 past C and on the other lanes).
+__device__ __forceinline__ int task_doc(const Args& a, long long set, int c0, int lane) {
+  return lane < kWarpRows && c0 + lane < a.C ? a.docs[set * a.C + c0 + lane] : -1;
+}
+
+// Row-warp stage: ask L2 for the first 256 bytes of each stream of row `doc`
+// (the lanes that hold a doc id), so the next task's loads find them there.
+template <int CODEC, int VQ, typename VT>
+__device__ __forceinline__ void prefetch_row(const Args& a, int doc) {
+  if (doc < 0 || doc >= a.n_rows) return;
+  const size_t elt = VQ == kF16 ? sizeof(VT) : 1;
+  const char* streams[3] = {
+      static_cast<const char*>(a.vals) + (size_t)doc * a.vals_w * elt,
+      static_cast<const char*>(a.p0) + (size_t)doc * a.p0_w * (CODEC == kDotVByte ||
+                                                               CODEC == kStreamVByte ? 1 : 4),
+      CODEC == kDotVByte || CODEC == kStreamVByte
+          ? static_cast<const char*>(a.p1) + (size_t)doc * a.p1_w : nullptr};
+#pragma unroll
+  for (int k = 0; k < 3; ++k)
+    if (streams[k]) {
+      prefetch_l2(streams[k]);
+      prefetch_l2(streams[k] + 128);
+    }
+}
+
+// The row-warp stage (the per-query form, nd == nq); see the header.
+template <int CODEC, int VQ, typename VT = __half>
+__global__ void __launch_bounds__(kRowThreads) rows_dot_warp_kernel(const Args a) {
+  extern __shared__ __align__(16) float qs[];  // the current set's query row
+  __shared__ float cb[VQ == kPq ? kPqEntries : 1];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, n_warps = blockDim.x >> 5;
+  if constexpr (VQ == kPq)
+    for (int i = threadIdx.x; i < kPqEntries; i += blockDim.x) cb[i] = a.v0[i];
+  // this block's share of the tasks (kWarpRows consecutive candidates of one
+  // set each), in set order
+  const long long per_set = (a.C + kWarpRows - 1) / kWarpRows;
+  const long long n_tasks = per_set * a.nd;
+  const long long t0 = n_tasks * blockIdx.x / gridDim.x;
+  const long long t1 = n_tasks * (blockIdx.x + 1) / gridDim.x;
+  for (long long set = t0 / per_set; set * per_set < t1; ++set) {
+    __syncthreads();  // every warp is done with the previous set's row
+    const float* q = a.Q + set * a.dim;
+    for (int i = threadIdx.x; i < a.dim; i += blockDim.x) qs[i] = q[i];
+    __syncthreads();
+    const long long lo = t0 > set * per_set ? t0 : set * per_set;
+    const long long hi = t1 < (set + 1) * per_set ? t1 : (set + 1) * per_set;
+    long long task = lo + warp;
+    int next_doc = task < hi ? task_doc(a, set, (int)(task - set * per_set) * kWarpRows, lane) : -1;
+    for (; task < hi; task += n_warps) {
+      const int c0 = (int)(task - set * per_set) * kWarpRows;
+      // lane r < kWarpRows holds row c0 + r's id and length; the next task's
+      // ids are loaded and its rows asked of L2 before this task's decode
+      const int my_doc = next_doc;
+      const int my_nnz = my_doc >= 0 && my_doc < a.n_rows ? min(max(a.nnz[my_doc], 0), a.L) : 0;
+      if (task + n_warps < hi) {
+        next_doc = task_doc(a, set, (int)(task + n_warps - set * per_set) * kWarpRows, lane);
+        prefetch_row<CODEC, VQ, VT>(a, next_doc);
+      }
+      // two rows at a time, a half-warp each: rows r and r + 1 of the task
+      float keep = 0.f;  // lane r keeps row c0 + r's score
+      const int half = lane / kRowLanes, hl = lane % kRowLanes;
+#pragma unroll 1
+      for (int r = 0; r < kWarpRows; r += 2) {
+        const int doc = __shfl_sync(kFull, my_doc, r + half);
+        const int nnz = __shfl_sync(kFull, my_nnz, r + half);
+        const int most = max(nnz, __shfl_xor_sync(kFull, nnz, kRowLanes));
+        if (most == 0) continue;  // warp-uniform: empty, sentinel, out of range or past C
+        const bool scaled = (VQ == kU8 || VQ == kU4) && nnz;
+        const float lo_v = scaled ? a.v0[doc] : 0.f;
+        const float step = scaled ? a.v1[doc] : 0.f;
+        float acc = 0.f;
+        unsigned off = 0, t_run = 0;
+        for (int g = hl; 8 * (g - hl) < most; g += kRowLanes) {
+          int comp[8];
+          float val[8];
+          const unsigned live = row_group<CODEC, VQ, VT>(a, doc, nnz, g, off, t_run, cb,
+                                                             lo_v, step, comp, val);
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            if (live >> j & 1) acc += qs[comp[j]] * val[j];
+        }
+#pragma unroll
+        for (int o = kRowLanes / 2; o > 0; o >>= 1) acc += __shfl_xor_sync(kFull, acc, o);
+        const float other = __shfl_xor_sync(kFull, acc, kRowLanes);  // the other half's row
+        if (lane == r) keep = acc;
+        if (lane == r + 1) keep = other;
+      }
+      // out[set, c0 : c0 + kWarpRows]: one contiguous 32-byte run
+      if (lane < kWarpRows && c0 + lane < a.C) a.out[set * a.C + c0 + lane] = keep;
+    }
+  }
+}
+
 template <int CODEC, int VQ, typename VT = __half>
 int launch(const Args& a, int threads, int stage, cudaStream_t stream) {
+  if (stage == kRowWarps) {
+    Args w = a;
+    const size_t elt = VQ == kF16 ? sizeof(VT) : 1;
+    w.vec_p0 = rows_aligned(a.p0, 4ll * a.p0_w);
+    w.vec_p1 = CODEC == kDotVByte || CODEC == kStreamVByte ? rows_aligned(a.p1, a.p1_w) : 0;
+    w.vec_v = rows_aligned(a.vals, (long long)elt * a.vals_w);
+    auto kernel = rows_dot_warp_kernel<CODEC, VQ, VT>;
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    const size_t smem = (size_t)((a.dim + 3) & ~3) * sizeof(float);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kRowThreads, smem);
+    if (e != cudaSuccess) return (int)e;  // a query row too wide: the wrapper's rule
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    const long long tasks = (long long)a.nd * ((a.C + kWarpRows - 1) / kWarpRows);
+    const long long blocks = (long long)sms * per_sm;
+    const long long grid = blocks < tasks ? blocks : tasks;
+    kernel<<<(unsigned)grid, kRowThreads, smem, stream>>>(w);
+    return 0;
+  }
   if (stage == kEntryLanes) {
     rows_dot_kernel<CODEC, VQ, VT>
         <<<dim3((unsigned)a.C, (unsigned)a.nd), threads, 0, stream>>>(a);
@@ -333,7 +574,7 @@ int launch(const Args& a, int threads, int stage, cudaStream_t stream) {
   }
   const unsigned blocks = (unsigned)((a.C + a.rows - 1) / a.rows);
   const unsigned tiles = (unsigned)((a.nq + kQueryTile - 1) / kQueryTile);
-  const int block_threads = a.L <= 256 ? 32 * kRowWarps : threads;
+  const int block_threads = a.L <= 256 ? 32 * kDecodeWarps : threads;
   rows_dot_shared_kernel<CODEC, VQ, VT>
       <<<dim3(blocks, tiles), block_threads, smem, stream>>>(a);
   return 0;
@@ -372,14 +613,15 @@ int rows_dot(int codec, int vq, int vals_t, int stage, const void* Q, const void
              int n_rows, int L, int vals_w, int p0_w, int p1_w, float scale, void* stream) {
   const int threads = ((L / 8 + 31) / 32) * 32;
   if (L % 8 || threads < 32 || threads > 1024 || nq <= 0 || C <= 0 || nd <= 0 ||
-      nd > 65535 || (stage != kEntryLanes && stage != kQueryLanes) ||
-      (stage == kQueryLanes && (nd != 1 || (nq + kQueryTile - 1) / kQueryTile > 65535)))
+      nd > 65535 || stage < kEntryLanes || stage > kRowWarps ||
+      (stage == kQueryLanes && (nd != 1 || (nq + kQueryTile - 1) / kQueryTile > 65535)) ||
+      (stage == kRowWarps && nd != nq))
     return (int)cudaErrorInvalidValue;
   int rows = kRowEntries / L;
   rows = rows < 1 ? 1 : rows > kMaxRows ? kMaxRows : rows;
   const Args a{(const float*)Q, (const int*)docs, vals, (const int*)nnz, p0, p1,
                (const float*)v0, (const float*)v1, (float*)out, nq, dim, nd, C,
-               n_rows, L, vals_w, p0_w, p1_w, rows, scale};
+               n_rows, L, vals_w, p0_w, p1_w, rows, 0, 0, 0, scale};
   const cudaStream_t s = (cudaStream_t)stream;
   int rc;
   switch (codec) {

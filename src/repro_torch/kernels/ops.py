@@ -25,6 +25,8 @@ every vq).
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from .. import resolve_device
@@ -38,6 +40,7 @@ __all__ = [
     "score_bitpack",
     "score_bitpack_batch",
     "score_bitpack_bucketed",
+    "Bucket",
     "width_buckets",
     "BLOCK_SCORERS",
     "block_scorers",
@@ -107,11 +110,29 @@ score_bitpack = _single("bitpack")
 score_bitpack_batch = _batch("bitpack")
 
 
-def width_buckets(packed):
-    """The width buckets of a bitpack pack held as tensors: per distinct
-    block width w, ``(w, block ids, words)`` with the bucket's words
-    sliced tight to ``⌈T·w/32⌉`` and padded to the 128-lane multiple, as
-    the reference pads them."""
+class Bucket(NamedTuple):
+    """One width bucket of a bitpack pack: its blocks (``sel``), their
+    streams as ``block_scan`` takes them (words sliced tight) and their
+    slots' documents."""
+
+    width: int
+    sel: torch.Tensor
+    streams: dict
+    doc_ids: torch.Tensor
+
+
+def width_buckets(packed) -> list[Bucket]:
+    """The width buckets of a bitpack pack held as tensors, one per
+    distinct block width w, with the bucket's words sliced tight to
+    ``⌈T·w/32⌉`` and padded to the 128-lane multiple, as the reference
+    pads them. Built once per pack and kept on it (``packed.buckets``),
+    so a scan only launches."""
+    if packed.buckets is None:
+        packed.buckets = _build_buckets(packed)
+    return packed.buckets
+
+
+def _build_buckets(packed) -> list[Bucket]:
     T = packed.block_size
     words = packed.words.view(torch.int32)  # u32 bits: not every device indexes u32
     out = []
@@ -119,7 +140,10 @@ def width_buckets(packed):
         sel = torch.nonzero(packed.widths == w).flatten()
         tight = (T * w + 31) // 32
         wt = torch.nn.functional.pad(words[sel, :tight], (0, (-tight) % 128))
-        out.append((int(w), sel, wt.contiguous().view(torch.uint32)))
+        streams = {"words": wt.contiguous().view(torch.uint32),
+                   **{k: getattr(packed, k)[sel] for k in ("seg", "start_pos", "start_abs",
+                                                          "vals")}}
+        out.append(Bucket(int(w), sel, streams, packed.doc_ids[sel]))
     return out
 
 
@@ -130,11 +154,9 @@ def score_bitpack_bucketed(q, packed, device=None):
     into one result: f32 [n_docs]."""
     Q, packed = _prepare(torch.as_tensor(q).reshape(1, -1), packed, "bitpack", device)
     total = None
-    for w, sel, words in width_buckets(packed):
-        bucket = {"words": words, **{k: getattr(packed, k)[sel]
-                                     for k in ("seg", "start_pos", "start_abs", "vals")}}
-        total = _scan("block_scan_bitpack_w", "bitpack", Q, packed, streams=bucket,
-                      doc_ids=packed.doc_ids[sel], width=w, out=total)
+    for b in width_buckets(packed):
+        total = _scan("block_scan_bitpack_w", "bitpack", Q, packed, streams=b.streams,
+                      doc_ids=b.doc_ids, width=b.width, out=total)
     if total is None:  # a pack of no blocks
         return torch.zeros(packed.n_docs, dtype=torch.float32, device=Q.device)
     return total[0]

@@ -19,11 +19,15 @@ kernel reads that dtype, as the reference casts whatever is stored.
 ``docs`` is ``[nd, C]`` with ``nd ∈ {1, nq}``: one candidate set shared
 by the query batch (flat; each row decoded once per tile of 128
 queries, scored for every query of it) or one set per query (Seismic).
-The shared form scores with lanes across queries over the transposed
-batch ``Qᵀ [dim, nq]`` from :data:`QUERY_LANES_MIN_NQ` queries on, and
-below that, like the per-query form, with lanes across entries and a
-block reduction per query. The work is bound by bytes; see the source
-for the design and PERF.md for its time on the card.
+Three scoring stages, picked by :func:`pick_stage` from the shapes: the
+per-query form takes row warps (one thread block an SM holding a set's
+query row in shared memory, a half-warp per candidate row, vector loads)
+where the row fits (:func:`row_warps_fit`); the shared form takes lanes
+across queries over the transposed batch ``Qᵀ [dim, nq]`` from
+:data:`QUERY_LANES_MIN_NQ` queries on; everything else takes entry
+lanes (a thread block per candidate row and a block reduction per
+query). The work is bound by bytes; see the source for the design and
+PERF.md for its time on the card.
 
 :func:`rows_scores_for_codec` runs the kernel on CUDA tensors and its
 plain torch version (:func:`rows_scores_plain`) on CPU tensors; a CUDA
@@ -53,6 +57,7 @@ __all__ = [
     "stage_launches",
     "variant_name",
     "pick_stage",
+    "row_warps_fit",
     "reset_launches",
     "rows_scores_for_codec",
     "rows_scores_plain",
@@ -73,14 +78,17 @@ def variant_name(codec: str, vq: str) -> str:
 VARIANTS = tuple((c, v) for c in CODECS for v in value_codecs.VALUE_CODECS)
 
 #: scoring stages in the kernel's enum order (csrc/rows_dot.cu ``Stage``)
-STAGES = ("entry_lanes", "query_lanes")
+STAGES = ("entry_lanes", "query_lanes", "row_warps")
 
 #: the batch size from which the shared form (``nd = 1``) scores with
 #: lanes across queries over ``Qᵀ``; from the stage sweep of
-#: ``chip_smoke.py`` (PERF.md): on an H100 entry lanes win up to 4
-#: queries, query lanes from 8 on. The per-query form always uses entry
-#: lanes.
+#: ``chip_smoke.py`` (PERF.md): on an H100 entry lanes win up to 6
+#: queries, query lanes from 8 on.
 QUERY_LANES_MIN_NQ = 8
+
+#: floats of the PQ codebook, which a row-warp block keeps beside the
+#: query row in shared memory
+_PQ_FLOATS = value_codecs.PQ_K * value_codecs.PQ_M
 
 #: kernel launches made by :func:`rows_scores_for_codec` (CUDA tensors only)
 launches = 0
@@ -121,17 +129,35 @@ def reset_launches() -> None:
             counts[k] = 0
 
 
-def pick_stage(nq: int, nd: int, stage: str | None = None) -> str:
-    """The scoring stage for ``nq`` queries over ``nd`` candidate sets:
-    ``stage`` if given (query lanes take the shared form only), else
-    query lanes for the shared form from :data:`QUERY_LANES_MIN_NQ`
-    queries on."""
+def row_warps_fit(dim: int) -> bool:
+    """Whether the row-warp stage takes queries of ``dim`` components: a
+    query row (rounded up to 16 bytes) and the PQ codebook within
+    ``build.SMEM_OPTIN_BYTES``, so up to ~57,500 components (the SPLADE
+    vocabulary of 30,522 takes 119 KB)."""
+    return 4 * ((dim + 3) // 4 * 4 + _PQ_FLOATS) <= build.SMEM_OPTIN_BYTES
+
+
+def pick_stage(nq: int, nd: int, stage: str | None = None, *, dim: int) -> str:
+    """The scoring stage for ``nq`` queries of ``dim`` components over
+    ``nd`` candidate sets. Without a ``stage``: the shared form (``nd =
+    1``) takes query lanes from :data:`QUERY_LANES_MIN_NQ` queries on;
+    one candidate set per query (``nd = nq``, one query and one set
+    included) takes row warps where :func:`row_warps_fit`; every other
+    shape takes entry lanes. A given ``stage`` is checked against the
+    same rules: query lanes take the shared form only, row warps one set
+    per query with a query row that fits."""
+    warps = nd == nq and row_warps_fit(dim)
     if stage is None:
-        return "query_lanes" if nd == 1 and nq >= QUERY_LANES_MIN_NQ else "entry_lanes"
+        if nd == 1 and nq >= QUERY_LANES_MIN_NQ:
+            return "query_lanes"
+        return "row_warps" if warps else "entry_lanes"
     if stage not in STAGES:
         raise ValueError(f"unknown scoring stage {stage!r}; have {list(STAGES)}")
     if stage == "query_lanes" and nd != 1:
         raise ValueError(f"query lanes score one shared candidate set (nd = 1), got nd = {nd}")
+    if stage == "row_warps" and not warps:
+        raise ValueError(f"row warps score one candidate set per query whose {dim} floats fit "
+                         f"in shared memory; got nq = {nq} over nd = {nd}")
     return stage
 
 
@@ -166,7 +192,7 @@ def rows_scores_for_codec(codec: str, arrays, Q, docs, scale=1.0, stage: str | N
         raise ValueError(f"rows_scores runs on cuda or cpu tensors, got {Q.device}")
     streams = _check(codec, vq, arrays, Q, docs)
     return _launch(codec, vq, Q, docs, streams, float(scale),
-                   pick_stage(Q.shape[0], docs.shape[0], stage))
+                   pick_stage(Q.shape[0], docs.shape[0], stage, dim=Q.shape[1]))
 
 
 def _check(codec, vq, arrays, Q, docs):

@@ -114,11 +114,11 @@ def test_scan_scores_add_buckets_into_one_out(docs):
     buckets = ops.width_buckets(port)
     assert len(buckets) > 1
     out = None
-    for w, sel, words in buckets:
-        streams = {"words": words, **{k: getattr(port, k)[sel]
-                                      for k in ("seg", "start_pos", "start_abs", "vals")}}
+    for w, sel, streams, ids in buckets:
+        assert torch.equal(ids, port.doc_ids[sel])
+        assert torch.equal(streams["vals"], port.vals[sel])
         res = block_scan.scan_scores("block_scan_bitpack_w", "bitpack", torch.from_numpy(Q[:1]),
-                                     streams, port.doc_ids[sel], port.n_docs, width=w, out=out)
+                                     streams, ids, port.n_docs, width=w, out=out)
         assert out is None or res is out
         out = res
     with warnings.catch_warnings():  # the reference's "XLA lowering" notice
@@ -129,6 +129,31 @@ def test_scan_scores_add_buckets_into_one_out(docs):
                                atol=EXACT_ATOL)
     np.testing.assert_array_equal(ops.score_bitpack_bucketed(Q[0], port, device="cpu").numpy(),
                                   out[0].numpy())
+
+
+def test_bucketed_scan_builds_its_buckets_once(docs, monkeypatch):
+    """``score_bitpack_bucketed`` builds the width buckets on its first
+    call and keeps them on the pack: a second call builds nothing, gives
+    the identical result, and both equal the reference's bucketed scan
+    (``mode="jnp"``); a pack moved with ``to`` starts without them."""
+    ref_fwd = RefForwardIndex.from_docs(docs, DIM, value_format="f16")
+    fwd = ForwardIndex.from_docs(docs, DIM, value_format="f16")
+    ref = ref_layout.pack_blocks(ref_fwd, codec="bitpack", block_size=128)
+    port = layout.pack_blocks(fwd, codec="bitpack", block_size=128).to("cpu")
+    builds = []
+    build_buckets = ops._build_buckets
+    monkeypatch.setattr(ops, "_build_buckets", lambda p: builds.append(p) or build_buckets(p))
+    Q = _queries(np.random.default_rng(25), 2)
+    assert port.buckets is None
+    first = ops.score_bitpack_bucketed(Q[0], port)
+    held = port.buckets
+    second = ops.score_bitpack_bucketed(Q[0], port)
+    assert len(builds) == 1 and port.buckets is held and len(held) > 1
+    np.testing.assert_array_equal(first.numpy(), second.numpy())
+    want = np.asarray(ref_ops.score_bitpack_bucketed(Q[0], ref, mode="jnp"))
+    np.testing.assert_allclose(first.numpy(), want, rtol=RTOL, atol=ATOL)
+    assert sorted(b.width for b in held) == sorted(np.unique(ref.widths).tolist())
+    assert port.to("cpu").buckets is None
 
 
 def test_scan_scores_argument_checks(docs):
@@ -159,20 +184,78 @@ def test_scan_scores_argument_checks(docs):
         block_scan.scan_scores(entry, "dotvbyte", Q.to("meta"), meta, ids.to("meta"), n)
 
 
+#: the smoke's full-scan shape: the SPLADE vocabulary, T = 512, D = 64
+SHAPE = dict(dim=30522, block_size=512, slots=64)
+
+
 def test_pick_stage_follows_the_thresholds():
-    assert block_scan.pick_stage(1) == "entry_lanes"
-    assert block_scan.pick_stage(block_scan.QUERY_LANES_MIN_NQ) == "query_lanes"
-    assert block_scan.pick_stage(block_scan.QUERY_LANES_MIN_NQ - 1) == "entry_lanes"
-    assert block_scan.pick_stage(1, "query_lanes") == "query_lanes"
-    assert rows_dot.pick_stage(rows_dot.QUERY_LANES_MIN_NQ, 1) == "query_lanes"
-    assert rows_dot.pick_stage(rows_dot.QUERY_LANES_MIN_NQ - 1, 1) == "entry_lanes"
-    # the per-query (Seismic) form keeps entry lanes at every batch size
-    assert rows_dot.pick_stage(64, 64) == "entry_lanes"
+    # one query at the smoke's shape: resident query; larger batches as before
+    assert block_scan.pick_stage(1, **SHAPE) == "resident_query"
+    assert block_scan.pick_stage(2, **SHAPE) == "entry_lanes"
+    assert block_scan.pick_stage(block_scan.QUERY_LANES_MIN_NQ, **SHAPE) == "query_lanes"
+    assert block_scan.pick_stage(block_scan.QUERY_LANES_MIN_NQ - 1, **SHAPE) == "entry_lanes"
+    assert block_scan.pick_stage(1, "query_lanes", **SHAPE) == "query_lanes"
+    assert block_scan.pick_stage(1, "entry_lanes", **SHAPE) == "entry_lanes"
+    dim = SHAPE["dim"]
+    assert rows_dot.pick_stage(rows_dot.QUERY_LANES_MIN_NQ, 1, dim=dim) == "query_lanes"
+    assert rows_dot.pick_stage(rows_dot.QUERY_LANES_MIN_NQ - 1, 1, dim=dim) == "entry_lanes"
+    # the per-query (Seismic) form takes row warps at every batch size
+    assert rows_dot.pick_stage(64, 64, dim=dim) == "row_warps"
+    assert rows_dot.pick_stage(2, 2, dim=dim) == "row_warps"
     with pytest.raises(ValueError, match="shared candidate set"):
-        rows_dot.pick_stage(64, 64, "query_lanes")
-    for pick in (lambda s: block_scan.pick_stage(8, s), lambda s: rows_dot.pick_stage(8, 1, s)):
+        rows_dot.pick_stage(64, 64, "query_lanes", dim=dim)
+    for pick in (lambda s: block_scan.pick_stage(8, s, **SHAPE),
+                 lambda s: rows_dot.pick_stage(8, 1, s, dim=dim)):
         with pytest.raises(ValueError, match="unknown scoring stage"):
             pick("warp_lanes")
+
+
+@pytest.mark.parametrize("dim,T,D,fits", [
+    (30522, 512, 64, True),      # the smoke's pack: the query is 119 KB
+    (30522, 8192, 64, True),     # the largest block still leaves room for a warp
+    (30522, 8192, 8192, True),
+    (57000, 512, 64, True),      # 223 KB of query beside one warp's 2.3 KB
+    (58000, 512, 64, False),     # no room for a warp's scratch
+    (1 << 20, 128, 4, False),    # far past shared memory
+])
+def test_block_scan_resident_stage_is_a_shape_rule(dim, T, D, fits):
+    """The resident-query stage takes one query whose dense form fits in
+    shared memory beside one warp's scratch; otherwise the single-query
+    scan keeps entry lanes, and asking for the resident stage raises."""
+    shape = dict(dim=dim, block_size=T, slots=D)
+    assert block_scan.resident_fits(dim, T, D) is fits
+    assert block_scan.pick_stage(1, **shape) == ("resident_query" if fits else "entry_lanes")
+    assert block_scan.pick_stage(2, **shape) == "entry_lanes"
+    if fits:
+        assert block_scan.pick_stage(1, "resident_query", **shape) == "resident_query"
+    else:
+        with pytest.raises(ValueError, match="resident-query stage"):
+            block_scan.pick_stage(1, "resident_query", **shape)
+    with pytest.raises(ValueError, match="resident-query stage"):
+        block_scan.pick_stage(3, "resident_query", **shape)
+
+
+@pytest.mark.parametrize("nq,dim,stage", [
+    (1, 30522, "resident_query"), (3, 30522, "entry_lanes"), (9, 30522, "query_lanes"),
+    (1, 60000, "entry_lanes"),
+])
+def test_fused_stage_choice_on_cuda_tensors(docs, nq, dim, stage, monkeypatch):
+    """``scan_scores`` on (fake) CUDA tensors launches the stage
+    :func:`block_scan.pick_stage` gives for the inputs' shapes; a query
+    too wide for shared memory stays on entry lanes."""
+    fwd = ForwardIndex.from_docs(docs, DIM, value_format="f16")
+    packed = layout.pack_blocks(fwd, codec="dotvbyte", block_size=128).to("cpu")
+    fake = {k: v.as_subclass(_FakeCuda) for k, v in _streams(packed).items()}
+    seen = []
+
+    def launch(entry, codec, Q, streams, p0, p1, scale, width, stage, **kw):
+        seen.append(stage)
+
+    monkeypatch.setattr(block_scan, "_launch", launch)
+    block_scan.scan_scores("block_scan_dotvbyte_batch", "dotvbyte",
+                           torch.zeros((nq, dim)).as_subclass(_FakeCuda), fake,
+                           packed.doc_ids.as_subclass(_FakeCuda), packed.n_docs)
+    assert seen == [stage]
 
 
 class _FakeCuda(torch.Tensor):

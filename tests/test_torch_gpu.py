@@ -163,6 +163,8 @@ def test_rows_kernel_reads_every_stored_value_format(cuda, codec, vf):
 # -- the block-scan kernel ----------------------------------------------------------
 
 BLOCK_VFS = ["f32", "f16", "fixedu8"]
+#: the block scan's stages that take a batch (the resident query takes one)
+BATCH_STAGES = ("entry_lanes", "query_lanes")
 
 
 def _block_pack(cuda, codec, vf, seg, T=512, D=None, docs=None, dim=DIM):
@@ -325,11 +327,11 @@ def test_block_scan_malformed_streams(cuda):
     t = {k: torch.from_numpy(v).to(cuda) for k, v in a.items()}
     ids = torch.from_numpy(rng.integers(-3, n_docs + 3, (B, D)).astype(np.int32)).to(cuda)
     entry = "block_scan_dotvbyte_batch"
-    for nq in (3, 67):
+    for nq in (1, 3, 67):
         Q = torch.rand((nq, DIM), generator=torch.Generator().manual_seed(2)).to(cuda)
         want = block_scan.block_scores_plain("dotvbyte", Q, t)
         want_docs = block_scan.scan_scores_plain("dotvbyte", Q, t, ids, n_docs)
-        for stage in block_scan.STAGES:
+        for stage in block_scan.STAGES if nq == 1 else BATCH_STAGES:
             got = block_scan.block_scores(entry, "dotvbyte", Q, t, stage=stage)
             got_docs = block_scan.scan_scores(entry, "dotvbyte", Q, t, ids, n_docs, stage=stage)
             torch.cuda.synchronize()
@@ -337,10 +339,11 @@ def test_block_scan_malformed_streams(cuda):
             torch.testing.assert_close(got_docs, want_docs, rtol=1e-5, atol=1e-4)
     bad = {**t, "seg": t["seg"][:, :100].contiguous(), "vals": t["vals"][:, :100].contiguous()}
     for stage in block_scan.STAGES:
+        Qs = Q[:1] if stage == "resident_query" else Q
         with pytest.raises(RuntimeError, match="CUDA error"):
-            block_scan._launch(entry, "dotvbyte", Q, bad, t["ctrl"], t["data"], 1.0, 0, stage)
+            block_scan._launch(entry, "dotvbyte", Qs, bad, t["ctrl"], t["data"], 1.0, 0, stage)
         with pytest.raises(RuntimeError, match="CUDA error"):
-            block_scan._launch(entry, "dotvbyte", Q, bad, t["ctrl"], t["data"], 1.0, 0, stage,
+            block_scan._launch(entry, "dotvbyte", Qs, bad, t["ctrl"], t["data"], 1.0, 0, stage,
                                doc_ids=ids, n_docs=n_docs)
 
 
@@ -434,6 +437,7 @@ def test_fused_scan_slot_zero_only(cuda):
     assert bool((packed.start_pos[:, 1:] == 0).all()) and packed.n_blocks == 40
     Q = torch.from_numpy(rng.random((70, DIM)).astype(np.float32)).to(cuda)
     for stage in block_scan.STAGES:
+        Q = Q[:1] if stage == "resident_query" else Q
         got = _fused_vs_plain("block_scan_streamvbyte_batch", "streamvbyte", Q, packed,
                               fwd.n_docs, stage=stage)
         exact = np.stack([fwd.exact_scores(q) for q in Q.cpu().numpy()])
@@ -488,15 +492,17 @@ def test_fused_static_widths_add_into_one_out(cuda):
     assert float(want.abs().sum()) > 0
 
 
-@pytest.mark.parametrize("stage", ["entry_lanes", "query_lanes"])
+@pytest.mark.parametrize("stage", ["entry_lanes", "query_lanes", "resident_query"])
 def test_block_scan_largest_block(cuda, stage):
     """T = 8192: 1024 threads, and 64 KB of shared memory under query
-    lanes (above the 48 KB default)."""
+    lanes (above the 48 KB default); the resident query leaves room for
+    three warps' scratch beside the 119 KB query."""
     rng = np.random.default_rng(17)
     docs = [(np.sort(rng.choice(DIM, n, replace=False)), rng.gamma(2, .5, n))
             for n in rng.integers(1, 3000, size=12)]
     fwd, packed = _block_pack(cuda, "dotvbyte", "f16", "i32", T=8192, docs=docs)
-    Q = torch.from_numpy(rng.random((3, DIM)).astype(np.float32)).to(cuda)
+    Q = torch.from_numpy(rng.random((1 if stage == "resident_query" else 3, DIM))
+                         .astype(np.float32)).to(cuda)
     got = _fused_vs_plain("block_scan_dotvbyte_batch", "dotvbyte", Q, packed, fwd.n_docs,
                           stage=stage)
     exact = np.stack([fwd.exact_scores(q) for q in Q.cpu().numpy()])
@@ -510,15 +516,16 @@ def test_block_scan_largest_block(cuda, stage):
 @pytest.mark.parametrize("codec,vq", VARIANTS, ids=[f"{c}-{v}" for c, v in VARIANTS])
 def test_rows_shared_form_every_batch_size(cuda, codec, vq, nq):
     """Every variant's shared form (one candidate set for the batch) in
-    both stages against the plain version, across the lane and tile
-    edges; the set holds the sentinel, both empty rows, the full row."""
+    every stage that takes the batch (row warps: one query) against the
+    plain version, across the lane and tile edges; the set holds the
+    sentinel, both empty rows, the full row."""
     fwd, arrays = edge_rows(n_random=150, codec=codec, vq=vq)
     rng = np.random.default_rng(nq)
     Q = torch.from_numpy(rng.random((nq, DIM)).astype(np.float32)).to(cuda)
     docs = torch.from_numpy(candidates(fwd.n_docs, rng, (1, 300))).to(cuda)
     streams = _on(arrays, cuda)
     want = rows_dot.rows_scores_plain(codec, streams, Q, docs, 0.5)
-    for stage in rows_dot.STAGES:
+    for stage in ("entry_lanes", "query_lanes", *(("row_warps",) if nq == 1 else ())):
         before = rows_dot.stage_launches[stage]
         got = rows_dot.rows_scores_for_codec(codec, streams, Q, docs, 0.5, stage=stage)
         torch.cuda.synchronize()
@@ -553,3 +560,250 @@ def test_rows_query_lanes_refuse_per_query_sets(cuda):
         rows_dot.rows_scores_for_codec("dotvbyte", _on(arrays, cuda), Q,
                                        torch.zeros((2, 4), dtype=torch.int32, device=cuda),
                                        stage="query_lanes")
+
+
+# -- the block scan's resident-query stage (one query) -------------------------------
+
+
+def _resident_vs_plain(Q, codec, streams, doc_ids, n_docs, scale=1.0, width=0):
+    """Both output modes of the resident-query stage against their plain
+    versions on the same tensors; each launch is counted under the
+    stage."""
+    entry = "block_scan_bitpack_w" if width else f"block_scan_{codec}"
+    before = block_scan.stage_launches["resident_query"]
+    got = block_scan.block_scores(entry, codec, Q, streams, scale=scale, width=width,
+                                  stage="resident_query")
+    got_docs = block_scan.scan_scores(entry, codec, Q, streams, doc_ids, n_docs, scale=scale,
+                                      width=width, stage="resident_query")
+    torch.cuda.synchronize()
+    assert block_scan.stage_launches["resident_query"] == before + 2
+    # the same products, summed in another order; fragments added by atomics
+    torch.testing.assert_close(got, block_scan.block_scores_plain(
+        codec, Q, streams, scale=scale, width=width), rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(got_docs, block_scan.scan_scores_plain(
+        codec, Q, streams, doc_ids, n_docs, scale=scale, width=width), rtol=1e-5, atol=1e-4)
+    return got_docs
+
+
+@pytest.mark.parametrize("seg", ["i32", "i8"])
+@pytest.mark.parametrize("vf", BLOCK_VFS)
+@pytest.mark.parametrize("codec", ["dotvbyte", "streamvbyte", "bitpack"])
+def test_resident_query_matches_plain(cuda, codec, vf, seg):
+    """Every codec, value storage and seg dtype in both output modes, at
+    T = 128 (D = 5 slots) and T = 512; the single-query entries pick the
+    stage themselves, and ``ops.score_*`` goes through it."""
+    fwd, packed = _block_pack(cuda, codec, vf, seg, T=128 if seg == "i8" else 512,
+                              D=5 if seg == "i8" else None)
+    rng = np.random.default_rng(30)
+    Q = torch.from_numpy(rng.random((1, DIM)).astype(np.float32)).to(cuda)
+    scale = float(fwd.value_format.scale)
+    got = _resident_vs_plain(Q, codec, _block_streams(packed), packed.doc_ids, fwd.n_docs,
+                             scale)
+    exact = fwd.exact_scores(Q[0].cpu().numpy())
+    np.testing.assert_allclose(got[0].cpu().numpy(), exact, rtol=1e-5, atol=1e-3)
+    before = block_scan.stage_launches["resident_query"]
+    single, _ = ops.block_scorers(codec)
+    np.testing.assert_allclose(single(Q[0], packed).cpu().numpy(), exact, rtol=1e-5, atol=1e-3)
+    slots = _ENTRY_FNS[codec][0](Q[0], *_scan_streams(packed), scale=scale)
+    torch.testing.assert_close(slots, block_scan.block_scores_plain(
+        codec, Q, _block_streams(packed), scale=scale)[0], rtol=1e-5, atol=1e-4)
+    assert block_scan.stage_launches["resident_query"] == before + 2
+
+
+@pytest.mark.parametrize("width", range(1, 33))
+def test_resident_query_every_static_width(cuda, width):
+    """The static widths 1..32 of the bucketed entry, both output modes."""
+    rng = np.random.default_rng(100 + width)
+    B, T, D = 7, 512, 4
+    gaps = rng.integers(0, min(1 << width, 400), size=(B, T), dtype=np.int64)
+    gaps[:, :: T // D] = 0
+    tight = (T * width + 31) // 32
+    words = np.zeros((B, tight + (-tight) % 128), np.uint32)
+    for b in range(B):
+        words[b, :tight] = pack_block(gaps[b], width)
+    seg = np.repeat(np.arange(D, dtype=np.int32), T // D)[None].repeat(B, 0)
+    seg[-1, T // 2:] = -1
+    s = {k: torch.from_numpy(v).to(cuda) for k, v in dict(
+        words=words, seg=seg, start_pos=np.tile(np.arange(0, T, T // D, dtype=np.int32), (B, 1)),
+        start_abs=rng.integers(0, 3000, size=(B, D)).astype(np.int32),
+        vals=rng.random((B, T)).astype(np.float16)).items()}
+    ids = torch.from_numpy(rng.integers(-1, 20, (B, D)).astype(np.int32)).to(cuda)
+    Q = torch.from_numpy(rng.random((1, DIM)).astype(np.float32)).to(cuda)
+    got = _resident_vs_plain(Q, "bitpack", s, ids, 20, scale=0.5, width=width)
+    assert float(got.abs().sum()) > 0
+
+
+def test_resident_query_largest_block_every_codec(cuda):
+    """T = 8192 for each codec: a warp's scratch is 32 KB, so a thread
+    block holds three warps beside the query."""
+    rng = np.random.default_rng(31)
+    docs = [(np.sort(rng.choice(DIM, n, replace=False)), rng.gamma(2, .5, n))
+            for n in rng.integers(1, 3000, size=12)]
+    Q = torch.from_numpy(rng.random((1, DIM)).astype(np.float32)).to(cuda)
+    for codec in ("dotvbyte", "streamvbyte", "bitpack"):
+        fwd, packed = _block_pack(cuda, codec, "f16", "i32", T=8192, docs=docs)
+        got = _resident_vs_plain(Q, codec, _block_streams(packed), packed.doc_ids, fwd.n_docs)
+        np.testing.assert_allclose(got[0].cpu().numpy(), fwd.exact_scores(Q[0].cpu().numpy()),
+                                   rtol=1e-5, atol=2e-3)
+
+
+@pytest.mark.parametrize("codec", ["streamvbyte", "bitpack"])
+def test_resident_query_too_wide_routes_to_entry_lanes(cuda, codec):
+    """A query of 2**24 + 2**20 floats does not fit in shared memory: the
+    single-query scan stays on entry lanes (a shape rule, counted there),
+    and asking for the resident stage raises before any launch."""
+    dim = (1 << 24) + (1 << 20)
+    rng = np.random.default_rng(32)
+    fwd, packed = _block_pack(cuda, codec, "f16", "i32", T=256, D=200,
+                              docs=wide_docs(dim, rng), dim=dim)
+    Q = torch.rand((1, dim), generator=torch.Generator().manual_seed(3)).to(cuda)
+    streams = _block_streams(packed)
+    before = dict(block_scan.stage_launches)
+    got = block_scan.scan_scores(f"block_scan_{codec}", codec, Q, streams, packed.doc_ids,
+                                 fwd.n_docs)
+    torch.cuda.synchronize()
+    assert block_scan.stage_launches["entry_lanes"] == before["entry_lanes"] + 1
+    assert block_scan.stage_launches["resident_query"] == before["resident_query"]
+    torch.testing.assert_close(got, block_scan.scan_scores_plain(
+        codec, Q, streams, packed.doc_ids, fwd.n_docs), rtol=1e-5, atol=1e-4)
+    with pytest.raises(ValueError, match="resident-query stage"):
+        block_scan.scan_scores(f"block_scan_{codec}", codec, Q, streams, packed.doc_ids,
+                               fwd.n_docs, stage="resident_query")
+
+
+@pytest.mark.parametrize("pad", [0, 3], ids=["aligned", "unaligned"])
+def test_resident_query_malformed_streams(cuda, pad):
+    """Random bytes in every stream (seg and start_pos out of range
+    included), doc ids outside [0, n_docs), and data and word rows whose
+    width is (pad 0) or is not (pad 3) a multiple of 16 bytes: the
+    16-byte and the byte-wise loads agree with the plain version in both
+    modes. (The plain decoders need every byte a random control stream
+    can address, so the rows are that wide.)"""
+    rng = np.random.default_rng(33 + pad)
+    B, T, D, n_docs = 40, 256, 12, 20
+    a = dict(ctrl=rng.integers(0, 256, (B, 128), dtype=np.uint8),
+             data=rng.integers(0, 256, (B, 4 * T + 128 - pad), dtype=np.uint8),
+             seg=rng.integers(-3, D + 3, (B, T)).astype(np.int32),
+             start_pos=rng.integers(-5, T + 5, (B, D)).astype(np.int32),
+             start_abs=rng.integers(-(1 << 20), DIM, (B, D)).astype(np.int32),
+             vals=rng.random((B, T)).astype(np.float32))
+    t = {k: torch.from_numpy(v).to(cuda) for k, v in a.items()}
+    ids = torch.from_numpy(rng.integers(-3, n_docs + 3, (B, D)).astype(np.int32)).to(cuda)
+    Q = torch.rand((1, DIM), generator=torch.Generator().manual_seed(4)).to(cuda)
+    for codec in ("dotvbyte", "streamvbyte"):
+        _resident_vs_plain(Q, codec, t, ids, n_docs)
+    words = torch.from_numpy(rng.integers(0, 1 << 32, (B, T + 128 - pad),
+                                          dtype=np.uint64).astype(np.uint32)).to(cuda)
+    widths = torch.from_numpy(rng.integers(0, 33, B).astype(np.int32)).to(cuda)
+    rest = {k: t[k] for k in ("seg", "start_pos", "start_abs", "vals")}
+    _resident_vs_plain(Q, "bitpack", {"words": words, "widths": widths, **rest}, ids, n_docs)
+
+
+# -- the rows kernel's row-warp stage -------------------------------------------------
+
+
+def _row_warps_vs_plain(codec, streams, Q, docs, scale=0.5, n_rows=None):
+    """Row warps against the plain version; ids outside [0, N] score 0
+    (the plain version scores the sentinel N in their place)."""
+    before = rows_dot.stage_launches["row_warps"]
+    got = rows_dot.rows_scores_for_codec(codec, streams, Q, docs, scale, stage="row_warps")
+    torch.cuda.synchronize()
+    assert rows_dot.stage_launches["row_warps"] == before + 1
+    N = streams["nnz_rows"].shape[0] - 1
+    safe = torch.where((docs >= 0) & (docs <= N), docs, N).contiguous()
+    want = rows_dot.rows_scores_plain(codec, streams, Q, safe, scale)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+    return got
+
+
+@pytest.mark.parametrize("codec,vq", VARIANTS, ids=[f"{c}-{v}" for c, v in VARIANTS])
+def test_row_warps_every_variant(cuda, codec, vq):
+    """Every variant's per-query form (the Seismic shape: one candidate
+    set per query, so the wrapper picks row warps itself), at 12 queries
+    and at one, on edge rows: the sentinel, empty rows, the full row, and
+    ids outside [0, N]."""
+    fwd, arrays = edge_rows(n_random=200, codec=codec, vq=vq)
+    rng = np.random.default_rng(34)
+    streams = _on(arrays, cuda)
+    nq, C = 12, 300
+    Q = torch.from_numpy(rng.random((nq, DIM)).astype(np.float32)).to(cuda)
+    docs = candidates(fwd.n_docs, rng, (nq, C))
+    docs[:, 5:7] = [-7, fwd.n_docs + 9]
+    docs = torch.from_numpy(docs).to(cuda)
+    assert rows_dot.pick_stage(nq, nq, dim=DIM) == "row_warps"
+    got = _row_warps_vs_plain(codec, streams, Q, docs)
+    assert torch.all(got[:, :3] == 0) and torch.all(got[:, 5:7] == 0)
+    _row_warps_vs_plain(codec, streams, Q[:1], docs[:1].contiguous())
+
+
+@pytest.mark.parametrize("codec", ["uncompressed", "streamvbyte", "bitpack"])
+def test_row_warps_too_wide_routes_to_entry_lanes(cuda, codec):
+    """A query row of 2**24 + 2**20 floats does not fit in shared memory:
+    the per-query form stays on entry lanes (a shape rule, counted
+    there), and asking for row warps raises before any launch."""
+    dim = (1 << 24) + (1 << 20)
+    rng = np.random.default_rng(38)
+    fwd = ForwardIndex.from_docs(wide_docs(dim, rng), dim, value_format="f16")
+    streams = _on(pack_rows(fwd, codec=codec).arrays(), cuda)
+    Q = torch.rand((2, dim), generator=torch.Generator().manual_seed(5)).to(cuda)
+    docs = torch.arange(fwd.n_docs + 1, dtype=torch.int32, device=cuda).repeat(2, 1)
+    before = dict(rows_dot.stage_launches)
+    got = rows_dot.rows_scores_for_codec(codec, streams, Q, docs)
+    torch.cuda.synchronize()
+    assert rows_dot.stage_launches["entry_lanes"] == before["entry_lanes"] + 1
+    assert rows_dot.stage_launches["row_warps"] == before["row_warps"]
+    torch.testing.assert_close(got, rows_dot.rows_scores_plain(codec, streams, Q, docs),
+                               rtol=1e-5, atol=1e-4)
+    with pytest.raises(ValueError, match="row warps score"):
+        rows_dot.rows_scores_for_codec(codec, streams, Q, docs, stage="row_warps")
+
+
+@pytest.mark.parametrize("vf", ["f32", "fixedu8"])
+@pytest.mark.parametrize("codec", ["uncompressed", "dotvbyte", "streamvbyte", "bitpack"])
+def test_row_warps_every_stored_value_format(cuda, codec, vf):
+    """Row warps read f32 and fixedu8 values under vq f16."""
+    docs = edge_docs(DIM, np.random.default_rng(35), n_random=200, full=L)
+    fwd = ForwardIndex.from_docs(docs, DIM, value_format=vf)
+    streams = _on(pack_rows(fwd, codec=codec).arrays(), cuda)
+    rng = np.random.default_rng(36)
+    Q = torch.from_numpy(rng.random((6, DIM)).astype(np.float32)).to(cuda)
+    ids = torch.from_numpy(candidates(fwd.n_docs, rng, (6, 256))).to(cuda)
+    _row_warps_vs_plain(codec, streams, Q, ids, float(fwd.value_format.scale))
+
+
+def _narrow(arrays, codec, vq, L):
+    """The row streams cut to capacity L (the rows hold at most L entries),
+    each to the width L needs: ctrl L/8 or L/4, data 4L + 1 bytes (not a
+    multiple of 16: the byte-wise loads), words and comps L, values L or
+    L/2."""
+    half = vq in ("u4_sq", "pq")
+    cut = {"vals_rows": L // 2 if half else L, "ctrl_rows": L // 8 if codec == "dotvbyte"
+           else L // 4, "data_rows": 4 * L + 1, "words_rows": L, "comps_rows": L}
+    return {k: (v[:, : cut[k]].copy() if k in cut and v.ndim == 2 else v)
+            for k, v in arrays.items()}
+
+
+@pytest.mark.parametrize("L_cap", [8, 256, 512, 2048])
+@pytest.mark.parametrize("codec,vq", [("dotvbyte", "f16"), ("streamvbyte", "u8_sq"),
+                                      ("bitpack", "u4_sq"), ("uncompressed", "pq")])
+def test_row_warps_every_row_capacity(cuda, codec, vq, L_cap):
+    """Rows of capacity 8 (cut by hand to odd widths) up to 2048 (one
+    warp walks 256-entry chunks with a carried data offset)."""
+    rng = np.random.default_rng(37 + L_cap)
+    if L_cap == 8:
+        docs = [(np.sort(rng.choice(DIM, n, replace=False)), rng.gamma(2, .5, n))
+                for n in rng.integers(0, 9, size=60)]
+    else:
+        docs = edge_docs(DIM, rng, n_random=80, full=L_cap - 3)
+    fwd = ForwardIndex.from_docs(docs, DIM, value_format="f16")
+    arrays = pack_rows(fwd, codec=codec, vq=vq).arrays()
+    if L_cap == 8:
+        arrays = _narrow(arrays, codec, vq, 8)
+    streams = _on(arrays, cuda)
+    factor = 2 if vq in ("u4_sq", "pq") else 1
+    assert streams["vals_rows"].shape[1] * factor == L_cap
+    Q = torch.from_numpy(rng.random((5, DIM)).astype(np.float32)).to(cuda)
+    ids = torch.from_numpy(rng.integers(0, fwd.n_docs + 1, (5, 128)).astype(np.int32)).to(cuda)
+    got = _row_warps_vs_plain(codec, streams, Q, ids)
+    assert float(got.abs().sum()) > 0
+

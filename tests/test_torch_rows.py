@@ -303,3 +303,44 @@ def test_every_variant_on_cuda_tensors_launches_or_raises(codec, vq, monkeypatch
         rows_dot.rows_scores_for_codec(codec, arrays, Q, docs)
     assert rows_dot.variant_launches == before
     assert rows_dot.variant_name(codec, vq) in before
+
+
+@pytest.mark.parametrize("nq,nd,dim,stage", [
+    (64, 64, 30522, "row_warps"), (2, 2, 30522, "row_warps"), (64, 64, 57000, "row_warps"),
+    (64, 64, 58000, "entry_lanes"), (2, 2, 1 << 24, "entry_lanes"), (1, 1, 30522, "row_warps"),
+    (1, 1, 1 << 24, "entry_lanes"),
+    (7, 1, 30522, "entry_lanes"), (8, 1, 30522, "query_lanes"), (200, 1, 1 << 24, "query_lanes"),
+])
+def test_rows_stage_rules(nq, nd, dim, stage):
+    """The rows kernel's stage follows the shape: row warps for one set
+    per query (one query over one set included) whose row fits in shared
+    memory beside the PQ codebook (else entry lanes), query lanes or
+    entry lanes for one set shared by 2 or more queries; a forced
+    row-warp stage is checked against the same rule."""
+    assert rows_dot.row_warps_fit(dim) is (dim <= 57000)
+    assert rows_dot.pick_stage(nq, nd, dim=dim) == stage
+    assert rows_dot.pick_stage(nq, nd, "entry_lanes", dim=dim) == "entry_lanes"
+    if nd == nq and rows_dot.row_warps_fit(dim):
+        assert rows_dot.pick_stage(nq, nd, "row_warps", dim=dim) == "row_warps"
+    else:
+        with pytest.raises(ValueError, match="row warps score one candidate set per query"):
+            rows_dot.pick_stage(nq, nd, "row_warps", dim=dim)
+
+
+@pytest.mark.parametrize("nq,nd,stage", [(64, 64, "row_warps"), (3, 1, "entry_lanes"),
+                                         (9, 1, "query_lanes")])
+def test_cuda_tensors_take_the_picked_stage(nq, nd, stage, monkeypatch):
+    """On (fake) CUDA tensors the wrapper launches the stage
+    :func:`rows_dot.pick_stage` gives for the shapes: the Seismic shape
+    (one candidate set per query, query rows of 512 floats) goes to row
+    warps."""
+    fwd = ForwardIndex.from_docs(edge_docs(512, np.random.default_rng(0), n_random=4,
+                                           full=40), 512, "f16")
+    arrays = {k: torch.from_numpy(v).as_subclass(_FakeCuda)
+              for k, v in layout.pack_rows(fwd, codec="dotvbyte").arrays().items()}
+    seen = []
+    monkeypatch.setattr(rows_dot, "_launch", lambda *args: seen.append(args[-1]))
+    Q = torch.zeros((nq, 512)).as_subclass(_FakeCuda)
+    docs = torch.zeros((nd, 4), dtype=torch.int32).as_subclass(_FakeCuda)
+    rows_dot.rows_scores_for_codec("dotvbyte", arrays, Q, docs)
+    assert seen == [stage]
