@@ -75,7 +75,23 @@ no result:
    versions, the bound and the library call are timed, the stage sweep
    of the fused call is taken, and the profile of the batched entry
    must show no ``index_add_``;
-6. one JSON line of kernels, the card line, and as the last line
+6. the hnsw engine — one host graph (the reference CLI's parameters:
+   beam 64, 64 steps, 8 seeds, m 16, ef_construction 48) over the first
+   ``--hnsw-docs`` documents (default 5,000: the build is Python
+   insertion loops) with the same 64 queries, every rows variant served
+   by swapping only its packed rows (dotvbyte/f16 saved and reopened
+   with ``open_retriever``), searched with ``backend="cuda"``. Counts are
+   zeroed just before and read just after: every search launched the
+   rows kernel 1 + iters times, in the stages ``pick_stage`` names for 8
+   seeds and M0 = 32 neighbours. Per variant: ids tie-aware equal to
+   ``backend="torch"``, recall@10 against ``exact_top_k`` over the
+   prefix, latency on both backends, graph bytes and bits per
+   component, and the kernel at the graph's shape (nq 64 × C 8 and 32)
+   in both stages beside its plain version and bound; the sweep over C
+   at nq 64, 8 and 1 behind ``ROW_WARPS_MIN_ROWS``; the wrapper's host
+   time a launch; and the
+   profile of one dotvbyte/f16 search;
+7. one JSON line of kernels, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -158,10 +174,11 @@ def host_ms(fn, reps: int) -> list[float]:
     return out
 
 
-def device_breakdown(name: str, fn, card: str, reps: int = 5) -> set[str]:
+def device_breakdown(name: str, fn, card: str, reps: int = 5, out: dict | None = None) -> set[str]:
     """Print one search's device busy time, idle share and top kernels,
     from ``torch.profiler`` over ``reps`` warm calls → the names of every
-    host op and kernel traced."""
+    host op and kernel traced. ``out``, where given, receives the wall and
+    busy ms per call and each kernel's (device ms, launches) per call."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -177,6 +194,9 @@ def device_breakdown(name: str, fn, card: str, reps: int = 5) -> set[str]:
     busy = {e.key: e.self_device_time_total / 1e3 / reps for e in kernels}
     total = sum(busy.values())
     seen = {e.key for e in prof.key_averages()}
+    if out is not None:
+        out.update(wall_ms=wall_ms, busy_ms=total,
+                   kernels={e.key: (busy[e.key], e.count / reps) for e in kernels})
     if total <= 0:
         log(f"    profile {name}: device time not measured (no device events traced)")
         return seen
@@ -237,9 +257,10 @@ def rows_bound(codec: str, Q, docs, arrays) -> tuple[float, str]:
     ⌈nnz/8⌉ + Σ(1+bit); streamvbyte ⌈nnz/4⌉ + Σ(code+1); bitpack
     ⌈nnz·w/32⌉·4 + 4; uncompressed 4·nnz), their value bytes (f16 2·nnz;
     u8 nnz + 8; u4 ⌈nnz/2⌉ + 8; pq ⌈nnz/2⌉, plus the 2 KiB codebook
-    once), 4 nnz bytes a row, Q and the ids — and the nq×C f32 scores
-    written once; against one multiply-add (2 FLOP) per (query, live
-    entry) at the f32 peak."""
+    once), 4 nnz bytes a row, the 32-byte sectors of Q that the rows'
+    components touch (:func:`q_sector_bytes`) and the ids — and the nq×C
+    f32 scores written once; against one multiply-add (2 FLOP) per
+    (query, live entry) at the f32 peak."""
     from repro_torch.core import values as value_codecs
 
     vq = value_codecs.infer_rows_vq(arrays)
@@ -266,12 +287,41 @@ def rows_bound(codec: str, Q, docs, arrays) -> tuple[float, str]:
         payload = 4 * nnz
     values = {"f16": 2 * nnz, "u8_sq": nnz + 8 * used, "u4_sq": (nnz + 1) // 2 + 8 * used,
               "pq": (nnz + 1) // 2}[vq]
-    n_bytes = int((payload + values + 4).sum()) + 4 * nq * dim + 4 * nd * C + 4 * nq * C
+    n_bytes = int((payload + values + 4).sum()) + q_sector_bytes(codec, Q, docs, arrays)
+    n_bytes += 4 * nd * C + 4 * nq * C
     n_bytes += 4 * value_codecs.PQ_K * value_codecs.PQ_M if vq == "pq" else 0
     pairs = int(arrays["nnz_rows"][docs.long()].long().sum()) * (nq if nd == 1 else 1)
     t_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
     t_ops = 1e3 * 2 * pairs / F32_FLOP_PER_S
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def q_sector_bytes(codec: str, Q, docs, arrays) -> int:
+    """Bytes of ``Q`` a rows call must read: the distinct (query, 32-byte
+    sector) pairs that the live components of each query's candidate
+    rows fall in, 32 bytes each (a sector is the least the memory moves;
+    sectors are counted on Q's flat addresses, so a row that does not
+    start on a sector shares its edge sectors) — at most all of Q. At
+    Seismic's and the flat shape nearly every sector is read; at the
+    hnsw engine's few rows a query, a small part."""
+    from repro_torch.core.scoring import _gather_decode_rows
+
+    nq, dim = Q.shape
+    nd, C = docs.shape
+    per_set = torch.arange(nd, device=Q.device).view(-1, 1, 1) * dim
+    keys, step = [], max(1, (1 << 16) // nd)  # 65,536 rows a chunk
+    for c0 in range(0, C, step):
+        comps, _, nnz = _gather_decode_rows(codec, arrays, docs[:, c0 : c0 + step])
+        live = torch.arange(comps.shape[-1], device=Q.device) < nnz.unsqueeze(-1)
+        if nd == 1:  # one set for every query: its distinct components, placed per query below
+            keys.append(comps[live].long().unique())
+        else:
+            keys.append(((per_set + comps.long())[live] >> 3).unique())
+    keys = torch.cat(keys).unique() if keys else torch.zeros(0, dtype=torch.long)
+    if nd == 1:
+        at = torch.arange(nq, device=Q.device).view(-1, 1) * dim
+        keys = ((at + keys.to(Q.device)) >> 3).unique()
+    return min(32 * keys.numel(), 4 * nq * dim)
 
 
 def edge_docs(dim: int, L: int, n_docs: int, rng):
@@ -342,11 +392,13 @@ def same_topk(ids_a, sc_a, ids_b, sc_b) -> int:
     return int(diff.sum())
 
 
-def rows_stages(nq: int, nd: int, dim: int) -> list[str]:
-    """The rows kernel's stages that take ``nq`` queries over ``nd`` sets."""
+def rows_stages(nq: int, nd: int, dim: int, C: int) -> list[str]:
+    """The rows kernel's stages that take ``nq`` queries over ``nd`` sets
+    of ``C`` rows."""
     from repro_torch.kernels import rows_dot
 
-    return [st for st in rows_dot.STAGES if _takes(rows_dot.pick_stage, nq, nd, st, dim=dim)]
+    return [st for st in rows_dot.STAGES
+            if _takes(rows_dot.pick_stage, nq, nd, st, dim=dim, C=C)]
 
 
 def scan_stages(nq: int, dim: int, T: int, D: int) -> list[str]:
@@ -372,7 +424,8 @@ def rows_stage(stage: str):
     from repro_torch.kernels import rows_dot
 
     pick = rows_dot.pick_stage
-    rows_dot.pick_stage = lambda nq, nd, st=None, *, dim: pick(nq, nd, st or stage, dim=dim)
+    rows_dot.pick_stage = lambda nq, nd, st=None, *, dim, C: pick(nq, nd, st or stage,
+                                                                  dim=dim, C=C)
     try:
         yield
     finally:
@@ -701,10 +754,275 @@ def stage_sweep(name: str, call, Q, card: str, stages_for) -> dict:
     return out
 
 
+#: a rows kernel's name in a profile → (stage prefix, codec index, vq index)
+_ROWS_KERNEL = re.compile(r"rows_dot_(shared_|warp_)?kernel<(\d), (\d)")
+_ROWS_STAGE = {"": "entry_lanes", "shared_": "query_lanes", "warp_": "row_warps"}
+
+
+def rows_device_ms(calls: dict, stages, reps: int = 20) -> dict:
+    """Device time of the rows kernel per launch, per variant and stage,
+    from ONE ``torch.profiler`` session over ``reps`` rounds of
+    ``calls[variant](stage)`` for every variant and stage (the kernel's
+    name tells them apart) → ``{variant: {stage: ms}}`` (None where
+    nothing was traced). At a few µs of work a launch the host cannot
+    keep the card busy, so CUDA events around back-to-back calls time
+    the host's call, not the kernel; this times the kernel."""
+    from repro_torch.core.values import VALUE_CODECS
+    from repro_torch.kernels import rows_dot
+    from torch.profiler import ProfilerActivity, profile
+
+    for call in calls.values():
+        for st in stages:
+            call(st)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            for call in calls.values():
+                for st in stages:
+                    call(st)
+        torch.cuda.synchronize()
+    sums = {}
+    for e in prof.key_averages():
+        m = _ROWS_KERNEL.search(e.key)
+        if e.device_type != torch.autograd.DeviceType.CUDA or not m:
+            continue
+        key = (rows_dot.CODECS[int(m[2])], VALUE_CODECS[int(m[3])], _ROWS_STAGE[m[1] or ""])
+        us, n = sums.get(key, (0.0, 0))
+        sums[key] = (us + e.self_device_time_total, n + e.count)
+    out = {}
+    for v in calls:
+        out[v] = {}
+        for st in stages:
+            us, n = sums.get((*v, st), (0.0, 0))
+            out[v][st] = us / 1e3 / n if n else None
+    return out
+
+
+#: the hnsw engine's parameters: the reference CLI's search and graph
+#: parameters (``repro/launch/serve.py``)
+HNSW_PARAMS = dict(beam=64, iters=64, n_seeds=8, m=16, ef_construction=48)
+#: batch size → candidates a set in the sweep behind the row-warp rule (one
+#: set per query): at nq 64 the hnsw engine's 8 and 32 up to Seismic's
+#: 4,096; one query up to the whole 100k collection and past it
+SWEEP_C = {64: (8, 32, 64, 256, 512, 1024, 2048, 4096),
+           8: (256, 1024, 4096, 8192, 16384, 32768),
+           1: (256, 1024, 4096, 16384, 65536, 100_001, 131_072, 262_144)}
+
+
+def _ms(v) -> str:
+    return "not measured" if v is None else f"{v:.4f}"
+
+
+def hnsw_phase(fwd, Q_np, Q, n_docs: int, card: str, max_err: dict, rows_full) -> dict:
+    """Phase 6: the hnsw engine over docs ``[0, n_docs)`` of the main
+    collection, every rows variant over ONE host graph → per variant its
+    records (launches on this path, checks, timings at the graph's
+    shape), plus the C sweep and the profile under ``"_phase"``."""
+    from repro_torch.core.layout import pack_rows
+    from repro_torch.core.seismic import exact_top_k, recall_at_k
+    from repro_torch.kernels import rows_dot
+    from repro_torch.serve.api import Retriever, RetrieverConfig, get_engine, open_retriever
+
+    nq, dim = Q.shape
+    dev = Q.device
+    sub = fwd.slice(0, n_docs)
+    cfg = RetrieverConfig(engine="hnsw", codec="dotvbyte", backend="cuda", k=10,
+                          params=HNSW_PARAMS)
+    iters, n_seeds = HNSW_PARAMS["iters"], HNSW_PARAMS["n_seeds"]
+    t0 = time.perf_counter()
+    index = get_engine("hnsw").host_index(sub, cfg)
+    build_s = time.perf_counter() - t0
+    m0 = index.params.degree(0)
+    log(f"[6] hnsw over docs [0, {n_docs}) of the collection (dim {dim}, {nq} queries; beam "
+        f"{HNSW_PARAMS['beam']}, iters {iters}, n_seeds {n_seeds}, m {index.params.m}, M0 {m0}, "
+        f"ef_construction {index.params.ef_construction}): host graph built once in "
+        f"{build_s:.1f}s ({1e3 * build_s / n_docs:.2f} ms/doc; {index.n_edges} edges, "
+        f"{len(index.graph)} layers)")
+
+    # the path: every variant searched once, counts zeroed just before and read just after
+    t0 = time.perf_counter()
+    rows_dot.reset_launches()
+    built = Retriever.from_host_index(index, cfg)
+    art = ROOT / "build" / "chip_smoke" / "hnsw-dotvbyte"
+    built.save(art, compress=False)
+    del built
+    served = {("dotvbyte", "f16"): open_retriever(art)}
+    graph = {k: served["dotvbyte", "f16"].arrays[k] for k in ("adj", "seeds")}
+    results, per_search, stage_per = {}, {}, {}
+    for codec, vq in rows_dot.VARIANTS:
+        if (codec, vq) != ("dotvbyte", "f16"):
+            rows = {k: torch.from_numpy(v).to(dev)
+                    for k, v in pack_rows(sub, codec=codec, vq=vq).arrays().items()}
+            served[codec, vq] = Retriever(
+                cfg.replace(codec=codec, vq=vq), {**graph, **rows}, n_docs=sub.n_docs,
+                dim=sub.dim, value_scale=float(sub.value_format.scale),
+                value_format=sub.value_format.name)
+        name = rows_dot.variant_name(codec, vq)
+        before, stages_before = rows_dot.variant_launches[name], dict(rows_dot.stage_launches)
+        results[codec, vq] = served[codec, vq].search(Q)
+        torch.cuda.synchronize()
+        per_search[codec, vq] = rows_dot.variant_launches[name] - before
+        stage_per[codec, vq] = {k: v - stages_before[k] for k, v in rows_dot.stage_launches.items()
+                                if v > stages_before[k]}
+    launches = dict(rows_dot.variant_launches)
+    stages = dict(rows_dot.stage_launches)
+    seed_stage = rows_dot.pick_stage(nq, nq, dim=dim, C=n_seeds)
+    step_stage = rows_dot.pick_stage(nq, nq, dim=dim, C=m0)
+    want = {seed_stage: 0, step_stage: 0}
+    want[seed_stage] += 1
+    want[step_stage] += iters
+    log(f"    hnsw main path in {time.perf_counter() - t0:.1f}s; launches: "
+        + ", ".join(f"{k}={launches[rows_dot.variant_name(*k)]}" for k in per_search)
+        + "; by stage " + ", ".join(f"{k}={v}" for k, v in stages.items())
+        + f"; per search {want} (seeds C={n_seeds} {seed_stage}, steps C={m0} {step_stage})")
+    bad = {k: (per_search[k], stage_per[k]) for k in per_search
+           if per_search[k] != 1 + iters or stage_per[k] != want}
+    if bad:
+        raise SystemExit(f"hnsw searches did not launch the rows kernel 1 + {iters} times in "
+                         f"the picked stages: {bad}")
+    phase = {"build_s": build_s, "n_docs": n_docs, "n_edges": index.n_edges, "M0": m0,
+             "params": HNSW_PARAMS, "stage_per_search": want}
+
+    # checks and timings per variant
+    truth = [exact_top_k(sub, Q_np[i], 10) for i in range(nq)]
+    rng = np.random.default_rng(6)
+    shape_docs = {  # the kernel at the graph's shape: the seeds, and 64 adjacency rows
+        n_seeds: graph["seeds"].unsqueeze(0).expand(nq, -1).contiguous(),
+        m0: graph["adj"][torch.from_numpy(rng.integers(0, n_docs, nq)).to(dev)].contiguous(),
+    }
+    scale = float(sub.value_format.scale)
+    raw = sub.storage_bytes("uncompressed")["components"]
+    out = {"_phase": phase}
+    for codec, vq in rows_dot.VARIANTS:
+        name = rows_dot.variant_name(codec, vq)
+        ret = served[codec, vq]
+        ids_c, sc_c = results[codec, vq]
+        plain = Retriever(ret.cfg.replace(backend="torch"), ret.arrays, n_docs=ret.n_docs,
+                          dim=ret.dim, value_scale=ret.value_scale,
+                          value_format=ret.value_format)
+        ids_t, sc_t = plain.search(Q)
+        swaps = same_topk(ids_c, sc_c, ids_t, sc_t)
+        ids_np = ids_c.cpu().numpy()
+        recall = float(np.mean([recall_at_k(truth[i][0], ids_np[i]) for i in range(nq)]))
+        ret.search(Q)  # warm
+        lat = host_ms(lambda: ret.search(Q), 10)
+        plain.search(Q)
+        lat_t = host_ms(lambda: plain.search(Q), 10)
+        sizes = index.index_bytes(codec)
+        bits = 8 * sizes["forward_components"] / sub.total_nnz
+        shapes = []
+        for C, docs in shape_docs.items():
+            errs, call_ms = [], {}
+            for st in rows_stages(nq, nq, dim, C):
+                errs.append(check_kernel(codec, f"{name} @ hnsw C={C} {st}", Q, docs, ret.arrays,
+                                         scale, st))
+                call_ms[st] = cuda_ms(lambda: rows_dot.rows_scores_for_codec(
+                    codec, ret.arrays, Q, docs, scale, stage=st), 50)
+            max_err[codec, vq] = max(max_err[codec, vq], *errs)
+            bound_ms, bound_by = rows_bound(codec, Q, docs, ret.arrays)
+            shapes.append(dict(
+                shape=f"hnsw C={C}", nq=nq, nd=nq, C=C,
+                stage=rows_dot.pick_stage(nq, nq, dim=dim, C=C),
+                launches_per_search=1 if C == n_seeds else iters, call_ms_by_stage=call_ms,
+                plain_ms=cuda_ms(lambda: rows_dot.rows_scores_plain(
+                    codec, ret.arrays, Q, docs, scale), 10, 1),
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=None, max_abs_err=max(errs)))
+        log(f"  {name} hnsw: cuda==torch ({swaps} tied swaps), recall@10 {recall:.4f}, median "
+            f"{statistics.median(lat):.3f} ms/batch of {nq} (min {min(lat):.3f}; backend=torch "
+            f"{statistics.median(lat_t):.3f}); {bits:.2f} bits/comp "
+            f"({100 * (1 - sizes['forward_components'] / raw):.1f}% saved), graph "
+            f"{sizes['graph']} B of {sizes['total']} B ({card})")
+        out[codec, vq] = dict(
+            launches=launches[name], launches_per_search=per_search[codec, vq],
+            stage_per_search=stage_per[codec, vq], at_shapes=shapes, recall_at_10=recall,
+            tied_swaps=swaps, search_ms_median=statistics.median(lat),
+            search_ms_median_torch_backend=statistics.median(lat_t),
+            bits_per_component=bits, index_bytes=sizes)
+
+    # the kernel's device time at the graph's shape: one profile a set size, every variant
+    for i, (C, docs) in enumerate(shape_docs.items()):
+        calls = {v: (lambda st, a=served[v].arrays, c=v[0]: rows_dot.rows_scores_for_codec(
+            c, a, Q, docs, scale, stage=st)) for v in rows_dot.VARIANTS}
+        by = rows_device_ms(calls, rows_stages(nq, nq, dim, C))
+        for v in rows_dot.VARIANTS:
+            sh = out[v]["at_shapes"][i]
+            sh.update(ms=by[v][sh["stage"]], ms_by_stage=by[v])
+    for v in rows_dot.VARIANTS:
+        for sh in out[v]["at_shapes"]:
+            log(f"    {rows_dot.variant_name(*v)} kernel @{sh['shape']}: {_ms(sh['ms'])} ms "
+                f"device ({sh['stage']}; "
+                + ", ".join(f"{k} {_ms(x)}" for k, x in sh["ms_by_stage"].items())
+                + "; a call back to back " + ", ".join(
+                    f"{k} {x:.4f}" for k, x in sh["call_ms_by_stage"].items())
+                + f"; plain {sh['plain_ms']:.3f}, bound {sh['bound_ms']:.4f} {sh['bound_by']}) "
+                f"({card})")
+
+    # the sweep behind the row-warp rule: one set per query at nq 64, 8 and 1, every C in
+    # every stage that takes the shape, over the full collection's rows (real ids at random)
+    dv, n_full = rows_full, rows_full["nnz_rows"].shape[0] - 1
+    sweep, sweep_call = {}, {}
+    for n, Cs in SWEEP_C.items():
+        Qn = Q[:n]
+        for C in Cs:
+            docs = torch.from_numpy(rng.integers(0, n_full, (n, C)).astype(np.int32)).to(dev)
+            stages_here = rows_stages(n, n, dim, C)
+            for st in stages_here:
+                check_kernel("dotvbyte", f"sweep nq={n} C={C} {st}", Qn, docs, dv, scale, st)
+                sweep_call.setdefault(n, {}).setdefault(st, {})[C] = cuda_ms(
+                    lambda: rows_dot.rows_scores_for_codec("dotvbyte", dv, Qn, docs, scale,
+                                                           stage=st), 20)
+            call = {("dotvbyte", "f16"): lambda st: rows_dot.rows_scores_for_codec(
+                "dotvbyte", dv, Qn, docs, scale, stage=st)}
+            for st, ms in rows_device_ms(call, stages_here)["dotvbyte", "f16"].items():
+                sweep.setdefault(n, {}).setdefault(st, {})[C] = ms
+        log(f"    stage sweep, rows kernel nq {n} x one set of C per query, dotvbyte f16, "
+            f"device ms (a call back to back) ({card}): " + "; ".join(
+                f"C {C} (nd*C {n * C}): " + ", ".join(
+                    f"{st} {_ms(ms[C])} ({sweep_call[n][st][C]:.4f})"
+                    for st, ms in sweep[n].items()) for C in Cs))
+    phase["stage_sweep_C"] = sweep
+    phase["stage_sweep_C_call_ms"] = sweep_call
+    # the wrapper's host time a launch, as a step pays it (checked once per search)
+    dvh = served["dotvbyte", "f16"]
+    score = rows_dot.rows_scorer("dotvbyte", dvh.arrays, Q, scale)
+    docs = shape_docs[m0]
+    for _ in range(3):
+        score(docs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(200):
+        score(docs)
+    host_us = 1e6 * (time.perf_counter() - t0) / 200
+    torch.cuda.synchronize()
+    phase["wrapper_host_us_per_launch"] = host_us
+    log(f"    rows wrapper host time per launch at C={m0}: {host_us:.1f} us (scorer made once "
+        f"a search; {card})")
+    prof = {}
+    device_breakdown("hnsw dotvbyte f16", lambda: dvh.search(Q), card, out=prof)
+    if prof.get("busy_ms"):  # empty where the profiler traced no device time
+        rows_k = {k: v for k, v in prof["kernels"].items() if "rows_dot" in k}
+        rows_ms = sum(ms for ms, _ in rows_k.values())
+        n_kernels = sum(n for _, n in prof["kernels"].values())
+        log(f"    hnsw profile: rows kernel {rows_ms:.4f} ms of {prof['busy_ms']:.4f} ms busy "
+            f"({100 * rows_ms / max(prof['busy_ms'], 1e-9):.1f}%), "
+            f"{sum(n for _, n in rows_k.values()):.0f} rows launches and {n_kernels:.0f} "
+            f"kernels a search ({card})")
+        phase["profile"] = dict(wall_ms=prof["wall_ms"], busy_ms=prof["busy_ms"],
+                                idle_share=1 - prof["busy_ms"] / prof["wall_ms"],
+                                rows_ms=rows_ms,
+                                rows_launches=sum(n for _, n in rows_k.values()),
+                                kernels_per_search=n_kernels)
+    shutil.rmtree(ROOT / "build" / "chip_smoke", ignore_errors=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="smoke run of the port on one GPU")
     ap.add_argument("--n-docs", type=int, default=100_000,
                     help="collection size (MsMarco has 8,842,240; the host build bounds it)")
+    ap.add_argument("--hnsw-docs", type=int, default=5_000,
+                    help="the prefix of the collection the hnsw phase serves (its host build "
+                         "is Python insertion loops, ~10 ms a document)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -783,7 +1101,7 @@ def main() -> int:
             Qn, set1 = Qs[:n], ids[:1].contiguous()
             want = rows_dot.rows_scores_plain(codec, arrays, Qn, set1, 0.5)
             shared += [check_kernel(codec, f"{names[codec, vq]} nd=1 nq={n} {st}", Qn, set1,
-                                    arrays, 0.5, st, want) for st in rows_stages(n, 1, dim)]
+                                    arrays, 0.5, st, want) for st in rows_stages(n, 1, dim, C)]
         errs[0] = max(errs[0], *shared)
         wide = ""
         if codec != "dotvbyte":  # DotVByte stores 16-bit gaps only
@@ -998,14 +1316,15 @@ def main() -> int:
             bound_ms, bound_by = rows_bound(codec, Q, docs, arrays)
             by_stage = {}
             if not slow:  # the per-query form in both its stages
-                for st in rows_stages(nq, docs.shape[0], fwd.dim):
+                for st in rows_stages(nq, docs.shape[0], fwd.dim, docs.shape[1]):
                     err = max(err, check_kernel(codec, f"{name} @ {shape} {st}", Q, docs, arrays,
                                                 scale, st))
                     by_stage[st] = cuda_ms(lambda: rows_dot.rows_scores_for_codec(
                         codec, arrays, Q, docs, scale, stage=st), 20)
                 max_err[codec, vq] = max(max_err[codec, vq], err)
             shapes.append(dict(shape=shape, nq=nq, nd=docs.shape[0], C=docs.shape[1],
-                               stage=rows_dot.pick_stage(nq, docs.shape[0], dim=fwd.dim),
+                               stage=rows_dot.pick_stage(nq, docs.shape[0], dim=fwd.dim,
+                                                         C=docs.shape[1]),
                                launches_per_search=per_search.get((shape, codec, vq)),
                                ms=ms, ms_by_stage=by_stage, plain_ms=plain_ms,
                                bound_ms=bound_ms, bound_by=bound_by,
@@ -1065,7 +1384,7 @@ def main() -> int:
         stage_sweep("rows kernel at the flat shape, dotvbyte f16",
                     lambda Qn, st: rows_dot.rows_scores_for_codec("dotvbyte", dv, Qn, docs_f,
                                                                   scale, stage=st), Q, card,
-                    lambda n: rows_stages(n, 1, fwd.dim))
+                    lambda n: rows_stages(n, 1, fwd.dim, docs_f.shape[1]))
     device_breakdown("seismic dotvbyte f16", lambda: base.search(Q), card)
     device_breakdown("flat dotvbyte f16", lambda: flat["dotvbyte", "f16"].search(Q), card)
     shutil.rmtree(ROOT / "build" / "chip_smoke", ignore_errors=True)
@@ -1078,7 +1397,22 @@ def main() -> int:
     kernels += full_scan(fwd, Q, truth, csr, card, block_err, fused_err)
     phase_s["5 full scan"] = time.perf_counter() - t0
 
-    # -- 6. summary -------------------------------------------------------------
+    # -- 6. the hnsw engine --------------------------------------------------------
+    t0 = time.perf_counter()
+    hnsw = hnsw_phase(fwd, Q_np, Q, min(args.hnsw_docs, fwd.n_docs), card, max_err,
+                      seismic["dotvbyte", "f16"].arrays)
+    for rec in kernels[:n_rows]:
+        h = hnsw[next(v for v in variants if names[v] == rec["name"])]
+        rec["launches_by_path"] = {"seismic+flat": rec["launches"], "hnsw": h["launches"]}
+        rec["launches"] += h["launches"]
+        rec["max_abs_err"] = max(rec["max_abs_err"], *(s["max_abs_err"] for s in h["at_shapes"]))
+        rec["at_shapes"] += h.pop("at_shapes")
+        rec["hnsw"] = h
+    kernels[[k["name"] for k in kernels].index(names["dotvbyte", "f16"])]["hnsw_phase"] = \
+        hnsw["_phase"]
+    phase_s["6 hnsw"] = time.perf_counter() - t0
+
+    # -- 7. summary -------------------------------------------------------------
     log("phases: " + ", ".join(f"{k} {v:.1f}s" for k, v in phase_s.items()))
     log(f"ported kernels: {n_rows} rows_dot variants and {len(kernels) - n_rows} block-scan "
         f"entries ok; total {time.perf_counter() - t_start:.0f}s")

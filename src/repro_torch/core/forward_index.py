@@ -113,6 +113,12 @@ class ForwardIndex:
             value_format=self.value_format,
         )
 
+    def densify(self, i: int) -> np.ndarray:
+        c, v = self.doc(i)
+        out = np.zeros(self.dim, dtype=np.float32)
+        out[c] = v
+        return out
+
     def exact_scores(self, q_dense: np.ndarray) -> np.ndarray:
         """⟨q, x⟩ for every doc — the numpy ground truth."""
         q = np.asarray(q_dense, dtype=np.float32)

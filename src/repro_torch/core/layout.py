@@ -34,6 +34,7 @@ from typing import Callable, Dict, Mapping
 import numpy as np
 
 from . import values as value_codecs
+from .codecs import get_codec
 from .codecs.bitpack import bit_widths, pack_block
 from .codecs.dotvbyte import control_bits
 from .codecs.streamvbyte import byte_codes
@@ -47,6 +48,7 @@ __all__ = [
     "PackedRows",
     "pack_blocks",
     "pack_rows",
+    "encode_docs",
     "BLOCK_PAD_VALUES",
     "LANE_MULTIPLE",
 ]
@@ -463,3 +465,14 @@ def pack_rows(
         payload=payload,
         vq=vq,
     )
+
+
+def encode_docs(fwd: ForwardIndex, codec_name: str) -> list[bytes]:
+    """Host-side per-document byte encoding (the HNSW reference search's
+    codec-timed path) through the codec registry."""
+    codec = get_codec(codec_name)
+    offs = fwd.offsets
+    return [
+        codec.encode_doc(fwd.components[int(s) : int(e)])
+        for s, e in zip(offs[:-1], offs[1:])
+    ]

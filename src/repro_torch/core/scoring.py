@@ -24,7 +24,9 @@ the reference ran one query under ``vmap``, these functions carry the
 query batch as a leading axis:
 
 * ``score_candidate_rows`` — one candidate set per query,
-  ``docs [nq, C]`` (Seismic);
+  ``docs [nq, C]`` (Seismic); ``candidate_rows_scorer`` is the same
+  for a loop of calls over one query batch, its streams checked once
+  (the hnsw engine's steps);
 * ``score_candidate_rows_batch`` — one candidate set shared by the
   batch, ``docs [C]``, decoded once (flat).
 
@@ -64,6 +66,7 @@ __all__ = [
     "decode_doc_rows",
     "score_doc_rows",
     "score_candidate_rows",
+    "candidate_rows_scorer",
     "score_candidate_rows_batch",
 ]
 
@@ -405,13 +408,36 @@ def score_rows_plain(codec: str, arrays, docs: torch.Tensor, Q: torch.Tensor, sc
     return out
 
 
-def _score_rows(codec, arrays, docs, Q, scale, backend):
+def _rows_scorer(codec, arrays, Q, scale, backend):
     modes.check_backend(backend)
     if backend == "torch":
-        return score_rows_plain(codec, arrays, docs, Q, scale)
+        return lambda docs: score_rows_plain(codec, arrays, docs, Q, scale)
     from ..kernels import rows_dot
 
-    return rows_dot.rows_scores_for_codec(codec, arrays, Q, docs, scale)
+    return rows_dot.rows_scorer(codec, arrays, Q, scale)
+
+
+def candidate_rows_scorer(
+    codec: str,
+    arrays,
+    Q: torch.Tensor,  # f32 [nq, V]
+    scale: float,
+    backend: str = "torch",
+):
+    """``docs → score_candidate_rows(codec, arrays, docs, Q, scale,
+    backend)`` for one query batch, its row streams and ``Q`` checked
+    once: the ``hnsw`` engine rescores a few rows per query in each of
+    its steps, so only each step's ``docs`` is checked."""
+    score = _rows_scorer(codec, arrays, Q, scale, backend)
+
+    def scorer(docs: torch.Tensor) -> torch.Tensor:
+        if docs.dim() != 2 or docs.shape[0] != Q.shape[0]:
+            raise ValueError(
+                f"docs must be [nq, C] with nq={Q.shape[0]}, got {tuple(docs.shape)}"
+            )
+        return score(docs)
+
+    return scorer
 
 
 def score_candidate_rows(
@@ -425,11 +451,7 @@ def score_candidate_rows(
     """Gather the packed rows of each query's candidates and score them
     exactly → f32 [nq, C]. Sentinel ids (row N) score 0; callers mask
     them."""
-    if docs.dim() != 2 or docs.shape[0] != Q.shape[0]:
-        raise ValueError(
-            f"docs must be [nq, C] with nq={Q.shape[0]}, got {tuple(docs.shape)}"
-        )
-    return _score_rows(codec, arrays, docs, Q, scale, backend)
+    return candidate_rows_scorer(codec, arrays, Q, scale, backend)(docs)
 
 
 def score_candidate_rows_batch(
@@ -444,4 +466,4 @@ def score_candidate_rows_batch(
     [nq, C]; each candidate row is gathered and decoded once."""
     if docs.dim() != 1:
         raise ValueError(f"docs must be [C], got {tuple(docs.shape)}")
-    return _score_rows(codec, arrays, docs.unsqueeze(0), Q, scale, backend)
+    return _rows_scorer(codec, arrays, Q, scale, backend)(docs.unsqueeze(0))

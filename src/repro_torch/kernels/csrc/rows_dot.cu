@@ -48,8 +48,12 @@
 // Three scoring stages, picked by the wrapper (kernels/rows_dot.py):
 //
 // Row warps (the per-query form, nd == nq: Seismic's one launch a search, and
-// one query over one set; where a query row fits in shared memory). Under
-// entry lanes this form was a grid of C x nd one-warp blocks (262,144 at 64 x
+// one query over one set; where a query row fits in shared memory and the sets
+// hold ROW_WARPS_MIN_ROWS = 65,536 rows in all: below that, blocks staging a
+// 119 KB query row for a few tasks each lost to entry lanes on an H100, 0.0166
+// vs 0.0038 ms at the hnsw engine's 64 x 8 seeds, 0.0300 vs 0.0057 at its
+// 64 x 32 neighbours, 0.0165 vs 0.0075 at one query over 4,096; chip_smoke.py).
+// Under entry lanes this form was a grid of C x nd one-warp blocks (262,144 at 64 x
 // 4,096): the 32-blocks-per-SM limit held an SM to half its warps, each
 // warp's life was one serial chain of loads, and the blocks resident on an SM
 // belonged to several queries, so their Q gathers (one 32-byte L2 sector per

@@ -18,11 +18,13 @@ kernel reads that dtype, as the reference casts whatever is stored.
 
 ``docs`` is ``[nd, C]`` with ``nd ∈ {1, nq}``: one candidate set shared
 by the query batch (flat; each row decoded once per tile of 128
-queries, scored for every query of it) or one set per query (Seismic).
-Three scoring stages, picked by :func:`pick_stage` from the shapes: the
-per-query form takes row warps (one thread block an SM holding a set's
-query row in shared memory, a half-warp per candidate row, vector loads)
-where the row fits (:func:`row_warps_fit`); the shared form takes lanes
+queries, scored for every query of it) or one set per query (Seismic,
+and the hnsw engine's seeds and neighbours). Three scoring stages,
+picked by :func:`pick_stage` from the shapes: the per-query form takes
+row warps (one thread block an SM holding a set's query row in shared
+memory, a half-warp per candidate row, vector loads) where the row fits
+(:func:`row_warps_fit`) and the sets hold :data:`ROW_WARPS_MIN_ROWS`
+rows or more in all; the shared form takes lanes
 across queries over the transposed batch ``Qᵀ [dim, nq]`` from
 :data:`QUERY_LANES_MIN_NQ` queries on; everything else takes entry
 lanes (a thread block per candidate row and a block reduction per
@@ -31,7 +33,9 @@ PERF.md for its time on the card.
 
 :func:`rows_scores_for_codec` runs the kernel on CUDA tensors and its
 plain torch version (:func:`rows_scores_plain`) on CPU tensors; a CUDA
-call that cannot build or launch the kernel raises. ``launches`` counts
+call that cannot build or launch the kernel raises. :func:`rows_scorer`
+checks the row streams and the queries once for a loop of calls over
+one batch. ``launches`` counts
 kernel launches in total, ``variant_launches`` per variant (keyed
 :func:`variant_name`) and ``stage_launches`` per scoring stage, so a
 run can show its main path went through each kernel and stage.
@@ -39,6 +43,7 @@ run can show its main path went through each kernel and stage.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -50,6 +55,7 @@ __all__ = [
     "CODECS",
     "MAX_ROW_CAPACITY",
     "QUERY_LANES_MIN_NQ",
+    "ROW_WARPS_MIN_ROWS",
     "STAGES",
     "VARIANTS",
     "launches",
@@ -60,6 +66,7 @@ __all__ = [
     "row_warps_fit",
     "reset_launches",
     "rows_scores_for_codec",
+    "rows_scorer",
     "rows_scores_plain",
 ]
 
@@ -85,6 +92,20 @@ STAGES = ("entry_lanes", "query_lanes", "row_warps")
 #: ``chip_smoke.py`` (PERF.md): on an H100 entry lanes win up to 6
 #: queries, query lanes from 8 on.
 QUERY_LANES_MIN_NQ = 8
+
+#: the fewest candidate rows in all (``nd · C``) from which the per-query
+#: form takes row warps. Each row-warp block stages a set's whole query row
+#: in shared memory for its share of the ``nd · ⌈C/8⌉`` tasks, so what
+#: repays the staging is the task count, not the set size. From the stage
+#: sweep of ``chip_smoke.py`` (PERF.md; one set per query, dotvbyte f16, an
+#: H100, µs entry lanes against row warps): at nq 64 entry lanes won up to
+#: nd·C 65,536 (68 against 73) and row warps from 131,072 (129 against 104);
+#: at nq 8 the same (60 against 64; 119 against 97); at nq 1 entry lanes
+#: won up to 16,384 (17 against 19; Seismic's one-query 4,096: 7.5 against
+#: 16.5) and row warps from 65,536 (57 against 44). At 65,536 the rule
+#: loses 7% at nq 64 and 6% at nq 8, where the other side would lose 30% at
+#: nq 1.
+ROW_WARPS_MIN_ROWS = 1 << 16
 
 #: floats of the PQ codebook, which a row-warp block keeps beside the
 #: query row in shared memory
@@ -137,20 +158,21 @@ def row_warps_fit(dim: int) -> bool:
     return 4 * ((dim + 3) // 4 * 4 + _PQ_FLOATS) <= build.SMEM_OPTIN_BYTES
 
 
-def pick_stage(nq: int, nd: int, stage: str | None = None, *, dim: int) -> str:
+def pick_stage(nq: int, nd: int, stage: str | None = None, *, dim: int, C: int) -> str:
     """The scoring stage for ``nq`` queries of ``dim`` components over
-    ``nd`` candidate sets. Without a ``stage``: the shared form (``nd =
-    1``) takes query lanes from :data:`QUERY_LANES_MIN_NQ` queries on;
-    one candidate set per query (``nd = nq``, one query and one set
-    included) takes row warps where :func:`row_warps_fit`; every other
-    shape takes entry lanes. A given ``stage`` is checked against the
-    same rules: query lanes take the shared form only, row warps one set
-    per query with a query row that fits."""
+    ``nd`` candidate sets of ``C`` rows. Without a ``stage``: the shared
+    form (``nd = 1``) takes query lanes from :data:`QUERY_LANES_MIN_NQ`
+    queries on; one candidate set per query (``nd = nq``, one query and
+    one set included) takes row warps where :func:`row_warps_fit` and the
+    sets hold at least :data:`ROW_WARPS_MIN_ROWS` rows in all; every other
+    shape takes entry lanes. A given ``stage`` is checked against the same
+    rules, but for the set size: query lanes take the shared form only,
+    row warps one set per query with a query row that fits."""
     warps = nd == nq and row_warps_fit(dim)
     if stage is None:
         if nd == 1 and nq >= QUERY_LANES_MIN_NQ:
             return "query_lanes"
-        return "row_warps" if warps else "entry_lanes"
+        return "row_warps" if warps and nd * C >= ROW_WARPS_MIN_ROWS else "entry_lanes"
     if stage not in STAGES:
         raise ValueError(f"unknown scoring stage {stage!r}; have {list(STAGES)}")
     if stage == "query_lanes" and nd != 1:
@@ -177,34 +199,69 @@ def rows_scores_for_codec(codec: str, arrays, Q, docs, scale=1.0, stage: str | N
     from its keys, and the kernel variant is ``(codec, vq)``. Candidate
     ids must lie in ``[0, N]`` (N is the all-zero sentinel). On the card
     the kernel scores in ``stage`` (default: :func:`pick_stage`)."""
+    return rows_scorer(codec, arrays, Q, scale, stage)(docs)
+
+
+def rows_scorer(codec: str, arrays, Q, scale=1.0, stage: str | None = None):
+    """``docs → rows_scores_for_codec(codec, arrays, Q, docs, scale,
+    stage)`` with the row streams and ``Q`` checked once: how a loop of
+    launches over one query batch (the ``hnsw`` engine's steps) keeps
+    the checks out of every step. Each call checks only its ``docs``."""
     if codec not in _PAYLOAD:
         raise ValueError(f"no rows kernel for codec {codec!r}; have {list(CODECS)}")
     vq = value_codecs.infer_rows_vq(arrays)
     names, _ = _PAYLOAD[codec]
-    tensors = [Q, docs, arrays["vals_rows"], arrays["nnz_rows"]]
+    tensors = [Q, arrays["vals_rows"], arrays["nnz_rows"]]
     tensors += [arrays[k] for k in names] + value_codecs.rows_vq_streams(vq, arrays)
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"rows_scores inputs span devices {sorted(map(str, devices))}")
     if Q.device.type == "cpu":
-        return rows_scores_plain(codec, arrays, Q, docs, scale)
+        def plain(docs):
+            _check_docs(Q, docs)
+            return rows_scores_plain(codec, arrays, Q, docs, scale)
+
+        return plain
     if Q.device.type != "cuda":
         raise ValueError(f"rows_scores runs on cuda or cpu tensors, got {Q.device}")
-    streams = _check(codec, vq, arrays, Q, docs)
-    return _launch(codec, vq, Q, docs, streams, float(scale),
-                   pick_stage(Q.shape[0], docs.shape[0], stage, dim=Q.shape[1]))
+    streams = _check(codec, vq, arrays, Q)
+    nq, dim = Q.shape
+
+    def launch(docs):
+        _check_docs(Q, docs)
+        nd, C = docs.shape
+        return _launch(codec, vq, Q, docs, streams, float(scale),
+                       pick_stage(nq, nd, stage, dim=dim, C=C))
+
+    return launch
 
 
-def _check(codec, vq, arrays, Q, docs):
-    """Validate dtypes, shapes and contiguity → the kernel's operands
-    (vals, nnz, p0, p1, v0, v1; absent ones None) and the logical L."""
+def _check_docs(Q, docs):
+    """Validate one call's candidate ids against the query batch."""
+    if docs.device != Q.device:
+        devices = sorted({str(Q.device), str(docs.device)})
+        raise ValueError(f"rows_scores inputs span devices {devices}")
+    if docs.dtype != torch.int32 or docs.dim() != 2:
+        raise ValueError(f"docs must be 2-D {torch.int32}, got {docs.dim()}-D {docs.dtype}")
+    if not docs.is_contiguous():
+        raise ValueError("docs must be contiguous")
+    nq, (nd, C) = Q.shape[0], docs.shape
+    if nd not in (1, nq) or nd > 65535:
+        raise ValueError(f"docs has {nd} candidate sets; need 1 or nq={nq} (≤ 65535)")
+    if C >= 2**31:
+        raise ValueError("a dimension exceeds the kernel's 32-bit sizes")
+
+
+def _check(codec, vq, arrays, Q):
+    """Validate the row streams' dtypes, shapes and contiguity, and Q's →
+    the kernel's operands (vals, nnz, p0, p1, v0, v1; absent ones None)
+    and the logical L."""
     names, dtypes = _PAYLOAD[codec]
     vals = arrays["vals_rows"]
     if vq == "f16" and vals.dtype not in VALUE_DTYPES:
         raise ValueError(f"vals_rows must be one of {VALUE_DTYPES} under vq f16, got {vals.dtype}")
     vals_dtype = vals.dtype if vq == "f16" else torch.uint8
-    want = {"Q": (Q, torch.float32, 2), "docs": (docs, torch.int32, 2),
-            "vals_rows": (vals, vals_dtype, 2),
+    want = {"Q": (Q, torch.float32, 2), "vals_rows": (vals, vals_dtype, 2),
             "nnz_rows": (arrays["nnz_rows"], torch.int32, 1)}
     for k, dt in zip(names, dtypes):
         want[k] = (arrays[k], dt, 1 if k == "widths_rows" else 2)
@@ -216,11 +273,8 @@ def _check(codec, vq, arrays, Q, docs):
             raise ValueError(f"{name} must be {ndim}-D {dtype}, got {t.dim()}-D {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    nq, (nd, C) = Q.shape[0], docs.shape
     R, W = arrays["vals_rows"].shape
     L = W * value_codecs.code_factor(vq)
-    if nd not in (1, nq) or nd > 65535:
-        raise ValueError(f"docs has {nd} candidate sets; need 1 or nq={nq} (≤ 65535)")
     if L % 8 or not 0 < L <= MAX_ROW_CAPACITY:
         raise ValueError(
             f"row capacity {L} must be a positive multiple of 8, at most {MAX_ROW_CAPACITY}"
@@ -235,7 +289,7 @@ def _check(codec, vq, arrays, Q, docs):
     per = _CTRL_PER_ENTRY.get(codec)
     if per and payload[0].shape[1] < L // per:
         raise ValueError(f"ctrl_rows is {payload[0].shape[1]} wide; need ≥ {L // per}")
-    if max(*Q.shape, C, R, *(t.shape[-1] for t in payload)) >= 2**31:
+    if max(*Q.shape, R, *(t.shape[-1] for t in payload)) >= 2**31:
         raise ValueError("a dimension exceeds the kernel's 32-bit sizes")
     p0, p1 = (payload + [None])[:2]
     v0, v1 = (vq_streams + [None, None])[:2]
@@ -247,7 +301,8 @@ def _launch(codec, vq, Q, docs, streams, scale, stage):
     vals, nnz, p0, p1, v0, v1, L = streams
     lib = build.load("rows_dot")
     fn = lib.rows_dot
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    if fn.argtypes is None:  # the library's function object is kept; typed once
+        fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     nq, dim = Q.shape
     nd, C = docs.shape
     out = torch.empty((nq, C), dtype=torch.float32, device=Q.device)
@@ -256,7 +311,8 @@ def _launch(codec, vq, Q, docs, streams, scale, stage):
     q_arg = Q.t().contiguous() if stage == "query_lanes" else Q
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     width = lambda t: 0 if t is None or t.dim() < 2 else t.shape[1]  # noqa: E731
-    with torch.cuda.device(Q.device):
+    same = Q.device.index == torch.cuda.current_device()  # the hnsw steps' case: no switch
+    with contextlib.nullcontext() if same else torch.cuda.device(Q.device):
         stream = torch.cuda.current_stream(Q.device).cuda_stream
         rc = fn(
             CODECS.index(codec), value_codecs.VALUE_CODECS.index(vq),

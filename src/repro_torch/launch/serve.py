@@ -12,7 +12,9 @@ timed batched search, and prints recall@k against the exact top-k, the
 latency per query and the paper's space metric: the components' bits
 per component under the codec, against 16 for raw u16.
 ``--compare-codecs`` sweeps every registered row codec over ONE host
-index (the Seismic build is the slow part; it is built once).
+index (the Seismic or HNSW build is the slow part; it is built once).
+``--engine hnsw`` takes the reference CLI's graph parameters (``m=16``,
+``ef_construction=48``, 8 seeds) with ``--beam`` and ``--iters``.
 ``--save-index DIR`` writes each artifact under ``DIR/<engine>-<codec>/``
 (the reference's format) with this run's top-k; ``--load-index DIR``
 serves from them instead of building and checks each reopened index
@@ -55,7 +57,7 @@ def main(argv=None) -> None:
     from ..kernels.modes import BACKENDS
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--engine", choices=["seismic", "flat"], default="seismic")
+    ap.add_argument("--engine", choices=["seismic", "hnsw", "flat"], default="seismic")
     ap.add_argument("--codec", choices=available_layouts(), default="dotvbyte")
     ap.add_argument("--compare-codecs", action="store_true",
                     help="sweep every registered serving codec over the same index")
@@ -69,6 +71,8 @@ def main(argv=None) -> None:
     ap.add_argument("--k", type=int, default=10)
     ap.add_argument("--cut", type=int, default=8)
     ap.add_argument("--n-probe", type=int, default=64)
+    ap.add_argument("--beam", type=int, default=64, help="HNSW beam width (static ef)")
+    ap.add_argument("--iters", type=int, default=64, help="HNSW nodes expanded per query")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--save-index", metavar="DIR", default=None,
                     help="save the built artifact under DIR/<engine>-<codec>/")
@@ -95,6 +99,7 @@ def main(argv=None) -> None:
     params = {
         "seismic": dict(cut=args.cut, block_budget=512, n_probe=args.n_probe,
                         n_postings=2000, block_size=64),
+        "hnsw": dict(beam=args.beam, iters=args.iters, n_seeds=8, m=16, ef_construction=48),
         "flat": {},
     }[args.engine]
     impl = get_engine(args.engine)

@@ -96,7 +96,13 @@ class RetrieverConfig:
 def top_k(scores: torch.Tensor, k: int):
     """(values, indices) of the ``k`` largest entries along the last
     axis, ties broken toward the lower index as ``jax.lax.top_k`` does
-    (a stable descending sort; ``torch.topk`` promises no tie order)."""
+    (a stable descending sort; ``torch.topk`` promises no tie order).
+    A ``k`` larger than the axis raises ``ValueError``, as it does there."""
+    if k > scores.shape[-1]:
+        raise ValueError(
+            f"k argument to top_k must be no larger than size along axis; got k={k} "
+            f"with shape={list(scores.shape)} and axis={scores.dim() - 1}"
+        )
     vals, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
     return vals[..., :k], idx[..., :k]
 
@@ -146,7 +152,7 @@ def register_engine(name: str):
 
 
 def _ensure_builtin_engines() -> None:
-    from . import engines  # noqa: F401  (registers seismic and flat)
+    from . import engines  # noqa: F401  (registers seismic, hnsw and flat)
 
 
 def get_engine(name: str) -> EngineImpl:
@@ -180,7 +186,8 @@ class Retriever:
     """Engine- and codec-agnostic serving handle: the device arrays of
     ONE engine×codec index plus its batched search. Construct with
     ``Retriever.build``, ``Retriever.from_host_index`` (reuse a built
-    ``SeismicIndex``) or ``open_retriever`` (load a saved artifact)."""
+    ``SeismicIndex`` or ``HNSWIndex``) or ``open_retriever`` (load a saved
+    artifact)."""
 
     def __init__(
         self,
@@ -237,9 +244,9 @@ class Retriever:
 
     @classmethod
     def from_host_index(cls, index, cfg: RetrieverConfig, device=None) -> "Retriever":
-        """Wrap an already-built host index (``SeismicIndex``) — sweep
-        codecs or backends over one build. ``cfg``'s build-time params
-        are ignored."""
+        """Wrap an already-built host index (``SeismicIndex`` or
+        ``HNSWIndex``) — sweep codecs or backends over one build.
+        ``cfg``'s build-time params are ignored."""
         device = resolve_device(device)
         impl = get_engine(cfg.engine)
         if not hasattr(impl, "arrays_from_index"):

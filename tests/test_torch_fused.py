@@ -197,15 +197,18 @@ def test_pick_stage_follows_the_thresholds():
     assert block_scan.pick_stage(1, "query_lanes", **SHAPE) == "query_lanes"
     assert block_scan.pick_stage(1, "entry_lanes", **SHAPE) == "entry_lanes"
     dim = SHAPE["dim"]
-    assert rows_dot.pick_stage(rows_dot.QUERY_LANES_MIN_NQ, 1, dim=dim) == "query_lanes"
-    assert rows_dot.pick_stage(rows_dot.QUERY_LANES_MIN_NQ - 1, 1, dim=dim) == "entry_lanes"
-    # the per-query (Seismic) form takes row warps at every batch size
-    assert rows_dot.pick_stage(64, 64, dim=dim) == "row_warps"
-    assert rows_dot.pick_stage(2, 2, dim=dim) == "row_warps"
+    flat, seismic = 100_001, 4096  # the smoke's candidate sets
+    assert rows_dot.pick_stage(rows_dot.QUERY_LANES_MIN_NQ, 1, dim=dim, C=flat) == "query_lanes"
+    assert rows_dot.pick_stage(rows_dot.QUERY_LANES_MIN_NQ - 1, 1, dim=dim,
+                               C=flat) == "entry_lanes"
+    # the per-query (Seismic) form takes row warps from ROW_WARPS_MIN_ROWS rows in all
+    assert rows_dot.pick_stage(64, 64, dim=dim, C=seismic) == "row_warps"
+    assert rows_dot.pick_stage(2, 2, dim=dim, C=rows_dot.ROW_WARPS_MIN_ROWS // 2) == "row_warps"
+    assert rows_dot.pick_stage(2, 2, dim=dim, C=seismic) == "entry_lanes"
     with pytest.raises(ValueError, match="shared candidate set"):
-        rows_dot.pick_stage(64, 64, "query_lanes", dim=dim)
+        rows_dot.pick_stage(64, 64, "query_lanes", dim=dim, C=seismic)
     for pick in (lambda s: block_scan.pick_stage(8, s, **SHAPE),
-                 lambda s: rows_dot.pick_stage(8, 1, s, dim=dim)):
+                 lambda s: rows_dot.pick_stage(8, 1, s, dim=dim, C=flat)):
         with pytest.raises(ValueError, match="unknown scoring stage"):
             pick("warp_lanes")
 

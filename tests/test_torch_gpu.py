@@ -718,10 +718,9 @@ def _row_warps_vs_plain(codec, streams, Q, docs, scale=0.5, n_rows=None):
 
 @pytest.mark.parametrize("codec,vq", VARIANTS, ids=[f"{c}-{v}" for c, v in VARIANTS])
 def test_row_warps_every_variant(cuda, codec, vq):
-    """Every variant's per-query form (the Seismic shape: one candidate
-    set per query, so the wrapper picks row warps itself), at 12 queries
-    and at one, on edge rows: the sentinel, empty rows, the full row, and
-    ids outside [0, N]."""
+    """Every variant's per-query form (one candidate set per query, the
+    Seismic form) in row warps, at 12 queries and at one, on edge rows:
+    the sentinel, empty rows, the full row, and ids outside [0, N]."""
     fwd, arrays = edge_rows(n_random=200, codec=codec, vq=vq)
     rng = np.random.default_rng(34)
     streams = _on(arrays, cuda)
@@ -730,7 +729,7 @@ def test_row_warps_every_variant(cuda, codec, vq):
     docs = candidates(fwd.n_docs, rng, (nq, C))
     docs[:, 5:7] = [-7, fwd.n_docs + 9]
     docs = torch.from_numpy(docs).to(cuda)
-    assert rows_dot.pick_stage(nq, nq, dim=DIM) == "row_warps"
+    assert rows_dot.pick_stage(nq, nq, "row_warps", dim=DIM, C=C) == "row_warps"
     got = _row_warps_vs_plain(codec, streams, Q, docs)
     assert torch.all(got[:, :3] == 0) and torch.all(got[:, 5:7] == 0)
     _row_warps_vs_plain(codec, streams, Q[:1], docs[:1].contiguous())
@@ -747,6 +746,7 @@ def test_row_warps_too_wide_routes_to_entry_lanes(cuda, codec):
     streams = _on(pack_rows(fwd, codec=codec).arrays(), cuda)
     Q = torch.rand((2, dim), generator=torch.Generator().manual_seed(5)).to(cuda)
     docs = torch.arange(fwd.n_docs + 1, dtype=torch.int32, device=cuda).repeat(2, 1)
+    assert rows_dot.pick_stage(2, 2, dim=dim, C=rows_dot.ROW_WARPS_MIN_ROWS) == "entry_lanes"
     before = dict(rows_dot.stage_launches)
     got = rows_dot.rows_scores_for_codec(codec, streams, Q, docs)
     torch.cuda.synchronize()
@@ -807,3 +807,62 @@ def test_row_warps_every_row_capacity(cuda, codec, vq, L_cap):
     got = _row_warps_vs_plain(codec, streams, Q, ids)
     assert float(got.abs().sum()) > 0
 
+
+
+# -- the rows kernel at the hnsw engine's shape -----------------------------------------
+
+
+@pytest.mark.parametrize("stage", ["row_warps", "entry_lanes"])
+@pytest.mark.parametrize("C", [8, 32])
+@pytest.mark.parametrize("codec,vq", VARIANTS, ids=[f"{c}-{v}" for c, v in VARIANTS])
+def test_rows_kernel_at_the_graph_shape(cuda, codec, vq, C, stage):
+    """64 queries, one set per query of the engine's 8 seeds or 32
+    neighbours, in both stages that take the shape: sets that are all the
+    sentinel (a step with nothing fresh), all real rows, and a mix."""
+    fwd, arrays = edge_rows(seed=40, n_random=200, codec=codec, vq=vq)
+    streams = _on(arrays, cuda)
+    rng = np.random.default_rng(41)
+    nq, N = 64, fwd.n_docs
+    Q = torch.from_numpy(rng.random((nq, DIM)).astype(np.float32)).to(cuda)
+    fresh = rng.integers(0, N, size=(nq, C)).astype(np.int32)
+    mixed = np.where(rng.random((nq, C)) < 0.5, fresh, N).astype(np.int32)
+    for name, ids in (("sentinel", np.full((nq, C), N, np.int32)), ("fresh", fresh),
+                      ("mixed", mixed)):
+        docs = torch.from_numpy(ids).to(cuda)
+        before = rows_dot.stage_launches[stage]
+        got = rows_dot.rows_scores_for_codec(codec, streams, Q, docs, 0.5, stage=stage)
+        torch.cuda.synchronize()
+        assert rows_dot.stage_launches[stage] == before + 1, name
+        want = rows_dot.rows_scores_plain(codec, streams, Q, docs, 0.5)
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4, msg=name)
+        if name == "sentinel":
+            assert torch.all(got == 0)
+
+
+@pytest.mark.parametrize("codec,vq", [("dotvbyte", "f16"), ("bitpack", "pq")])
+def test_hnsw_search_on_the_card(cuda, codec, vq):
+    """The hnsw engine on the card: 1 + iters rows-kernel launches a
+    search, each in the stage ``pick_stage`` names for its set size, and
+    the ids of ``backend="torch"`` on the same arrays."""
+    from repro_torch.data.synthetic import generate_collection, splade_config
+    from repro_torch.serve.api import Retriever, RetrieverConfig
+
+    col = generate_collection(splade_config(400, 16, 3), value_format="f16")
+    Q = np.stack([col.query_dense(i) for i in range(col.n_queries)])
+    params = dict(beam=32, iters=20, n_seeds=8, m=16, ef_construction=48)
+    cfg = RetrieverConfig(engine="hnsw", codec=codec, vq=vq, backend="cuda", params=params)
+    r = Retriever.build(col.fwd, cfg, device=cuda)
+    rows_dot.reset_launches()
+    ids, scores = r.search(Q)
+    torch.cuda.synchronize()
+    assert rows_dot.launches == 1 + params["iters"]
+    want = {rows_dot.pick_stage(16, 16, dim=col.fwd.dim, C=C): 0 for C in (8, 32)}
+    want[rows_dot.pick_stage(16, 16, dim=col.fwd.dim, C=8)] += 1
+    want[rows_dot.pick_stage(16, 16, dim=col.fwd.dim, C=32)] += params["iters"]
+    assert {k: v for k, v in rows_dot.stage_launches.items() if v} == want
+    plain = Retriever(cfg.replace(backend="torch"), r.arrays, n_docs=r.n_docs, dim=r.dim,
+                      value_scale=r.value_scale, value_format=r.value_format, device=cuda)
+    want_ids, want_scores = plain.search(Q)
+    torch.testing.assert_close(scores, want_scores, rtol=1e-5, atol=1e-4)
+    diff = ids != want_ids
+    assert torch.allclose(scores[diff], want_scores[diff], rtol=1e-5, atol=0)

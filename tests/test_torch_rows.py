@@ -316,15 +316,18 @@ def test_rows_stage_rules(nq, nd, dim, stage):
     per query (one query over one set included) whose row fits in shared
     memory beside the PQ codebook (else entry lanes), query lanes or
     entry lanes for one set shared by 2 or more queries; a forced
-    row-warp stage is checked against the same rule."""
+    row-warp stage is checked against the same rule. The sets are large
+    enough for row warps (``test_small_sets_take_entry_lanes`` holds the
+    size rule)."""
+    C = rows_dot.ROW_WARPS_MIN_ROWS
     assert rows_dot.row_warps_fit(dim) is (dim <= 57000)
-    assert rows_dot.pick_stage(nq, nd, dim=dim) == stage
-    assert rows_dot.pick_stage(nq, nd, "entry_lanes", dim=dim) == "entry_lanes"
+    assert rows_dot.pick_stage(nq, nd, dim=dim, C=C) == stage
+    assert rows_dot.pick_stage(nq, nd, "entry_lanes", dim=dim, C=C) == "entry_lanes"
     if nd == nq and rows_dot.row_warps_fit(dim):
-        assert rows_dot.pick_stage(nq, nd, "row_warps", dim=dim) == "row_warps"
+        assert rows_dot.pick_stage(nq, nd, "row_warps", dim=dim, C=C) == "row_warps"
     else:
         with pytest.raises(ValueError, match="row warps score one candidate set per query"):
-            rows_dot.pick_stage(nq, nd, "row_warps", dim=dim)
+            rows_dot.pick_stage(nq, nd, "row_warps", dim=dim, C=C)
 
 
 @pytest.mark.parametrize("nq,nd,stage", [(64, 64, "row_warps"), (3, 1, "entry_lanes"),
@@ -332,8 +335,8 @@ def test_rows_stage_rules(nq, nd, dim, stage):
 def test_cuda_tensors_take_the_picked_stage(nq, nd, stage, monkeypatch):
     """On (fake) CUDA tensors the wrapper launches the stage
     :func:`rows_dot.pick_stage` gives for the shapes: the Seismic shape
-    (one candidate set per query, query rows of 512 floats) goes to row
-    warps."""
+    (one candidate set of 4,096 rows per query, query rows of 512 floats)
+    goes to row warps."""
     fwd = ForwardIndex.from_docs(edge_docs(512, np.random.default_rng(0), n_random=4,
                                            full=40), 512, "f16")
     arrays = {k: torch.from_numpy(v).as_subclass(_FakeCuda)
@@ -341,6 +344,35 @@ def test_cuda_tensors_take_the_picked_stage(nq, nd, stage, monkeypatch):
     seen = []
     monkeypatch.setattr(rows_dot, "_launch", lambda *args: seen.append(args[-1]))
     Q = torch.zeros((nq, 512)).as_subclass(_FakeCuda)
-    docs = torch.zeros((nd, 4), dtype=torch.int32).as_subclass(_FakeCuda)
+    docs = torch.zeros((nd, 4096), dtype=torch.int32).as_subclass(_FakeCuda)
     rows_dot.rows_scores_for_codec("dotvbyte", arrays, Q, docs)
     assert seen == [stage]
+
+
+@pytest.mark.parametrize("nq,C", [(64, 1), (64, 8), (64, 32), (64, 1023), (64, 1024), (64, 4096),
+                                  (8, 8191), (8, 8192), (1, 4096), (1, 65535), (1, 65536)])
+def test_small_sets_take_entry_lanes(nq, C, monkeypatch):
+    """Sets per query of fewer than ``ROW_WARPS_MIN_ROWS`` rows in all
+    (the hnsw engine's seeds and neighbours, a one-query Seismic search)
+    take entry lanes, more rows row warps; a scorer made once picks per
+    call from that call's ``docs``; a forced stage takes any set size."""
+    want = "row_warps" if nq * C >= rows_dot.ROW_WARPS_MIN_ROWS else "entry_lanes"
+    assert rows_dot.pick_stage(nq, nq, dim=30522, C=C) == want
+    assert rows_dot.pick_stage(nq, nq, "row_warps", dim=30522, C=C) == "row_warps"
+    assert rows_dot.pick_stage(64, 1, dim=30522, C=C) == "query_lanes"
+    fwd = ForwardIndex.from_docs(edge_docs(512, np.random.default_rng(0), n_random=4,
+                                           full=40), 512, "f16")
+    arrays = {k: torch.from_numpy(v).as_subclass(_FakeCuda)
+              for k, v in layout.pack_rows(fwd, codec="dotvbyte").arrays().items()}
+    seen = []
+    monkeypatch.setattr(rows_dot, "_launch", lambda *args: seen.append(args[-1]))
+    score = rows_dot.rows_scorer("dotvbyte", arrays, torch.zeros((nq, 512)).as_subclass(_FakeCuda))
+    for c in (C, rows_dot.ROW_WARPS_MIN_ROWS):
+        score(torch.zeros((nq, c), dtype=torch.int32).as_subclass(_FakeCuda))
+    assert seen == [want, "row_warps"]
+    with pytest.raises(ValueError, match="docs must be 2-D"):
+        score(torch.zeros((nq, C), dtype=torch.int64).as_subclass(_FakeCuda))
+    with pytest.raises(ValueError, match="span devices"):
+        score(torch.zeros((nq, C), dtype=torch.int32))
+    with pytest.raises(ValueError, match="candidate sets"):
+        score(torch.zeros((2, C), dtype=torch.int32).as_subclass(_FakeCuda))

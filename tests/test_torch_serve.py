@@ -167,6 +167,27 @@ def test_cli_runs_end_to_end(tmp_path, capsys):
     assert (tmp_path / "seismic-dotvbyte" / "manifest.json").is_file()
 
 
+def test_cli_hnsw_sweeps_one_host_graph(tmp_path, capsys):
+    """``--engine hnsw --compare-codecs`` builds the graph once at the
+    reference CLI's parameters and serves every row codec over it: the
+    same recall for every codec (compression is lossless), and every
+    reopened artifact returns the build-time top-k."""
+    argv = ["--device", "cpu", "--engine", "hnsw", "--n-docs", "300", "--n-queries", "3",
+            "--beam", "32", "--iters", "24", "--compare-codecs"]
+    serve_cli.main(argv + ["--save-index", str(tmp_path)])
+    serve_cli.main(argv + ["--load-index", str(tmp_path), "--backend", "torch"])
+    out = capsys.readouterr().out
+    assert out.count("hnsw: host index built") == 1
+    lines = [ln for ln in out.splitlines() if "recall@10=" in ln]
+    assert [ln.split("codec=")[1].split()[0] for ln in lines] == sorted(
+        ["uncompressed", "dotvbyte", "streamvbyte", "bitpack"]) * 2
+    assert all(ln.startswith("hnsw ") for ln in lines)
+    assert len({ln.split("recall@10=")[1].split()[0] for ln in lines}) == 1
+    assert all("roundtrip=ids-identical" in ln for ln in lines[4:])
+    manifest = api.load_manifest(tmp_path / "hnsw-dotvbyte")
+    assert manifest["params"] == dict(beam=32, iters=24, n_seeds=8, m=16, ef_construction=48)
+
+
 def test_cli_compare_codecs_sweeps_one_host_index(tmp_path, capsys):
     """``--compare-codecs`` builds the Seismic host index once and serves
     every row codec over it; compression is lossless, so recall is the
@@ -198,6 +219,7 @@ def test_import_leaves_jax_and_reference_out():
         "import repro_torch, repro_torch.serve.api, repro_torch.launch.serve\n"
         "import repro_torch.kernels.rows_dot, repro_torch.kernels.build\n"
         "import repro_torch.serve.engines, repro_torch.data.synthetic\n"
+        "import repro_torch.core.hnsw, repro_torch.serve.engines.hnsw\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
@@ -238,4 +260,53 @@ def test_config_validation(collection):
         api.Retriever.build(port.fwd, api.RetrieverConfig(engine="flat", n_shards=2),
                             device="cpu")
     with pytest.raises(ValueError, match="no registered engine"):
-        api.get_engine("hnsw")
+        api.get_engine("ivf")
+
+
+# -- C1: a k past the axis raises where the reference raises ----------------------
+
+
+@pytest.fixture(scope="module")
+def c1_collection():
+    """ROADMAP C1's probe: 600 docs at dim 2,000, 4 queries."""
+    kw = dict(name="splade", dim=2000, n_docs=600, n_queries=4, seed=0)
+    ref = ref_synthetic.generate_collection(ref_synthetic.SyntheticConfig(**kw), value_format="f16")
+    port = synthetic.generate_collection(synthetic.SyntheticConfig(**kw), value_format="f16")
+    Q = np.stack([port.query_dense(i) for i in range(port.n_queries)])
+    return ref, port, Q
+
+
+def _raises_like_reference(ref_fwd, port_fwd, Q, **cfg):
+    """Both packages raise ValueError with the same ``jax.lax.top_k``
+    message (the axis and k it names are the same)."""
+    with pytest.raises(ValueError, match="k argument to top_k") as want:
+        ref_api.Retriever.build(ref_fwd, ref_api.RetrieverConfig(backend="jnp", **cfg)).search(Q)
+    for backend in ("torch", "cuda"):
+        r = api.Retriever.build(port_fwd, api.RetrieverConfig(backend=backend, **cfg),
+                                device="cpu")
+        with pytest.raises(ValueError, match="k argument to top_k") as got:
+            r.search(Q)
+        assert str(got.value) == str(want.value)
+
+
+def test_c1_seismic_k_above_candidates_raises(c1_collection):
+    ref, port, Q = c1_collection
+    _raises_like_reference(ref.fwd, port.fwd, Q, engine="seismic", k=50, params=dict(
+        cut=3, block_budget=100, n_probe=5, block_size=8))
+
+
+def test_c1_seismic_n_probe_above_budget_raises(c1_collection):
+    ref, port, Q = c1_collection
+    _raises_like_reference(ref.fwd, port.fwd, Q, engine="seismic", params=dict(
+        n_probe=30, block_budget=8, block_size=8))
+
+
+def test_c1_flat_k_above_rows_raises(c1_collection):
+    ref, port, Q = c1_collection
+    _raises_like_reference(ref.fwd.slice(0, 20), port.fwd.slice(0, 20), Q, engine="flat", k=25)
+    # k = N + 1 takes every row, the sentinel last
+    r = api.Retriever.build(port.fwd.slice(0, 20), api.RetrieverConfig(engine="flat", k=21),
+                            device="cpu")
+    ids, scores = r.search(Q)
+    assert ids.shape == (len(Q), 21) and torch.all(ids[:, -1] == 20)
+    assert torch.all(torch.isinf(scores[:, -1]))
