@@ -43,15 +43,20 @@ no result:
    only their packed rows (``pack_rows``) into a ``Retriever`` over the
    same device-resident Seismic arrays. Every variant is searched with
    ``backend="cuda"``; the flat engine runs the four row codecs at f16
-   and DotVByte at the three quantized value codecs. The kernels' launch
-   counts are zeroed just before this phase and read just after: every
-   variant launched, and every Seismic search through the row-warp
-   stage;
+   and DotVByte at the three quantized value codecs.
+   ``Retriever.search`` runs the plan of its batch's bucket: a first
+   search warms it eagerly, captures it as one CUDA graph and replays it.
+   The kernels' launch counts are zeroed just before this phase and read
+   just after, the eager warm-ups from the wrappers' counts and the
+   replays from each plan's record of the launches its graph holds:
+   every variant launched, each plan holds the launches of its warm-up,
+   and every Seismic launch took the row-warp stage;
 4. checks and timings, per variant — Seismic ids equal to
    ``backend="torch"`` (tie-aware: a position may differ only where the
    two scores agree within rtol 1e-5), f16 flat ids equal to
    ``exact_top_k``, recall@10, search latency on both backends (host
-   clock around ``torch.cuda.synchronize()``, after a warm-up), bits per component
+   clock around ``torch.cuda.synchronize()``, after a warm-up; the
+   replayed plan and the engine run eagerly), bits per component
    (``ForwardIndex.storage_bytes``) and stored row bytes, and the
    kernel's time (CUDA events) beside its plain version and its bound at
    the Seismic shape (both stages) and the flat shape, with
@@ -81,17 +86,32 @@ no result:
    insertion loops) with the same 64 queries, every rows variant served
    by swapping only its packed rows (dotvbyte/f16 saved and reopened
    with ``open_retriever``), searched with ``backend="cuda"``. Counts are
-   zeroed just before and read just after: every search launched the
-   rows kernel 1 + iters times, in the stages ``pick_stage`` names for 8
-   seeds and M0 = 32 neighbours. Per variant: ids tie-aware equal to
+   zeroed just before and read just after (warm-ups and plan replays, as
+   in phase 3): every search's plan holds 1 + iters rows launches, as its
+   warm-up launched, in the stages ``pick_stage`` names for 8 seeds and
+   M0 = 32 neighbours. Per variant: ids tie-aware equal to
    ``backend="torch"``, recall@10 against ``exact_top_k`` over the
    prefix, latency on both backends, graph bytes and bits per
    component, and the kernel at the graph's shape (nq 64 × C 8 and 32)
    in both stages beside its plain version and bound; the sweep over C
-   at nq 64, 8 and 1 behind ``ROW_WARPS_MIN_ROWS``; the wrapper's host
-   time a launch; and the
-   profile of one dotvbyte/f16 search;
-7. one JSON line of kernels, the card line, and as the last line
+   at nq 64, 8 and 1 behind ``ROW_WARPS_MIN_ROWS``; and the wrapper's
+   host time a launch;
+7. the serving pipeline (``serve/pipeline.py``) over the Seismic, hnsw
+   and flat retrievers of phases 3 and 6: every bucket of
+   ``DEFAULT_BUCKETS`` captured (its capture time and graph pool bytes
+   printed) and its replay held bit for bit against the engine run
+   eagerly on the same padded batch, full and ragged; the same at bucket
+   64 for all 16 variants of each engine; a synthetic trace of 256
+   requests (seed 0, repeat share 0.25) through ``Pipeline`` (deadline
+   1000 µs, cache 1024) per engine with every response held to direct
+   search under the parity rule (byte-identical where the dispatch
+   bucket's plan took the direct plan's stages, else scores within rtol
+   1e-5; ``launch/serve.py::trace_parity``), its launches counted from
+   zero, and the ServeStats line; and per engine, replayed against
+   eager, the host-clock median of 10 searches and one profile of 5
+   (device busy time, idle share, kernels a search, the rows kernel's
+   device time a launch);
+8. one JSON line of kernels, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -172,6 +192,41 @@ def host_ms(fn, reps: int) -> list[float]:
         torch.cuda.synchronize()
         out.append(1e3 * (time.perf_counter() - t0))
     return out
+
+
+def eager_search(ret, Q):
+    """``ret``'s engine search run eagerly on ``Q`` — the path a plan
+    captures, launched op by op."""
+    return ret.impl.search_batch(ret.cfg, ret.n_docs, ret.value_scale, ret.arrays, Q)
+
+
+def search_plan(ret, nq: int):
+    """The plan ``ret.search`` runs for a batch of ``nq`` queries."""
+    return ret.plans.get(ret.plans.bucket_for(nq))
+
+
+def replay_marks(retrievers) -> dict:
+    """Each plan of ``retrievers`` → its replays so far."""
+    return {p: p.replays for r in retrievers for p in r.plans.created().values()}
+
+
+def path_launches(retrievers, marks: dict) -> tuple[dict, dict]:
+    """The rows kernel's launches on a path since the counts were zeroed
+    and ``marks`` taken, per variant and per stage: the wrapper's counts
+    (the eager launches — each plan's warm-up before its capture) plus,
+    for every plan of ``retrievers``, the launches its CUDA graph holds
+    times its replays since."""
+    from repro_torch.kernels import rows_dot
+
+    variants, stages = dict(rows_dot.variant_launches), dict(rows_dot.stage_launches)
+    for r in retrievers:
+        for p in r.plans.created().values():
+            n = p.replays - marks.get(p, 0)
+            for k, c in p.launches["variants"].items():
+                variants[k] += c * n
+            for k, c in p.launches["stages"].items():
+                stages[k] += c * n
+    return variants, stages
 
 
 def device_breakdown(name: str, fn, card: str, reps: int = 5, out: dict | None = None) -> set[str]:
@@ -813,11 +868,12 @@ def _ms(v) -> str:
     return "not measured" if v is None else f"{v:.4f}"
 
 
-def hnsw_phase(fwd, Q_np, Q, n_docs: int, card: str, max_err: dict, rows_full) -> dict:
+def hnsw_phase(fwd, Q_np, Q, n_docs: int, card: str, max_err: dict, rows_full):
     """Phase 6: the hnsw engine over docs ``[0, n_docs)`` of the main
-    collection, every rows variant over ONE host graph → per variant its
-    records (launches on this path, checks, timings at the graph's
-    shape), plus the C sweep and the profile under ``"_phase"``."""
+    collection, every rows variant over ONE host graph → (per variant its
+    records — launches on this path, checks, timings at the graph's
+    shape — plus the C sweep under ``"_phase"``; the retrievers by
+    variant)."""
     from repro_torch.core.layout import pack_rows
     from repro_torch.core.seismic import exact_top_k, recall_at_k
     from repro_torch.kernels import rows_dot
@@ -859,19 +915,25 @@ def hnsw_phase(fwd, Q_np, Q, n_docs: int, card: str, max_err: dict, rows_full) -
                 value_format=sub.value_format.name)
         name = rows_dot.variant_name(codec, vq)
         before, stages_before = rows_dot.variant_launches[name], dict(rows_dot.stage_launches)
-        results[codec, vq] = served[codec, vq].search(Q)
+        results[codec, vq] = served[codec, vq].search(Q)  # warm-up, capture, replay
         torch.cuda.synchronize()
-        per_search[codec, vq] = rows_dot.variant_launches[name] - before
-        stage_per[codec, vq] = {k: v - stages_before[k] for k, v in rows_dot.stage_launches.items()
-                                if v > stages_before[k]}
-    launches = dict(rows_dot.variant_launches)
-    stages = dict(rows_dot.stage_launches)
+        plan = search_plan(served[codec, vq], nq)
+        per_search[codec, vq] = plan.launches["variants"].get(name, 0)
+        stage_per[codec, vq] = plan.launches["stages"]
+        warm = {k: v - stages_before[k] for k, v in rows_dot.stage_launches.items()
+                if v > stages_before[k]}
+        if (rows_dot.variant_launches[name] - before, warm) != (per_search[codec, vq],
+                                                                stage_per[codec, vq]):
+            raise SystemExit(f"hnsw {name}: the warm-up launched {warm}, the captured plan "
+                             f"holds {plan.launches}")
+    launches, stages = path_launches(served.values(), {})
     seed_stage = rows_dot.pick_stage(nq, nq, dim=dim, C=n_seeds)
     step_stage = rows_dot.pick_stage(nq, nq, dim=dim, C=m0)
     want = {seed_stage: 0, step_stage: 0}
     want[seed_stage] += 1
     want[step_stage] += iters
-    log(f"    hnsw main path in {time.perf_counter() - t0:.1f}s; launches: "
+    log(f"    hnsw main path in {time.perf_counter() - t0:.1f}s; launches (warm-ups + graph "
+        f"replays): "
         + ", ".join(f"{k}={launches[rows_dot.variant_name(*k)]}" for k in per_search)
         + "; by stage " + ", ".join(f"{k}={v}" for k, v in stages.items())
         + f"; per search {want} (seeds C={n_seeds} {seed_stage}, steps C={m0} {step_stage})")
@@ -906,6 +968,7 @@ def hnsw_phase(fwd, Q_np, Q, n_docs: int, card: str, max_err: dict, rows_full) -
         recall = float(np.mean([recall_at_k(truth[i][0], ids_np[i]) for i in range(nq)]))
         ret.search(Q)  # warm
         lat = host_ms(lambda: ret.search(Q), 10)
+        lat_eager = host_ms(lambda: eager_search(ret, Q), 10)
         plain.search(Q)
         lat_t = host_ms(lambda: plain.search(Q), 10)
         sizes = index.index_bytes(codec)
@@ -928,7 +991,8 @@ def hnsw_phase(fwd, Q_np, Q, n_docs: int, card: str, max_err: dict, rows_full) -
                     codec, ret.arrays, Q, docs, scale), 10, 1),
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None, max_abs_err=max(errs)))
         log(f"  {name} hnsw: cuda==torch ({swaps} tied swaps), recall@10 {recall:.4f}, median "
-            f"{statistics.median(lat):.3f} ms/batch of {nq} (min {min(lat):.3f}; backend=torch "
+            f"{statistics.median(lat):.3f} ms/batch of {nq} replayed (min {min(lat):.3f}; eager "
+            f"{statistics.median(lat_eager):.3f}; backend=torch replayed "
             f"{statistics.median(lat_t):.3f}); {bits:.2f} bits/comp "
             f"({100 * (1 - sizes['forward_components'] / raw):.1f}% saved), graph "
             f"{sizes['graph']} B of {sizes['total']} B ({card})")
@@ -936,6 +1000,7 @@ def hnsw_phase(fwd, Q_np, Q, n_docs: int, card: str, max_err: dict, rows_full) -
             launches=launches[name], launches_per_search=per_search[codec, vq],
             stage_per_search=stage_per[codec, vq], at_shapes=shapes, recall_at_10=recall,
             tied_swaps=swaps, search_ms_median=statistics.median(lat),
+            search_ms_median_eager=statistics.median(lat_eager),
             search_ms_median_torch_backend=statistics.median(lat_t),
             bits_per_component=bits, index_bytes=sizes)
 
@@ -997,22 +1062,133 @@ def hnsw_phase(fwd, Q_np, Q, n_docs: int, card: str, max_err: dict, rows_full) -
     phase["wrapper_host_us_per_launch"] = host_us
     log(f"    rows wrapper host time per launch at C={m0}: {host_us:.1f} us (scorer made once "
         f"a search; {card})")
-    prof = {}
-    device_breakdown("hnsw dotvbyte f16", lambda: dvh.search(Q), card, out=prof)
-    if prof.get("busy_ms"):  # empty where the profiler traced no device time
-        rows_k = {k: v for k, v in prof["kernels"].items() if "rows_dot" in k}
-        rows_ms = sum(ms for ms, _ in rows_k.values())
-        n_kernels = sum(n for _, n in prof["kernels"].values())
-        log(f"    hnsw profile: rows kernel {rows_ms:.4f} ms of {prof['busy_ms']:.4f} ms busy "
-            f"({100 * rows_ms / max(prof['busy_ms'], 1e-9):.1f}%), "
-            f"{sum(n for _, n in rows_k.values()):.0f} rows launches and {n_kernels:.0f} "
-            f"kernels a search ({card})")
-        phase["profile"] = dict(wall_ms=prof["wall_ms"], busy_ms=prof["busy_ms"],
-                                idle_share=1 - prof["busy_ms"] / prof["wall_ms"],
-                                rows_ms=rows_ms,
-                                rows_launches=sum(n for _, n in rows_k.values()),
-                                kernels_per_search=n_kernels)
     shutil.rmtree(ROOT / "build" / "chip_smoke", ignore_errors=True)
+    return out, served
+
+
+#: phase 7's trace: requests, generator seed, repeat share, deadline (µs), cache entries
+TRACE = dict(requests=256, seed=0, repeat_frac=0.25, deadline_us=1000.0, cache_size=1024)
+
+
+def check_replay(name: str, ret, plan, Qn) -> None:
+    """A plan's replay on ``Qn`` against the engine run eagerly on the
+    same batch padded with zero queries: the same kernels in the same
+    stages, so bit for bit."""
+    ids, scores = plan(Qn)
+    pad = torch.cat([Qn, Qn.new_zeros((plan.key.bucket - Qn.shape[0], Qn.shape[1]))])
+    want_ids, want_scores = (t[: Qn.shape[0]] for t in eager_search(ret, pad))
+    if not (torch.equal(ids, want_ids) and torch.equal(scores, want_scores)):
+        raise SystemExit(f"{name}: the replayed plan differs from eager search_batch on the "
+                         "same padded batch")
+
+
+def pipeline_phase(served: dict, Q_np, Q, card: str) -> dict:
+    """Phase 7: the serving pipeline over the dotvbyte/f16 retriever of
+    each engine (``served[engine][codec, vq]``) → per engine its records:
+    every bucket's plan captured and its replay held against eager; the
+    16 variants' bucket-64 plans held the same way; a synthetic trace
+    through ``Pipeline`` with every response held to direct search under
+    the parity rule (``launch/serve.py::trace_parity``), its launches
+    counted from zero; graph against eager latency and profiles."""
+    from repro_torch.kernels import rows_dot
+    from repro_torch.launch.serve import PARITY_RTOL, trace_parity
+    from repro_torch.serve.pipeline import DEFAULT_BUCKETS, ServeStats, synthetic_trace
+
+    nq, dim = Q.shape
+    out = {}
+    for engine, rets in served.items():
+        ret = rets["dotvbyte", "f16"]
+        rec = out[engine] = {"buckets": {}}
+        # 1. every bucket: capture, then replay vs eager on a full and a ragged batch
+        for b in DEFAULT_BUCKETS:
+            plan = ret.plans.get(b)
+            t0 = time.perf_counter()
+            captured = plan.warm(dim)
+            warm_s = time.perf_counter() - t0
+            for n in sorted({min(b, nq), min(b // 2 + 1, nq)}):
+                check_replay(f"{engine} bucket {b} n={n}", ret, plan, Q[:n])
+            rec["buckets"][b] = dict(
+                captured_here=captured, warm_s=warm_s if captured else None,
+                capture_s=plan.capture_s, pool_bytes=plan.pool_bytes,
+                stages=plan.launches["stages"],
+                rows_launches=sum(plan.launches["stages"].values()))
+        log(f"[7] {engine} dotvbyte f16: every bucket's replay == eager bitwise (full and ragged "
+            f"batch); per bucket: capture s (warm-up + capture s), graph pool MiB, rows stages "
+            f"({card}): " + "; ".join(
+                f"b{b} {r['capture_s']:.3f}"
+                + (f" ({r['warm_s']:.3f})" if r["warm_s"] is not None else " (phase 3/6)")
+                + f", {r['pool_bytes'] / 2**20:.1f}, {r['stages']}"
+                for b, r in rec["buckets"].items()))
+        # 2. every variant's bucket-64 plan
+        pools = {}
+        for v, r in rets.items():
+            plan = search_plan(r, nq)
+            plan.warm(dim)
+            check_replay(f"{engine} {rows_dot.variant_name(*v)} bucket {nq}", r, plan, Q)
+            check_replay(f"{engine} {rows_dot.variant_name(*v)} bucket {nq} ragged", r, plan,
+                         Q[: nq // 2 + 1])
+            pools[rows_dot.variant_name(*v)] = plan.pool_bytes
+        rec["variant_pool_bytes"] = pools
+        log(f"    {engine}: all {len(rets)} variants' bucket-{nq} replays == eager bitwise (full "
+            f"and ragged); their graph pools {min(pools.values()) / 2**20:.1f}–"
+            f"{max(pools.values()) / 2**20:.1f} MiB, {sum(pools.values()) / 2**20:.1f} MiB in all; "
+            f"reserved on the card now {torch.cuda.memory_reserved() / 2**30:.2f} GiB ({card})")
+        # 3. the trace through the pipeline: this slice's path, counted from zero
+        direct_ids, direct_scores = (t.cpu().numpy() for t in ret.search(Q))
+        pipe = ret.pipeline(deadline_us=TRACE["deadline_us"], cache_size=TRACE["cache_size"])
+        pipe.warm()
+        trace = synthetic_trace(np.random.default_rng(TRACE["seed"]), TRACE["requests"], nq,
+                                repeat_frac=TRACE["repeat_frac"])
+        rows_dot.reset_launches()
+        marks = replay_marks([ret])
+        tickets = []
+        t0 = time.perf_counter()
+        for qi in trace:
+            pipe.poll()
+            tickets.append(pipe.submit(Q_np[qi]))
+        pipe.flush()
+        torch.cuda.synchronize()
+        trace_s = time.perf_counter() - t0
+        variants_l, stages_l = path_launches([ret], marks)
+        if variants_l[rows_dot.variant_name("dotvbyte", "f16")] <= 0:
+            raise SystemExit(f"{engine}: the pipeline trace launched no rows kernel")
+        counts = trace_parity(pipe, trace, tickets, direct_ids, direct_scores,
+                              ret.plans.bucket_for(nq))
+        snap = pipe.snapshot()
+        rec.update(trace_s=trace_s, parity=counts, snapshot=snap,
+                   rows_launches=variants_l[rows_dot.variant_name("dotvbyte", "f16")],
+                   rows_stage_launches={k: n for k, n in stages_l.items() if n})
+        log(f"    {engine} trace ({TRACE}): {trace_s:.3f}s, responses: "
+            f"{counts['bitwise_same_stage']} bitwise (same stage as direct), "
+            f"{counts['rtol_other_stage']} within rtol {PARITY_RTOL} (other stage; "
+            f"{counts['bitwise_other_stage']} of them bitwise, {counts['tied_swaps_other_stage']} "
+            f"tied swaps), {counts['cache_replays']} cache replays; rows launches "
+            f"{rec['rows_launches']} {rec['rows_stage_launches']} ({card})")
+        log(f"    {engine} ServeStats: {ServeStats.summary(snap)}")
+        # 4. graph against eager: host clock in turns, then one profile each
+        lat = {"graph": [], "eager": []}
+        calls = {"graph": lambda: ret.search(Q), "eager": lambda: eager_search(ret, Q)}
+        for mode in ("eager", "graph", "graph", "eager"):
+            lat[mode] += host_ms(calls[mode], 5)
+        for mode, fn in calls.items():
+            prof = {}
+            device_breakdown(f"{engine} dotvbyte f16 {mode}", fn, card, out=prof)
+            row = dict(search_ms_median=statistics.median(lat[mode]))
+            if prof.get("busy_ms"):  # empty where the profiler traced no device time
+                rows_k = {k: v for k, v in prof["kernels"].items() if "rows_dot" in k}
+                rows_n = sum(n for _, n in rows_k.values())
+                row.update(wall_ms=prof["wall_ms"], busy_ms=prof["busy_ms"],
+                           idle_share=1 - prof["busy_ms"] / prof["wall_ms"],
+                           kernels_per_search=sum(n for _, n in prof["kernels"].values()),
+                           rows_ms=sum(ms for ms, _ in rows_k.values()), rows_launches=rows_n,
+                           rows_ms_per_launch=sum(ms for ms, _ in rows_k.values()) / rows_n
+                           if rows_n else None)
+            rec[mode] = row
+        g, e = rec["graph"], rec["eager"]
+        log(f"    {engine} search of {nq}, graph vs eager ({card}): median "
+            f"{g['search_ms_median']:.3f} vs {e['search_ms_median']:.3f} ms; "
+            + "; ".join(f"{k} {_ms(g.get(k))} vs {_ms(e.get(k))}" for k in (
+                "busy_ms", "idle_share", "kernels_per_search", "rows_ms_per_launch")))
     return out
 
 
@@ -1233,27 +1409,31 @@ def main() -> int:
         row_bytes[codec, vq] = sum(v.numel() * v.element_size() for v in rows.values())
         pack_s = time.perf_counter() - t1
         name = names[codec, vq]
-        before = rows_dot.variant_launches[name]
-        results["seismic", codec, vq] = seismic[codec, vq].search(Q)
-        torch.cuda.synchronize()
-        per_search["seismic", codec, vq] = rows_dot.variant_launches[name] - before
-        if (codec, vq) in flat:
+        # a first search warms its plan eagerly (wrapper counts), captures it (the
+        # plan's record) and replays it: the record must be the warm-up's launches
+        for engine, ret in (("seismic", seismic[codec, vq]), ("flat", flat.get((codec, vq)))):
+            if ret is None:
+                continue
             before = rows_dot.variant_launches[name]
-            results["flat", codec, vq] = flat[codec, vq].search(Q)
+            results[engine, codec, vq] = ret.search(Q)
             torch.cuda.synchronize()
-            per_search["flat", codec, vq] = rows_dot.variant_launches[name] - before
+            warm = rows_dot.variant_launches[name] - before
+            plan = search_plan(ret, nq)
+            per_search[engine, codec, vq] = plan.launches["variants"].get(name, 0)
+            if warm != per_search[engine, codec, vq] or plan.replays != 1:
+                raise SystemExit(f"{engine} {name}: the warm-up launched {warm}, the captured "
+                                 f"plan holds {plan.launches} ({plan.replays} replays)")
         log(f"    {name:28s} rows packed + placed in {pack_s:.1f}s, "
             f"{row_bytes[codec, vq] / 2**20:.1f} MiB on the card")
-    launches = dict(rows_dot.variant_launches)
-    rows_stage_launches = dict(rows_dot.stage_launches)
-    log("    main path launches: " + ", ".join(f"{names[v]}={launches[names[v]]}"
-                                               for v in variants)
+    launches, rows_stage_launches = path_launches([*seismic.values(), *flat.values()], {})
+    log("    main path launches (warm-ups + graph replays): "
+        + ", ".join(f"{names[v]}={launches[names[v]]}" for v in variants)
         + "; by stage " + ", ".join(f"{k}={v}" for k, v in rows_stage_launches.items()))
     missing = [names[v] for v in variants if launches[names[v]] <= 0]
     if missing:
         raise SystemExit(f"the main path did not launch {missing}")
-    n_seismic = sum(v for k, v in per_search.items() if k[0] == "seismic")
-    if rows_stage_launches["row_warps"] != n_seismic or n_seismic < len(variants):
+    n_seismic = 2 * sum(v for k, v in per_search.items() if k[0] == "seismic")
+    if rows_stage_launches["row_warps"] != n_seismic or n_seismic < 2 * len(variants):
         raise SystemExit(f"{rows_stage_launches['row_warps']} row-warp launches for "
                          f"{n_seismic} Seismic rescoring launches: the per-query form must "
                          "take the row-warp stage")
@@ -1294,14 +1474,18 @@ def main() -> int:
         n_swapped = same_topk(ids_c, sc_c, ids_t, sc_t)
         ids_np = ids_c.cpu().numpy()
         recall = float(np.mean([recall_at_k(truth[i][0], ids_np[i]) for i in range(nq)]))
-        lat, lat_entry = [], []
-        for turn in range(4):  # entry lanes (the stage before), row warps, row warps, entry
+        # in turns: eager on entry lanes (the stage before row warps), the replayed
+        # plan and eager on row warps, twice, eager on entry lanes
+        lat, lat_eager, lat_entry = [], [], []
+        for turn in range(4):
             if turn in (0, 3):
                 with rows_stage("entry_lanes"):
-                    lat_entry += host_ms(lambda: s_ret.search(Q), 5)
+                    lat_entry += host_ms(lambda: eager_search(s_ret, Q), 5)
             else:
                 lat += host_ms(lambda: s_ret.search(Q), 5)
+                lat_eager += host_ms(lambda: eager_search(s_ret, Q), 5)
         lat_t = host_ms(lambda: s_torch.search(Q), 5)
+        lat_t_eager = host_ms(lambda: eager_search(s_torch, Q), 5)
         comp_bytes = fwd.storage_bytes(codec)["components"]
         bits = 8 * comp_bytes / fwd.total_nnz
         shapes = []
@@ -1342,14 +1526,18 @@ def main() -> int:
                         raise SystemExit(f"{name}: flat ids differ from exact_top_k at query {i}")
                     np.testing.assert_allclose(sc_f[i], t_sc, rtol=1e-5, atol=1e-4)
             f_lat = host_ms(lambda: flat[codec, vq].search(Q), 5)
+            f_lat_eager = host_ms(lambda: eager_search(flat[codec, vq], Q), 5)
             flat_note = (f"; flat {'ids == exact_top_k, ' if vq == 'f16' else ''}"
                          f"recall@10 {f_recall:.4f}, median "
-                         f"{statistics.median(f_lat):.3f} ms/batch")
+                         f"{statistics.median(f_lat):.3f} ms/batch (eager "
+                         f"{statistics.median(f_lat_eager):.3f})")
         s, f = shapes
         log(f"  {name}: seismic cuda==torch ({n_swapped} tied swaps), recall@10 {recall:.4f}, "
-            f"median {statistics.median(lat):.3f} ms/batch of {nq} (min {min(lat):.3f}; "
-            f"entry-lane rows kernel {statistics.median(lat_entry):.3f}; "
-            f"backend=torch {statistics.median(lat_t):.3f}){flat_note}")
+            f"median {statistics.median(lat):.3f} ms/batch of {nq} replayed (min {min(lat):.3f}; "
+            f"eager {statistics.median(lat_eager):.3f}, eager on entry lanes "
+            f"{statistics.median(lat_entry):.3f}; backend=torch replayed "
+            f"{statistics.median(lat_t):.3f}, eager {statistics.median(lat_t_eager):.3f})"
+            f"{flat_note}")
         log(f"    {bits:.2f} bits/comp ({100 * (1 - comp_bytes / raw_bytes):.1f}% saved vs "
             f"16 raw), rows {row_bytes[codec, vq] / 2**20:.1f} MiB; kernel @seismic "
             f"{s['ms']:.4f} ms ({s['stage']}; "
@@ -1374,8 +1562,10 @@ def main() -> int:
             "at_shapes": shapes,
             "recall_at_10": recall,
             "search_ms_median": statistics.median(lat),
+            "search_ms_median_eager": statistics.median(lat_eager),
             "search_ms_median_entry_lanes": statistics.median(lat_entry),
             "search_ms_median_torch_backend": statistics.median(lat_t),
+            "search_ms_median_torch_backend_eager": statistics.median(lat_t_eager),
             "bits_per_component": bits,
             "row_bytes": row_bytes[codec, vq],
         })
@@ -1385,8 +1575,6 @@ def main() -> int:
                     lambda Qn, st: rows_dot.rows_scores_for_codec("dotvbyte", dv, Qn, docs_f,
                                                                   scale, stage=st), Q, card,
                     lambda n: rows_stages(n, 1, fwd.dim, docs_f.shape[1]))
-    device_breakdown("seismic dotvbyte f16", lambda: base.search(Q), card)
-    device_breakdown("flat dotvbyte f16", lambda: flat["dotvbyte", "f16"].search(Q), card)
     shutil.rmtree(ROOT / "build" / "chip_smoke", ignore_errors=True)
     phase_s["4 checks + timings"] = time.perf_counter() - t0
 
@@ -1399,8 +1587,8 @@ def main() -> int:
 
     # -- 6. the hnsw engine --------------------------------------------------------
     t0 = time.perf_counter()
-    hnsw = hnsw_phase(fwd, Q_np, Q, min(args.hnsw_docs, fwd.n_docs), card, max_err,
-                      seismic["dotvbyte", "f16"].arrays)
+    hnsw, hnsw_served = hnsw_phase(fwd, Q_np, Q, min(args.hnsw_docs, fwd.n_docs), card,
+                                   max_err, seismic["dotvbyte", "f16"].arrays)
     for rec in kernels[:n_rows]:
         h = hnsw[next(v for v in variants if names[v] == rec["name"])]
         rec["launches_by_path"] = {"seismic+flat": rec["launches"], "hnsw": h["launches"]}
@@ -1412,7 +1600,21 @@ def main() -> int:
         hnsw["_phase"]
     phase_s["6 hnsw"] = time.perf_counter() - t0
 
-    # -- 7. summary -------------------------------------------------------------
+    # -- 7. the serving pipeline -------------------------------------------------------
+    t0 = time.perf_counter()
+    rows_of = lambda r: {k: v for k, v in r.arrays.items() if k not in engine_arrays}  # noqa: E731
+    flat_all = {v: flat.get(v) or Retriever(
+        cfg_f.replace(codec=v[0], vq=v[1]), rows_of(seismic[v]), n_docs=fwd.n_docs,
+        dim=fwd.dim, value_scale=scale, value_format=fwd.value_format.name) for v in variants}
+    pipe = pipeline_phase({"seismic": seismic, "hnsw": hnsw_served, "flat": flat_all}, Q_np, Q,
+                          card)
+    dv = kernels[[k["name"] for k in kernels].index(names["dotvbyte", "f16"])]
+    dv["launches_by_path"]["pipeline"] = sum(r["rows_launches"] for r in pipe.values())
+    dv["launches"] += dv["launches_by_path"]["pipeline"]
+    dv["pipeline_phase"] = pipe
+    phase_s["7 pipeline"] = time.perf_counter() - t0
+
+    # -- 8. summary -------------------------------------------------------------
     log("phases: " + ", ".join(f"{k} {v:.1f}s" for k, v in phase_s.items()))
     log(f"ported kernels: {n_rows} rows_dot variants and {len(kernels) - n_rows} block-scan "
         f"entries ok; total {time.perf_counter() - t_start:.0f}s")

@@ -38,7 +38,11 @@ checks the row streams and the queries once for a loop of calls over
 one batch. ``launches`` counts
 kernel launches in total, ``variant_launches`` per variant (keyed
 :func:`variant_name`) and ``stage_launches`` per scoring stage, so a
-run can show its main path went through each kernel and stage.
+run can show its main path went through each kernel and stage. A
+launch made while the stream captures a CUDA graph counts in
+``captured_variant_launches`` and ``captured_stage_launches`` instead:
+the kernel runs at each replay, and the plan that captured it records
+how many it holds (``serve/pipeline.py::SearchPlan.launches``).
 """
 
 from __future__ import annotations
@@ -61,6 +65,8 @@ __all__ = [
     "launches",
     "variant_launches",
     "stage_launches",
+    "captured_variant_launches",
+    "captured_stage_launches",
     "variant_name",
     "pick_stage",
     "row_warps_fit",
@@ -117,6 +123,11 @@ launches = 0
 variant_launches = {variant_name(c, v): 0 for c, v in VARIANTS}
 #: launches per scoring stage
 stage_launches = {name: 0 for name in STAGES}
+#: the same two counts for launches recorded into a CUDA graph being
+#: captured (``serve/pipeline.py``): such a kernel runs at each replay of
+#: the graph, not at the call, so the counts above leave it out
+captured_variant_launches = {variant_name(c, v): 0 for c, v in VARIANTS}
+captured_stage_launches = {name: 0 for name in STAGES}
 
 #: rows_dot(codec, vq, vals_t, stage, 9 pointers, nq, dim, nd, C, n_rows,
 #: L, vals_w, p0_w, p1_w, scale, stream)
@@ -145,7 +156,8 @@ def reset_launches() -> None:
     """Set every launch count to 0."""
     global launches
     launches = 0
-    for counts in (variant_launches, stage_launches):
+    for counts in (variant_launches, stage_launches, captured_variant_launches,
+                   captured_stage_launches):
         for k in counts:
             counts[k] = 0
 
@@ -329,7 +341,11 @@ def _launch(codec, vq, Q, docs, streams, scale, stage):
             f"rows_dot kernel launch failed ({codec}, {vq}, {stage}): CUDA error {rc} "
             f"({err(rc).decode()})"
         )
-    launches += 1
-    variant_launches[variant_name(codec, vq)] += 1
-    stage_launches[stage] += 1
+    if torch.cuda.is_current_stream_capturing():
+        captured_variant_launches[variant_name(codec, vq)] += 1
+        captured_stage_launches[stage] += 1
+    else:
+        launches += 1
+        variant_launches[variant_name(codec, vq)] += 1
+        stage_launches[stage] += 1
     return out

@@ -19,6 +19,17 @@ index (the Seismic or HNSW build is the slow part; it is built once).
 (the reference's format) with this run's top-k; ``--load-index DIR``
 serves from them instead of building and checks each reopened index
 returns the same top-k.
+
+``--pipeline`` switches to the online-serving load generator (the
+reference's ``_pipeline_loadgen``): a seeded repeat-heavy trace of
+``--requests`` single queries (``synthetic_trace``, ``--repeat-frac``,
+optional ``--trace-qps`` pacing) is driven through the micro-batching
+scheduler (``--deadline-us``, ``--cache-size``) after every bucket's
+plan is warmed (captured, on the card); every response is checked
+against a direct ``Retriever.search`` of the query batch under the
+parity rule (:func:`trace_parity`), then the ``ServeStats`` line is
+printed. It refuses ``--save-index`` and ``--load-index`` as the
+reference does.
 """
 
 from __future__ import annotations
@@ -52,6 +63,87 @@ def _report(name, codec, backend, k, recs, dt_us, fwd, device, extra=""):
     )
 
 
+#: scores of one response against direct search where the two buckets
+#: took different rows-kernel stages (PERF.md §2's serving tolerance)
+PARITY_RTOL = 1e-5
+
+
+def trace_parity(pipe, trace, tickets, direct_ids, direct_scores, direct_bucket) -> dict:
+    """Hold every trace response against direct search (host numpy
+    ``[n_queries, k]``, run in ``direct_bucket``) → counts per rule.
+
+    A response dispatched in a bucket whose plan launched the same
+    rows-kernel stages as the direct plan's (``SearchPlan.stages``;
+    always on the CPU, where nothing is launched) must be byte-identical;
+    one from a bucket of other stages must have scores within rtol
+    :data:`PARITY_RTOL` at every rank, so ids may differ only at tied
+    positions; a cache hit must replay, byte for byte, a response served
+    for the same query before it. Raises ``AssertionError`` on the first
+    violation."""
+    plans = pipe.plans.created()
+    want_stages = plans[direct_bucket].stages
+    counts = {"bitwise_same_stage": 0, "rtol_other_stage": 0, "bitwise_other_stage": 0,
+              "tied_swaps_other_stage": 0, "cache_replays": 0}
+    served: dict[int, list] = {}
+    for qi, t in zip(trace, tickets):
+        qi = int(qi)
+        if t.from_cache:
+            if not any(np.array_equal(t.ids, i) and np.array_equal(t.scores, s)
+                       for i, s in served.get(qi, ())):
+                raise AssertionError(f"cache hit for query {qi} replays no served response")
+            counts["cache_replays"] += 1
+            continue
+        served.setdefault(qi, []).append((t.ids, t.scores))
+        same = np.array_equal(t.ids, direct_ids[qi]) and np.array_equal(
+            t.scores, direct_scores[qi])
+        if plans[t.bucket].stages == want_stages:
+            if not same:
+                raise AssertionError(
+                    f"query {qi}: bucket {t.bucket} took the direct bucket's stages "
+                    f"{sorted(want_stages)} but its top-k differs from direct search")
+            counts["bitwise_same_stage"] += 1
+            continue
+        if not np.allclose(t.scores, direct_scores[qi], rtol=PARITY_RTOL, atol=0):
+            raise AssertionError(
+                f"query {qi}: bucket {t.bucket} scores differ from direct search beyond "
+                f"rtol {PARITY_RTOL}")
+        counts["rtol_other_stage"] += 1
+        counts["bitwise_other_stage"] += int(same)
+        counts["tied_swaps_other_stage"] += int((t.ids != direct_ids[qi]).sum())
+    return counts
+
+
+def _pipeline_loadgen(retriever, Q, args, rng) -> str:
+    """Drive a synthetic trace through the micro-batching scheduler and
+    hold every response against direct search (:func:`trace_parity`) →
+    the counts and the stats summary. Raises ``AssertionError`` on a
+    parity violation."""
+    from ..serve.pipeline import ServeStats, synthetic_trace
+
+    trace = synthetic_trace(rng, args.requests, Q.shape[0], repeat_frac=args.repeat_frac)
+    direct_ids, direct_scores = (t.cpu().numpy() for t in retriever.search(Q))
+    pipe = retriever.pipeline(deadline_us=args.deadline_us, cache_size=args.cache_size)
+    # capture cost out of the measured trace: p50/p95/p99 cover warm plans only
+    warm = pipe.warm()
+    gap = 1.0 / args.trace_qps if args.trace_qps > 0 else 0.0
+    tickets = []
+    for qi in trace:
+        if gap:
+            time.sleep(gap)
+        pipe.poll()  # fire expired deadlines before admitting
+        tickets.append(pipe.submit(Q[qi]))
+    pipe.flush()
+    counts = trace_parity(pipe, trace, tickets, direct_ids, direct_scores,
+                          retriever.plans.bucket_for(Q.shape[0]))
+    snap = pipe.snapshot()
+    return (f"parity: {counts['bitwise_same_stage']} bitwise (same stage), "
+            f"{counts['rtol_other_stage']} within rtol {PARITY_RTOL} (other stage; "
+            f"{counts['bitwise_other_stage']} bitwise, {counts['tied_swaps_other_stage']} "
+            f"tied swaps), {counts['cache_replays']} cache replays; "
+            f"{ServeStats.summary(snap)} warm_compiles={warm} "
+            f"trace_recompiles={snap['recompiles'] - warm}")
+
+
 def main(argv=None) -> None:
     from ..core.layout import available_layouts
     from ..kernels.modes import BACKENDS
@@ -78,9 +170,25 @@ def main(argv=None) -> None:
                     help="save the built artifact under DIR/<engine>-<codec>/")
     ap.add_argument("--load-index", metavar="DIR", default=None,
                     help="serve from the artifact under DIR instead of building")
+    ap.add_argument("--pipeline", action="store_true",
+                    help="online-serving load generator: drive a synthetic trace "
+                         "through the micro-batching scheduler, hold every response "
+                         "against direct search, report ServeStats")
+    ap.add_argument("--requests", type=int, default=256, help="trace length for --pipeline")
+    ap.add_argument("--deadline-us", type=float, default=1000.0,
+                    help="--pipeline batch-filling deadline (µs)")
+    ap.add_argument("--trace-qps", type=float, default=0.0,
+                    help="--pipeline arrival pacing; 0 = closed-loop")
+    ap.add_argument("--repeat-frac", type=float, default=0.25,
+                    help="--pipeline fraction of requests re-asking a head query")
+    ap.add_argument("--cache-size", type=int, default=1024,
+                    help="--pipeline result-cache capacity (0 disables)")
     args = ap.parse_args(argv)
     if args.save_index and args.load_index:
         ap.error("--save-index and --load-index are mutually exclusive")
+    if args.pipeline and (args.save_index or args.load_index):
+        ap.error("--pipeline is a serving-loop mode; run it without "
+                 "--save-index/--load-index")
 
     from .. import resolve_device
     from ..core.seismic import exact_top_k, recall_at_k
@@ -128,7 +236,13 @@ def main(argv=None) -> None:
         else:
             retriever = Retriever.build(col.fwd, cfg, device=device)
 
-        retriever.search(Q)  # warm-up: kernel build and first launches
+        if args.pipeline:
+            summary = _pipeline_loadgen(retriever, Q, args, np.random.default_rng(args.seed + 1))
+            print(f"{args.engine:8s} codec={codec:13s} backend={retriever.cfg.backend} "
+                  f"pipeline parity OK ({args.requests} requests, {_device_name(device)}) "
+                  f"[{summary}]")
+            continue
+        retriever.search(Q)  # warm-up: plan capture, kernel build and first launches
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         t0 = time.perf_counter()

@@ -8,9 +8,13 @@ leading axis. The engine-agnostic surface is:
 
 * ``Retriever.build(fwd, cfg, device=None)`` — host-side index build,
   arrays moved to ``device``;
-* ``retriever.search(Q, k)`` — the batched search, run directly (the
-  reference's bucketed plan cache, ``serve/pipeline.py``, is ROADMAP
-  queue A5);
+* ``retriever.search(Q, k)`` — the batched search through the plan
+  cache (``serve/pipeline.py``): the batch pads up to its smallest
+  covering bucket and runs that bucket's plan, on the card one captured
+  CUDA graph per ``(engine, codec, backend, k, bucket)`` key;
+* ``retriever.search_batch(Q)`` — the same queries through the
+  micro-batching scheduler (``retriever.pipeline()``: deadline
+  coalescing, the quantized-query result cache, ``ServeStats``);
 * ``retriever.save(path)`` / ``open_retriever(path)`` — the artifact
   lifecycle: ``manifest.json`` + ``arrays.npz``, the same format the
   reference writes and reads, so an index saved by either package
@@ -35,6 +39,7 @@ from ..core import layout
 from ..core import values as value_codecs
 from ..core.forward_index import VALUE_FORMATS, ForwardIndex
 from ..kernels import modes
+from . import pipeline as serve_pipeline
 
 __all__ = [
     "RetrieverConfig",
@@ -76,9 +81,10 @@ class RetrieverConfig:
     time); unknown keys are rejected against the engine's defaults.
     ``backend`` selects the rescoring path: ``"torch"`` (plain torch)
     or ``"cuda"`` (the hand-written kernel; ``kernels/modes.py``).
-    ``batch_size`` and ``n_shards`` are carried through artifacts for
-    the reference's sake: the port serves one monolithic index and has
-    no bucketed plans yet (ROADMAP queues A5, A6)."""
+    ``batch_size`` joins the plan cache's bucket set (the expected
+    batch gets an exact-fit plan). ``n_shards`` is carried through
+    artifacts for the reference's sake: the port serves one monolithic
+    index (ROADMAP queue A6)."""
 
     engine: str = "seismic"
     codec: str = "uncompressed"
@@ -224,6 +230,14 @@ class Retriever:
         self.value_scale = float(value_scale)
         self.value_format = value_format
         self.arrays = _to_device(arrays, self.device)
+        # one plan per (engine, codec, backend, k, bucket); cfg.batch_size
+        # joins the bucket set
+        self.plans = serve_pipeline.PlanCache(self)
+        self._pipeline: serve_pipeline.Pipeline | None = None
+
+    def make_plans(self, buckets) -> "serve_pipeline.PlanCache":
+        """A fresh plan cache with an explicit bucket set."""
+        return serve_pipeline.PlanCache(self, buckets)
 
     @classmethod
     def build(cls, fwd: ForwardIndex, cfg: RetrieverConfig, device=None) -> "Retriever":
@@ -267,22 +281,43 @@ class Retriever:
     @torch.inference_mode()
     def search(self, Q, k: int | None = None):
         """[nq, dim] dense queries (numpy or tensor) → (ids i32 [nq, k],
-        scores f32 [nq, k]) on the retriever's device. ``k`` defaults to
-        ``cfg.k``; a smaller k is a slice."""
+        scores f32 [nq, k]) on the retriever's device, through the plan
+        cache: ``Q`` pads up to its smallest covering bucket (zero
+        queries) and that bucket's plan runs; the padding is sliced off.
+        ``k`` defaults to ``cfg.k``; a smaller k is a slice."""
         if k is not None and k > self.cfg.k:
             raise ValueError(
                 f"k={k} exceeds the static cfg.k={self.cfg.k}; rebuild the "
                 f"Retriever with a larger cfg.k"
             )
-        Q = torch.as_tensor(Q).to(self.device, torch.float32).contiguous()
+        Q = torch.as_tensor(Q, dtype=torch.float32)
         if Q.dim() != 2 or Q.shape[1] != self.dim:
             raise ValueError(f"queries must be [nq, {self.dim}], got {tuple(Q.shape)}")
-        ids, scores = self.impl.search_batch(
-            self.cfg, self.n_docs, self.value_scale, self.arrays, Q
-        )
+        ids, scores = self.plans.search(Q)
         if k is None or k == self.cfg.k:
             return ids, scores
         return ids[:, :k], scores[:, :k]
+
+    def pipeline(self, **kw) -> "serve_pipeline.Pipeline":
+        """The micro-batching scheduler over this retriever. With no
+        arguments, one default instance is made lazily and reused (it
+        shares this retriever's plan cache); keyword arguments
+        (``buckets``, ``deadline_us``, ``cache_size``, ``key_dtype``,
+        ``clock``) make a fresh pipeline."""
+        if kw:
+            return serve_pipeline.Pipeline(self, **kw)
+        if self._pipeline is None:
+            self._pipeline = serve_pipeline.Pipeline(self)
+        return self._pipeline
+
+    def search_batch(self, Q):
+        """Serve a query batch through the default pipeline: result-cache
+        admission, bucket coalescing, plan dispatch, results (host numpy)
+        in submission order. On an f16-valued index the cache keys in
+        f16, so two queries within one f16 ulp per component share an
+        entry; ``pipeline(cache_size=0)`` or ``key_dtype=np.float32``
+        serves them exactly."""
+        return self.pipeline().search_batch(Q)
 
     def save(self, path, *, compress: bool = True) -> pathlib.Path:
         """Write the index artifact: ``manifest.json`` + ``arrays.npz``,

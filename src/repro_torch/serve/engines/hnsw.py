@@ -21,8 +21,10 @@ query at once:
    sort, the lower index first on ties, as ``jax.lax.top_k``).
 
 A search is one rows-kernel launch for the seeds and one per step. The
-step loop holds no host synchronisation (no ``.item()``, no transfer, no
-branch on a tensor's value), so the card runs ahead of the host.
+search holds no host synchronisation and no host-to-device copy (no
+``.item()``, no transfer, no branch on a tensor's value), so the card
+runs ahead of the host and a plan captures the whole search as one
+CUDA graph (``serve/pipeline.py``).
 """
 
 from __future__ import annotations
@@ -110,8 +112,10 @@ class HNSWEngine(EngineImpl):
                            dim=1)
         expanded = ids >= n_docs  # sentinel slots never expand
         unseen = torch.ones((nq, n_docs + 1), dtype=torch.bool, device=dev)
-        unseen[:, seeds] = False
-        unseen[:, n_docs] = False
+        # in-place fills, not ``unseen[:, seeds] = False``: that setitem copies
+        # a host scalar to the card, which a CUDA graph cannot capture
+        unseen.index_fill_(1, seeds, False)
+        unseen[:, n_docs].fill_(False)
         for _ in range(iters):
             b = torch.argmax(scores.masked_fill(expanded, float("-inf")), dim=1, keepdim=True)
             expanded.scatter_(1, b, True)

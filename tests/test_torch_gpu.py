@@ -866,3 +866,129 @@ def test_hnsw_search_on_the_card(cuda, codec, vq):
     torch.testing.assert_close(scores, want_scores, rtol=1e-5, atol=1e-4)
     diff = ids != want_ids
     assert torch.allclose(scores[diff], want_scores[diff], rtol=1e-5, atol=0)
+
+
+# -- the serving pipeline's plans: one captured CUDA graph per plan key --------------
+
+#: per-engine knobs for the 400-doc collection (the CLI's Seismic blocks, a small graph)
+PLAN_PARAMS = {
+    "seismic": dict(cut=8, block_budget=512, n_probe=16, n_postings=400, block_size=16),
+    "hnsw": dict(beam=32, iters=20, n_seeds=8, m=16, ef_construction=48),
+    "flat": {},
+}
+
+
+@pytest.fixture(scope="module")
+def plan_retrievers():
+    """One dotvbyte retriever per engine on the card over a 400-doc
+    SPLADE-statistics collection, with 64 queries."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from repro_torch.data.synthetic import generate_collection, splade_config
+    from repro_torch.serve.api import Retriever, RetrieverConfig
+
+    col = generate_collection(splade_config(400, 64, 5), value_format="f16")
+    Q = torch.from_numpy(np.stack([col.query_dense(i) for i in range(64)])).cuda()
+    out = {}
+    for engine, params in PLAN_PARAMS.items():
+        cfg = RetrieverConfig(engine=engine, codec="dotvbyte", backend="cuda", params=params)
+        out[engine] = Retriever.build(col.fwd, cfg, device="cuda")
+    return out, Q
+
+
+def _eager(r, Q, bucket):
+    """The engine's search run eagerly on ``Q`` padded with zero queries
+    to ``bucket``."""
+    pad = torch.cat([Q, Q.new_zeros((bucket - Q.shape[0], Q.shape[1]))])
+    ids, scores = r.impl.search_batch(r.cfg, r.n_docs, r.value_scale, r.arrays, pad)
+    return ids[: Q.shape[0]], scores[: Q.shape[0]]
+
+
+@pytest.mark.parametrize("bucket", [1, 8, 64])
+@pytest.mark.parametrize("engine", ["seismic", "hnsw", "flat"])
+def test_plan_replay_equals_eager_bitwise(plan_retrievers, engine, bucket):
+    """A replayed plan runs the kernels the eager search runs, in the
+    same stages, so its top-k equals ``impl.search_batch`` on the same
+    padded batch bit for bit — full and ragged. The replay launches no
+    kernel through a wrapper; the plan records the rows launches its
+    graph holds, in the stages ``pick_stage`` names."""
+    retrievers, Q = plan_retrievers
+    r = retrievers[engine]
+    plan = r.plans.get(bucket)
+    plan.warm(r.dim)
+    assert plan.pool_bytes >= 0 and plan.capture_s > 0
+    assert plan.launches["variants"] == {"rows_dot_dotvbyte_f16": sum(
+        plan.launches["stages"].values())}
+    for n in sorted({bucket, max(1, bucket // 2 + 1)}):
+        before, replays = rows_dot.launches, plan.replays
+        ids, scores = plan(Q[:n])
+        torch.cuda.synchronize()
+        assert rows_dot.launches == before and plan.replays == replays + 1
+        want_ids, want_scores = _eager(r, Q[:n], bucket)
+        assert ids.shape == (n, r.cfg.k) and ids.dtype == torch.int32
+        assert torch.equal(ids, want_ids) and torch.equal(scores, want_scores), n
+    before = dict(rows_dot.stage_launches)
+    _eager(r, Q[:bucket], bucket)
+    torch.cuda.synchronize()
+    eager = {k: v - before[k] for k, v in rows_dot.stage_launches.items() if v > before[k]}
+    assert plan.launches["stages"] == eager
+
+
+@pytest.mark.parametrize("engine", ["seismic", "hnsw", "flat"])
+def test_plan_zeroes_stale_rows_and_hands_out_copies(plan_retrievers, engine):
+    """A call with fewer queries than the last zeroes the static
+    buffer's rows past its own, and no two calls' results share memory
+    with each other or with the graph's static outputs."""
+    retrievers, Q = plan_retrievers
+    r = retrievers[engine]
+    plan = r.plans.get(8)
+    a_ids, a_scores = plan(Q[:8])
+    a_copy = (a_ids.clone(), a_scores.clone())
+    b_ids, b_scores = plan(Q[8:11])
+    torch.cuda.synchronize()
+    assert torch.equal(plan._Q[:3], Q[8:11]) and torch.all(plan._Q[3:] == 0)
+    assert torch.equal(a_ids, a_copy[0]) and torch.equal(a_scores, a_copy[1])
+    static = {t.data_ptr() for t in plan._out}
+    assert not static & {t.data_ptr() for t in (a_ids, a_scores, b_ids, b_scores)}
+    assert a_ids.data_ptr() != b_ids.data_ptr()
+    want_ids, want_scores = _eager(r, Q[8:11], 8)
+    assert torch.equal(b_ids, want_ids) and torch.equal(b_scores, want_scores)
+
+
+@pytest.mark.parametrize("engine", ["seismic", "hnsw", "flat"])
+def test_plan_over_a_host_syncing_engine_raises(plan_retrievers, engine):
+    """An engine whose search reads a value back to the host cannot be
+    captured: the plan raises at capture, every later call raises too,
+    and nothing runs eagerly in its place."""
+    from repro_torch.serve import api
+
+    retrievers, Q = plan_retrievers
+    base = retrievers[engine]
+    inner = type(base.impl)
+
+    class HostSync(inner):
+        def search_batch(self, cfg, n_docs, value_scale, arrays, Q):
+            calls.append(Q.shape[0])
+            if int((Q != 0).sum().item()) < 0:  # a device → host read
+                raise AssertionError
+            return super().search_batch(cfg.replace(engine=engine), n_docs, value_scale,
+                                        arrays, Q)
+
+    calls = []
+    api.register_engine("test_host_sync")(HostSync)
+    try:
+        r = api.Retriever(base.cfg.replace(engine="test_host_sync"), base.arrays,
+                          n_docs=base.n_docs, dim=base.dim, value_scale=base.value_scale,
+                          value_format=base.value_format, device="cuda")
+        with pytest.raises(RuntimeError, match="CUDA graph capture of plan") as err:
+            r.search(Q[:4])
+        assert calls == [4, 4]  # the eager warm-up, then the capture that failed
+        assert err.value.__cause__ is not None  # torch's own capture error
+        with pytest.raises(RuntimeError, match="CUDA graph capture of plan"):
+            r.search(Q[:4])  # no graph, and no eager answer in its place
+        assert r.plans.get(4)._graph is None
+    finally:
+        api._ENGINES.pop("test_host_sync", None)
+    assert torch.ones(3, device="cuda").sum().item() == 3  # the context still works
+    ids, _ = base.search(Q[:4])  # and so do the other plans
+    assert torch.equal(ids, _eager(base, Q[:4], 4)[0])

@@ -167,6 +167,25 @@ def test_cli_runs_end_to_end(tmp_path, capsys):
     assert (tmp_path / "seismic-dotvbyte" / "manifest.json").is_file()
 
 
+@pytest.mark.parametrize("engine", ["seismic", "hnsw", "flat"])
+def test_cli_pipeline_load_generator(engine, capsys):
+    """``--pipeline`` drives a 32-request trace through the scheduler,
+    holds every response to direct search (byte for byte on the CPU)
+    and prints the ServeStats line."""
+    serve_cli.main(["--device", "cpu", "--n-docs", "300", "--n-queries", "4", "--pipeline",
+                    "--requests", "32", "--engine", engine])
+    lines = [ln for ln in capsys.readouterr().out.splitlines() if "pipeline parity OK" in ln]
+    assert len(lines) == 1 and lines[0].startswith(f"{engine} ") and "(32 requests, CPU)" in lines[0]
+    assert "within rtol 1e-05 (other stage; 0 bitwise" in lines[0]  # the CPU has no stages
+    assert re.search(r"served=32 qps=\d+ p50=\d+µs .* recompiles=8 buckets\[b\d", lines[0])
+
+
+def test_cli_pipeline_refuses_index_flags(tmp_path):
+    for flag in ("--save-index", "--load-index"):
+        with pytest.raises(SystemExit):
+            serve_cli.main(["--device", "cpu", "--pipeline", flag, str(tmp_path)])
+
+
 def test_cli_hnsw_sweeps_one_host_graph(tmp_path, capsys):
     """``--engine hnsw --compare-codecs`` builds the graph once at the
     reference CLI's parameters and serves every row codec over it: the
