@@ -111,7 +111,36 @@ no result:
    eager, the host-clock median of 10 searches and one profile of 5
    (device busy time, idle share, kernels a search, the rows kernel's
    device time a launch);
-8. one JSON line of kernels, the card line, and as the last line
+8. sharded, out-of-core serving (``serve/sharded.py``), dotvbyte/f16,
+   the 64 queries, S = 4 shards: flat over all the collection's docs,
+   Seismic over the first ``--shard-docs`` (default 25,000: its per-shard
+   host build is phase 3's Python loops) and hnsw over the first 2,000
+   (at most ``--hnsw-docs``). Each is built
+   (``Retriever.build`` at ``n_shards=4``), saved uncompressed, reopened
+   with ``open_retriever`` (every shard array an ``np.memmap``) and
+   served with ``backend="cuda"`` at ``max_resident`` 4 and 1, prefetch
+   on and off. Checks: prefetch on equals off and ``max_resident`` 4
+   equals 1 bit for bit; flat held to phase 3's monolithic flat retriever
+   and Seismic and hnsw to their ``backend="torch"`` sharded twins (bit
+   for bit where both took the same rows-kernel stages, else ids
+   tie-aware with scores within rtol 1e-5), with recall@10 against
+   ``exact_top_k``; ``prefetch_hits > 0`` by the second rotation; each
+   search replays one plan per shard (the rows launches its graphs hold:
+   S, or S × (1 + iters) for hnsw); ``set_tombstones`` on 3 ids keeps
+   them out of every answer, retires the stale staged shard and equals a
+   prefetch-off twin; memory allocated after the third rotation at
+   ``max_resident=1`` is the first's within one shard's arrays and one
+   graph pool; with prefetch off the peak resident bytes are at most half
+   the whole index's. Printed per engine and setting: the host-clock
+   median of 10 searches, admission split into page-in, host→device copy
+   and capture, hits, misses, evictions, plan creations, peak resident
+   and graph pool bytes, and the rows launches a search with their
+   stages. Then a 256-request trace of the flat tree at ``max_resident=1``
+   through ``ShardedRetriever.pipeline()``, held to direct sharded search
+   by ``trace_parity``, with its ServeStats line and prefetch counters.
+   The kernels' counts are zeroed just before this phase and read just
+   after;
+9. one JSON line of kernels, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -119,6 +148,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import gc
 import json
 import pathlib
 import re
@@ -1192,6 +1222,258 @@ def pipeline_phase(served: dict, Q_np, Q, card: str) -> dict:
     return out
 
 
+#: phase 8: shards, the hnsw prefix (within phase 6's), the (max_resident, prefetch)
+#: settings served, the timed searches
+SHARDS = 4
+SHARD_HNSW_DOCS = 2_000
+SHARD_SETTINGS = ((4, True), (4, False), (1, True), (1, False))
+SHARD_REPS = 10
+
+
+def _whole_bytes(ret) -> int:
+    return sum(t.numel() * t.element_size() for t in ret.arrays.values())
+
+
+def sharded_phase(fwd, Q_np, Q, flat_mono, card: str, n_seismic: int, n_hnsw: int) -> dict:
+    """Phase 8: sharded, out-of-core serving of the flat, Seismic and hnsw
+    engines (see the module docstring) → per engine its records, and under
+    ``"_path"`` the rows launches of the phase."""
+    from repro_torch.core.seismic import exact_top_k, recall_at_k
+    from repro_torch.kernels import rows_dot
+    from repro_torch.launch.serve import PARITY_RTOL, trace_parity
+    from repro_torch.serve.api import Retriever, RetrieverConfig, open_retriever
+    from repro_torch.serve.pipeline import ServeStats, synthetic_trace
+    from repro_torch.serve.sharded import ShardedRetriever
+
+    nq = Q.shape[0]
+    name = rows_dot.variant_name("dotvbyte", "f16")
+    engines = {"flat": (fwd.n_docs, {}), "seismic": (n_seismic, SEISMIC_PARAMS),
+               "hnsw": (n_hnsw, HNSW_PARAMS)}
+    out = {}
+    rows_dot.reset_launches()  # this path's launches only
+    replayed = {"variants": dict.fromkeys(rows_dot.variant_launches, 0),
+                "stages": dict.fromkeys(rows_dot.stage_launches, 0)}
+
+    def retire(r):
+        """Add the rows launches ``r``'s fan-out plans replayed (their
+        records times their calls) to the path's count."""
+        for p in r.plans.created().values():
+            for part, counts in p.launches.items():
+                for k, c in counts.items():
+                    replayed[part][k] += c * p.replays
+
+    def hold(what, got, want, same_stages):
+        """Bit for bit where both took the same rows-kernel stages, else ids
+        tie-aware with scores within rtol 1e-5 → the tied swaps."""
+        if same_stages:
+            if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                raise SystemExit(f"{what}: not bit for bit equal, though both took the same "
+                                 "rows-kernel stages")
+            return 0
+        return same_topk(got[0], got[1], want[0], want[1])
+
+    def memmapped(r):
+        return all(isinstance(a, np.memmap) for sh in r.shards for a in sh.arrays.values()
+                   if a.size)
+
+    def settle(r):
+        """Wait for the staged build (so what is allocated is comparable)."""
+        if r._staged is not None:
+            r._staged[1].result()
+        torch.cuda.synchronize()
+
+    for engine, (n, params) in engines.items():
+        sub = fwd if n == fwd.n_docs else fwd.slice(0, n)
+        cfg = RetrieverConfig(engine=engine, codec="dotvbyte", backend="cuda", k=10,
+                              n_shards=SHARDS, params=params)
+        t0 = time.perf_counter()
+        built = Retriever.build(sub, cfg)
+        if not isinstance(built, ShardedRetriever):
+            raise SystemExit(f"sharded {engine}: Retriever.build returned {type(built)}")
+        build_s = time.perf_counter() - t0
+        art = ROOT / "build" / "chip_smoke" / f"sharded-{engine}"
+        t0 = time.perf_counter()
+        built.save(art)
+        save_s = time.perf_counter() - t0
+        whole = _whole_bytes(flat_mono) if engine == "flat" else built.disk_bytes()
+        shard_bytes = [sh.disk_bytes() for sh in built.shards]
+        del built
+        rec = out[engine] = dict(n_docs=n, build_s=build_s, save_s=save_s, whole_bytes=whole,
+                                 shard_bytes=shard_bytes, settings={})
+        log(f"[8] sharded {engine} over docs [0, {n}) in {SHARDS} shards: built in "
+            f"{build_s:.1f}s, saved uncompressed in {save_s:.1f}s; shard arrays "
+            f"{[round(b / 2**20, 1) for b in shard_bytes]} MiB, whole index "
+            f"{whole / 2**20:.1f} MiB")
+        results, stages_of, rets = {}, {}, {}
+        for max_res, prefetch in SHARD_SETTINGS:
+            t0 = time.perf_counter()
+            r = open_retriever(art)
+            open_s = time.perf_counter() - t0
+            if not memmapped(r):
+                raise SystemExit(f"sharded {engine}: a reopened shard array is not an np.memmap")
+            r.max_resident, r.prefetch = max_res, prefetch
+            first = r.search(Q)  # rotation 1: admissions and captures
+            settle(r)
+            mem = {1: torch.cuda.memory_allocated()}
+            a0, b0 = dict(r.admission_s), r.builds
+            torch.cuda.reset_peak_memory_stats()
+            lat, hits_r2 = [], None
+            for i in range(SHARD_REPS):
+                t0 = time.perf_counter()
+                got = r.search(Q)
+                torch.cuda.synchronize()
+                lat.append(1e3 * (time.perf_counter() - t0))
+                if i == 0:
+                    hits_r2 = r.prefetch_hits
+                if i == 1:  # rotation 3
+                    settle(r)
+                    mem[3] = torch.cuda.memory_allocated()
+            if not (torch.equal(got[0], first[0]) and torch.equal(got[1], first[1])):
+                raise SystemExit(f"sharded {engine} {max_res}/{prefetch}: searches differ")
+            peak_alloc = torch.cuda.max_memory_allocated() - mem[1]
+            plan = r.plans.get(r.plans.bucket_for(nq))
+            builds = max(r.builds - b0, 1)
+            st = dict(
+                open_s=open_s, search_ms_median=statistics.median(lat), search_ms=lat,
+                admissions=r.builds - b0,
+                **{f"{k}_ms_per_admission": 1e3 * (r.admission_s[k] - a0[k]) / builds
+                   for k in ("page_in", "h2d", "capture", "admit")},
+                prefetch_hits=r.prefetch_hits, prefetch_misses=r.prefetch_misses,
+                hits_after_rotation_2=hits_r2, evictions=r.evictions,
+                compiles=r.plans.compiles, peak_resident_bytes=r.peak_resident_bytes,
+                resident_bytes=r.resident_bytes(), pool_bytes=r.pool_bytes(),
+                rows_launches_per_search=sum(plan.launches["variants"].values()),
+                rows_stages_per_search=dict(plan.launches["stages"]),
+                allocated_after_rotation={k: v for k, v in mem.items()},
+                peak_allocated_over_searches=peak_alloc)
+            per_shard = 1 + HNSW_PARAMS["iters"] if engine == "hnsw" else 1
+            if st["rows_launches_per_search"] != SHARDS * per_shard:
+                raise SystemExit(f"sharded {engine}: a search replayed "
+                                 f"{st['rows_launches_per_search']} rows launches, not "
+                                 f"{SHARDS} x {per_shard}")
+            if prefetch and max_res == 1 and not hits_r2:
+                raise SystemExit(f"sharded {engine}: no prefetch hit by the second rotation")
+            if max_res == 1 and prefetch:
+                grown = mem[3] - mem[1]
+                allowed = max(shard_bytes) + st["pool_bytes"]
+                st["allocated_growth_r1_to_r3"] = grown
+                if grown > allowed:
+                    raise SystemExit(f"sharded {engine}: allocated grew {grown} B from rotation "
+                                     f"1 to 3, more than one shard + one pool ({allowed} B)")
+            if max_res == 1 and not prefetch and 2 * r.peak_resident_bytes > whole:
+                raise SystemExit(f"sharded {engine}: peak resident {r.peak_resident_bytes} B is "
+                                 f"more than half the whole index ({whole} B)")
+            rec["settings"][f"{max_res}/{'on' if prefetch else 'off'}"] = st
+            results[max_res, prefetch] = got
+            stages_of[max_res, prefetch] = plan.stages
+            if max_res == 1:  # kept for the tombstones and the trace
+                rets[max_res, prefetch] = r
+            else:  # its device memory goes now (its plan cache refers back to it)
+                retire(r)
+            del r, plan
+            gc.collect()
+            log(f"    max_resident={max_res} prefetch={'on' if prefetch else 'off'}: median "
+                f"{st['search_ms_median']:.3f} ms/search of {nq} (min {min(lat):.3f}); per "
+                f"admission ({st['admissions']} in {SHARD_REPS} searches) page-in "
+                f"{st['page_in_ms_per_admission']:.2f} ms, host->device "
+                f"{st['h2d_ms_per_admission']:.2f} ms, capture "
+                f"{st['capture_ms_per_admission']:.2f} ms, on the serving thread "
+                f"{st['admit_ms_per_admission']:.2f} ms (build or wait, evict); hits "
+                f"{st['prefetch_hits']}, misses "
+                f"{st['prefetch_misses']}, evictions {st['evictions']}, compiles "
+                f"{st['compiles']}; peak resident {st['peak_resident_bytes'] / 2**20:.1f} MiB, "
+                f"graph pools {st['pool_bytes'] / 2**20:.1f} MiB, device allocated at most "
+                f"{peak_alloc / 2**20:+.1f} MiB over rotation 1's; rows launches a search "
+                f"{st['rows_launches_per_search']} {st['rows_stages_per_search']} ({card})")
+        base = results[SHARD_SETTINGS[0]]
+        stages = stages_of[SHARD_SETTINGS[0]]
+        for setting, got in results.items():  # prefetch on == off, resident 4 == 1
+            hold(f"sharded {engine} {setting}", got, base, stages_of[setting] == stages)
+        truth = [exact_top_k(sub, Q_np[i], 10) for i in range(nq)]
+        ids_np = base[0].cpu().numpy()
+        rec["recall_at_10"] = float(np.mean([recall_at_k(truth[i][0], ids_np[i])
+                                             for i in range(nq)]))
+        if engine == "flat":
+            want = flat_mono.search(Q)
+            want_stages = search_plan(flat_mono, nq).stages
+            same = {st for _, st in stages} == set(want_stages)
+            rec["parity"] = dict(against="monolithic flat of phase 3", same_stages=same,
+                                 tied_swaps=hold("sharded flat vs monolithic", base, want, same))
+        else:
+            r = rets[1, True]
+            twin = ShardedRetriever(r.cfg.replace(backend="torch"), r.shards, dim=r.dim,
+                                    value_scale=r.value_scale, value_format=r.value_format)
+            want = twin.search(Q)
+            rec["parity"] = dict(against="backend=torch sharded twin", same_stages=False,
+                                 tied_swaps=hold(f"sharded {engine} vs torch", base, want, False))
+            del twin
+        # tombstones on the out-of-core retriever with a staged shard
+        r, r_off = rets[1, True], rets[1, False]
+        victims = np.unique(ids_np[:3, 0]).astype(np.int64)
+        if r._staged is None:
+            raise SystemExit(f"sharded {engine}: nothing staged before set_tombstones")
+        r.set_tombstones(victims)
+        if r._staged is not None:
+            raise SystemExit(f"sharded {engine}: set_tombstones left a stale staged shard")
+        dead = r.search(Q)
+        r_off.set_tombstones(victims)
+        dead_off = r_off.search(Q)
+        if np.intersect1d(dead[0].cpu().numpy(), victims).size:
+            raise SystemExit(f"sharded {engine}: a tombstoned doc was served")
+        hold(f"sharded {engine} tombstoned, prefetch on vs off", dead, dead_off, True)
+        for x in (r, r_off):
+            x.set_tombstones([])
+        hold(f"sharded {engine} tombstones cleared", r.search(Q), base, True)
+        rec["tombstones"] = victims.tolist()
+        log(f"    {engine}: prefetch on == off and max_resident 4 == 1 bit for bit; "
+            f"{rec['parity']['against']}: "
+            + ("bit for bit" if rec["parity"]["same_stages"] else
+               f"ids tie-aware ({rec['parity']['tied_swaps']} tied swaps), scores rtol "
+               f"{PARITY_RTOL}")
+            + f"; recall@10 {rec['recall_at_10']:.4f} vs exact_top_k over [0, {n}); "
+            f"tombstones {victims.tolist()} out of every answer, the staged shard retired, "
+            f"prefetch on == off")
+        if engine == "flat":  # the trace, out of core
+            direct = tuple(t.cpu().numpy() for t in r.search(Q))
+            pipe = r.pipeline(deadline_us=TRACE["deadline_us"], cache_size=TRACE["cache_size"])
+            t0 = time.perf_counter()
+            warm = pipe.warm()
+            warm_s = time.perf_counter() - t0
+            trace = synthetic_trace(np.random.default_rng(TRACE["seed"]), TRACE["requests"], nq,
+                                    repeat_frac=TRACE["repeat_frac"])
+            tickets = []
+            t0 = time.perf_counter()
+            for qi in trace:
+                pipe.poll()
+                tickets.append(pipe.submit(Q_np[qi]))
+            pipe.flush()
+            torch.cuda.synchronize()
+            trace_s = time.perf_counter() - t0
+            counts = trace_parity(pipe, trace, tickets, *direct, r.plans.bucket_for(nq))
+            snap = pipe.snapshot()
+            rec["trace"] = dict(warm_s=warm_s, warm_compiles=warm, trace_s=trace_s,
+                                parity=counts, snapshot=snap)
+            log(f"    flat trace at max_resident=1 ({TRACE}): warm {warm_s:.2f}s ({warm} plans), "
+                f"trace {trace_s:.3f}s; responses {counts['bitwise_same_stage']} bitwise (same "
+                f"stage), {counts['rtol_other_stage']} within rtol {PARITY_RTOL} (other stage; "
+                f"{counts['tied_swaps_other_stage']} tied swaps), {counts['cache_replays']} "
+                f"cache replays ({card})")
+            log(f"    flat ServeStats: {ServeStats.summary(snap)}")
+        for x in rets.values():
+            retire(x)
+        del results, rets, r, r_off
+        shutil.rmtree(art, ignore_errors=True)
+    variants = {k: v + replayed["variants"][k] for k, v in rows_dot.variant_launches.items()}
+    stages = {k: v + replayed["stages"][k] for k, v in rows_dot.stage_launches.items()}
+    out["_path"] = dict(rows_launches=variants[name],
+                        rows_stage_launches={k: v for k, v in stages.items() if v})
+    if variants[name] <= 0:
+        raise SystemExit("the sharded path launched no rows kernel")
+    log(f"    sharded path launches (warm-ups + graph replays): {name}={variants[name]}, by "
+        f"stage {out['_path']['rows_stage_launches']}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="smoke run of the port on one GPU")
     ap.add_argument("--n-docs", type=int, default=100_000,
@@ -1199,6 +1481,9 @@ def main() -> int:
     ap.add_argument("--hnsw-docs", type=int, default=5_000,
                     help="the prefix of the collection the hnsw phase serves (its host build "
                          "is Python insertion loops, ~10 ms a document)")
+    ap.add_argument("--shard-docs", type=int, default=25_000,
+                    help="the prefix the sharded Seismic of phase 8 serves (its per-shard host "
+                         "build is phase 3's Python loops)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1614,7 +1899,17 @@ def main() -> int:
     dv["pipeline_phase"] = pipe
     phase_s["7 pipeline"] = time.perf_counter() - t0
 
-    # -- 8. summary -------------------------------------------------------------
+    # -- 8. sharded, out-of-core serving -------------------------------------------------
+    t0 = time.perf_counter()
+    shard = sharded_phase(fwd, Q_np, Q, flat["dotvbyte", "f16"], card,
+                          min(args.shard_docs, fwd.n_docs),
+                          min(SHARD_HNSW_DOCS, args.hnsw_docs, fwd.n_docs))
+    dv["launches_by_path"]["sharded"] = shard["_path"]["rows_launches"]
+    dv["launches"] += dv["launches_by_path"]["sharded"]
+    dv["sharded_phase"] = shard
+    phase_s["8 sharded"] = time.perf_counter() - t0
+
+    # -- 9. summary -------------------------------------------------------------
     log("phases: " + ", ".join(f"{k} {v:.1f}s" for k, v in phase_s.items()))
     log(f"ported kernels: {n_rows} rows_dot variants and {len(kernels) - n_rows} block-scan "
         f"entries ok; total {time.perf_counter() - t_start:.0f}s")

@@ -30,6 +30,15 @@ against a direct ``Retriever.search`` of the query batch under the
 parity rule (:func:`trace_parity`), then the ``ServeStats`` line is
 printed. It refuses ``--save-index`` and ``--load-index`` as the
 reference does.
+
+``--n-shards S`` builds a sharded index (``serve/sharded.py``): S
+contiguous doc ranges, each its own sub-index (no shared host index is
+built), searched in turn on the device and merged; ``--max-resident``
+bounds the shards resident at once (default all) and ``--no-prefetch``
+turns off the staging of the next shard. ``--save-index`` writes a
+sharded artifact tree and ``--load-index`` opens one memory-mapped; a
+tree serves the backend it was saved with. The result line adds the
+residency counters.
 """
 
 from __future__ import annotations
@@ -46,6 +55,16 @@ def _device_name(device: torch.device) -> str:
     if device.type == "cuda":
         return torch.cuda.get_device_name(device)
     return "CPU"
+
+
+def _shard_note(retriever) -> str:
+    """The residency counters of a sharded retriever; "" for a monolithic one."""
+    if not hasattr(retriever, "shards"):
+        return ""
+    return (f" shards={len(retriever.shards)} max_resident={retriever.max_resident} "
+            f"prefetch={retriever.prefetch_hits}h/{retriever.prefetch_misses}m "
+            f"evictions={retriever.evictions} compiles={retriever.plans.compiles} "
+            f"peak_resident={retriever.peak_resident_bytes / 2**20:.2f}MiB")
 
 
 def _report(name, codec, backend, k, recs, dt_us, fwd, device, extra=""):
@@ -183,6 +202,15 @@ def main(argv=None) -> None:
                     help="--pipeline fraction of requests re-asking a head query")
     ap.add_argument("--cache-size", type=int, default=1024,
                     help="--pipeline result-cache capacity (0 disables)")
+    ap.add_argument("--n-shards", type=int, default=1,
+                    help="index shards: > 1 builds and serves a sharded tree (per-shard "
+                         "sub-indexes over contiguous doc ranges, memory-mapped under "
+                         "--load-index, served in turn through an LRU of resident shards)")
+    ap.add_argument("--max-resident", type=int, default=None,
+                    help="bound on the shards resident at once (default: all)")
+    ap.add_argument("--no-prefetch", action="store_true",
+                    help="do not stage the next shard while the current one is scored; "
+                         "every admission then copies on the critical path")
     args = ap.parse_args(argv)
     if args.save_index and args.load_index:
         ap.error("--save-index and --load-index are mutually exclusive")
@@ -212,19 +240,23 @@ def main(argv=None) -> None:
     }[args.engine]
     impl = get_engine(args.engine)
     host_index = None
-    if not args.load_index and hasattr(impl, "host_index"):
-        # one host index; every codec packs its rows over it
+    if not args.load_index and args.n_shards == 1 and hasattr(impl, "host_index"):
+        # one host index; every codec packs its rows over it (a sharded build
+        # makes one sub-index per doc range instead)
         t0 = time.perf_counter()
         host_index = impl.host_index(col.fwd, RetrieverConfig(engine=args.engine, params=params))
         print(f"{args.engine}: host index built in {time.perf_counter() - t0:.1f}s")
 
     for codec in codecs:
         cfg = RetrieverConfig(engine=args.engine, codec=codec, k=args.k,
-                              backend=args.backend or "cuda", params=params)
+                              backend=args.backend or "cuda", n_shards=args.n_shards,
+                              params=params)
         art = pathlib.Path(args.load_index or args.save_index or ".") / f"{args.engine}-{codec}"
         if args.load_index:
             retriever = open_retriever(art, device=device)
-            if args.backend and args.backend != retriever.cfg.backend:
+            # a sharded tree serves the backend it was saved with
+            if (args.backend and args.backend != retriever.cfg.backend
+                    and not hasattr(retriever, "shards")):
                 retriever = Retriever(
                     retriever.cfg.replace(backend=args.backend), retriever.arrays,
                     n_docs=retriever.n_docs, dim=retriever.dim,
@@ -235,12 +267,16 @@ def main(argv=None) -> None:
             retriever = Retriever.from_host_index(host_index, cfg, device=device)
         else:
             retriever = Retriever.build(col.fwd, cfg, device=device)
+        if hasattr(retriever, "shards"):
+            if args.max_resident is not None:
+                retriever.max_resident = args.max_resident
+            retriever.prefetch = not args.no_prefetch
 
         if args.pipeline:
             summary = _pipeline_loadgen(retriever, Q, args, np.random.default_rng(args.seed + 1))
             print(f"{args.engine:8s} codec={codec:13s} backend={retriever.cfg.backend} "
                   f"pipeline parity OK ({args.requests} requests, {_device_name(device)}) "
-                  f"[{summary}]")
+                  f"[{summary}]{_shard_note(retriever)}")
             continue
         retriever.search(Q)  # warm-up: plan capture, kernel build and first launches
         if device.type == "cuda":
@@ -266,7 +302,7 @@ def main(argv=None) -> None:
                     raise SystemExit(f"{art}: reopened top-k scores differ from the build-time run")
             extra = " roundtrip=ids-identical"
         _report(args.engine, codec, retriever.cfg.backend, args.k, recs,
-                1e6 * dt / col.n_queries, col.fwd, device, extra)
+                1e6 * dt / col.n_queries, col.fwd, device, extra + _shard_note(retriever))
 
 
 if __name__ == "__main__":

@@ -18,7 +18,13 @@ leading axis. The engine-agnostic surface is:
 * ``retriever.save(path)`` / ``open_retriever(path)`` — the artifact
   lifecycle: ``manifest.json`` + ``arrays.npz``, the same format the
   reference writes and reads, so an index saved by either package
-  opens in the other with byte-equal arrays.
+  opens in the other with byte-equal arrays;
+* ``RetrieverConfig(n_shards=S > 1)`` — ``Retriever.build`` returns a
+  ``ShardedRetriever`` (``serve/sharded.py``): one self-contained
+  sub-index per contiguous doc range, saved as a tree of per-shard
+  artifacts, memory-mapped on open and served out of core through an
+  LRU of resident shards; ``map_local_ids`` and ``merge_topk`` are its
+  sentinel-safe merge contract.
 
 Every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"`` (``repro_torch.resolve_device``).
@@ -59,6 +65,8 @@ __all__ = [
     "ArtifactError",
     "MANIFEST_VERSION",
     "top_k",
+    "map_local_ids",
+    "merge_topk",
 ]
 
 #: artifact layout version; shared with the reference so artifacts cross
@@ -82,9 +90,10 @@ class RetrieverConfig:
     ``backend`` selects the rescoring path: ``"torch"`` (plain torch)
     or ``"cuda"`` (the hand-written kernel; ``kernels/modes.py``).
     ``batch_size`` joins the plan cache's bucket set (the expected
-    batch gets an exact-fit plan). ``n_shards`` is carried through
-    artifacts for the reference's sake: the port serves one monolithic
-    index (ROADMAP queue A6)."""
+    batch gets an exact-fit plan). ``n_shards > 1`` builds and serves a
+    sharded index (``serve/sharded.py``): contiguous doc ranges, one
+    sub-index each, searched one after another on one device and merged
+    (the reference's mesh fan-out across devices is ROADMAP A6b)."""
 
     engine: str = "seismic"
     codec: str = "uncompressed"
@@ -115,11 +124,15 @@ def top_k(scores: torch.Tensor, k: int):
 
 class EngineImpl:
     """Protocol every registered engine implements: a host-side numpy
-    array build and a batched search over device tensors."""
+    array build, the build of one doc-range shard, and a batched search
+    over device tensors."""
 
     name: str = "abstract"
     #: engine knob defaults; ``RetrieverConfig.params`` overrides
     defaults: Dict[str, Any] = {}
+    #: True when one document can be reported by several index shards
+    #: (the sharded merge then dedupes by doc id)
+    dedupe_merge: bool = False
 
     def params(self, cfg: RetrieverConfig) -> Dict[str, Any]:
         unknown = set(cfg.params) - set(self.defaults)
@@ -133,6 +146,15 @@ class EngineImpl:
     def build_arrays(self, fwd: ForwardIndex, cfg: RetrieverConfig) -> Dict[str, np.ndarray]:
         """Collection → engine arrays (numpy)."""
         raise NotImplementedError
+
+    def build_shard(
+        self, fwd: ForwardIndex, cfg: RetrieverConfig, lo: int, hi: int
+    ) -> Dict[str, np.ndarray]:
+        """Arrays of ONE self-contained shard over docs ``[lo, hi)`` with
+        shard-local ids — the unit a sharded tree writes per shard
+        directory. The default builds the engine's arrays over the CSR
+        slice."""
+        return self.build_arrays(fwd.slice(lo, hi), cfg)
 
     def search_batch(self, cfg: RetrieverConfig, n_docs: int, value_scale: float, arrays, Q):
         """Queries f32 [nq, dim] → (ids i32 [nq, k], scores f32 [nq, k])."""
@@ -188,6 +210,47 @@ def _to_device(arrays: Mapping[str, Any], device: torch.device) -> dict[str, tor
     return {k: _to_tensor(v).to(device) for k, v in arrays.items()}
 
 
+def map_local_ids(idmap: torch.Tensor, ids: torch.Tensor, n_docs_global: int) -> torch.Tensor:
+    """Shard-local candidate ids → global doc ids, sentinel-safe.
+
+    ``idmap`` is i32 [n_docs_local + 1]: slot ``i < n_docs_local`` holds
+    the global id of local doc ``i``, the last slot the out-of-corpus
+    sentinel ``n_docs_global``. Every local id outside ``[0,
+    n_docs_local]`` — -1 padding and overflow ids — maps to
+    ``n_docs_global``, which ``merge_topk`` masks to -inf; the ids are
+    clamped before the gather (torch indexing raises where the
+    reference's ``jnp.take`` clipped) and masked after it, so nothing
+    aliases doc 0 or the shard's last doc."""
+    n_local = idmap.shape[-1] - 1
+    valid = (ids >= 0) & (ids <= n_local)
+    mapped = torch.take(idmap, ids.clamp(0, n_local).long())
+    return torch.where(valid, mapped, torch.full_like(mapped, n_docs_global))
+
+
+def merge_topk(flat_ids: torch.Tensor, flat_scores: torch.Tensor, k: int, *, dedupe: bool,
+               n_docs_global: int):
+    """[nq, S·k] gathered per-shard candidates → global (ids, scores).
+
+    Every out-of-corpus id — negative padding and ids ≥ n_docs_global —
+    is masked to -inf so it never displaces a real document; with
+    ``dedupe`` the candidates are stably sorted by id and repeats
+    masked before the final ``top_k``, whose ties go to the lower
+    position, as the reference's ``jax.lax.top_k`` (so without dedupe
+    the merge is byte-stable in shard order). Fresh tensors out; the
+    inputs are not written."""
+    nq = flat_scores.shape[0]
+    invalid = (flat_ids < 0) | (flat_ids >= n_docs_global)
+    flat_scores = flat_scores.masked_fill(invalid, float("-inf"))
+    if dedupe:
+        order = torch.argsort(flat_ids, dim=1, stable=True)
+        flat_ids = torch.gather(flat_ids, 1, order)
+        dup = torch.cat([torch.zeros((nq, 1), dtype=torch.bool, device=flat_ids.device),
+                         flat_ids[:, 1:] == flat_ids[:, :-1]], dim=1)
+        flat_scores = torch.gather(flat_scores, 1, order).masked_fill(dup, float("-inf"))
+    top_s, pos = top_k(flat_scores, k)
+    return torch.gather(flat_ids, 1, pos), top_s
+
+
 class Retriever:
     """Engine- and codec-agnostic serving handle: the device arrays of
     ONE engine×codec index plus its batched search. Construct with
@@ -205,15 +268,12 @@ class Retriever:
         value_scale: float,
         value_format: str,
         device=None,
+        shard: str = "",
     ):
         self.impl = get_engine(cfg.engine)
         layout.get_layout(cfg.codec)  # raises listing the known codecs
         value_codecs.check_vq(cfg.vq)
         modes.check_backend(cfg.backend)
-        if cfg.n_shards != 1:
-            raise NotImplementedError(
-                "sharded serving is not ported yet (ROADMAP queue A6)"
-            )
         if cfg.batch_size is not None and (
             not isinstance(cfg.batch_size, int)
             or isinstance(cfg.batch_size, bool)
@@ -229,9 +289,12 @@ class Retriever:
         self.dim = int(dim)
         self.value_scale = float(value_scale)
         self.value_format = value_format
+        #: shard component of the plan key: "" for a monolithic index,
+        #: "<shard>/<n_shards>" inside a ShardedRetriever
+        self.shard = shard
         self.arrays = _to_device(arrays, self.device)
-        # one plan per (engine, codec, backend, k, bucket); cfg.batch_size
-        # joins the bucket set
+        # one plan per (engine, codec, backend, k, bucket, shard);
+        # cfg.batch_size joins the bucket set
         self.plans = serve_pipeline.PlanCache(self)
         self._pipeline: serve_pipeline.Pipeline | None = None
 
@@ -240,10 +303,16 @@ class Retriever:
         return serve_pipeline.PlanCache(self, buckets)
 
     @classmethod
-    def build(cls, fwd: ForwardIndex, cfg: RetrieverConfig, device=None) -> "Retriever":
+    def build(cls, fwd: ForwardIndex, cfg: RetrieverConfig, device=None):
         """Host-side index construction: collection → servable arrays
-        on ``device`` (``cuda`` unless given)."""
+        on ``device`` (``cuda`` unless given). With ``cfg.n_shards > 1``
+        the build returns a ``ShardedRetriever``: one sub-index per
+        contiguous doc range, kept on the host until a search admits it."""
         device = resolve_device(device)  # fail before the host build
+        if cfg.n_shards > 1:
+            from .sharded import ShardedRetriever
+
+            return ShardedRetriever.build(fwd, cfg, device=device)
         impl = get_engine(cfg.engine)
         layout.get_layout(cfg.codec)
         return cls(
@@ -341,10 +410,13 @@ def manifest_dict(
     dim: int,
     value_scale: float,
     value_format: str,
+    extra: Mapping[str, Any] | None = None,
 ) -> dict:
     """The monolithic-artifact manifest: serving config (backend under
-    the reference's name), corpus stats and per-array dtype/shape."""
-    return {
+    the reference's name), corpus stats and per-array dtype/shape.
+    ``extra`` merges in the shard bookkeeping (``shard``, ``doc_lo``,
+    ``doc_hi``) of a sharded tree's per-shard directories."""
+    manifest = {
         "format": _MANIFEST_FORMAT,
         "version": MANIFEST_VERSION,
         "engine": cfg.engine,
@@ -364,6 +436,9 @@ def manifest_dict(
             for k, v in host_arrays.items()
         },
     }
+    if extra:
+        manifest.update(extra)
+    return manifest
 
 
 def write_artifact(
@@ -469,12 +544,15 @@ def from_reference_arrays(
     return _to_device(arrays, resolve_device(device))
 
 
-def open_retriever(path, *, device=None) -> Retriever:
-    """Load a saved monolithic index artifact onto ``device``.
+def open_retriever(path, *, device=None):
+    """Load a saved index artifact for serving on ``device``.
 
     Validates the manifest (format, version, engine/codec names, array
-    specs) before serving. Sharded trees and mutable roots are not
-    ported yet (ROADMAP queues A6, A7)."""
+    specs) before serving. A sharded tree (``format`` =
+    ``repro.serve.retriever-sharded``) opens as a ``ShardedRetriever``
+    with every shard's arrays memory-mapped (``sharded.mmap_npz``): no
+    array byte is read until a search admits the shard. Mutable roots
+    are not ported yet (ROADMAP queue A7)."""
     path = pathlib.Path(path)
     if (path / "CURRENT").is_file():
         raise NotImplementedError(
@@ -483,9 +561,9 @@ def open_retriever(path, *, device=None) -> Retriever:
     manifest = load_manifest(path)
     fmt = manifest.get("format")
     if fmt == _SHARDED_FORMAT:
-        raise NotImplementedError(
-            "sharded artifacts are not ported yet (ROADMAP queue A6)"
-        )
+        from .sharded import ShardedRetriever
+
+        return ShardedRetriever.open(path, manifest, device=device)
     if fmt != _MANIFEST_FORMAT:
         raise ArtifactError(
             f"{path / _MANIFEST_FILE} is not a {_MANIFEST_FORMAT} artifact "

@@ -6,7 +6,9 @@ the global top-k. It is the recall oracle, computed through the same
 decode path the approximate engines use. The batch shares one candidate
 set (all rows), so ``search_batch`` decodes each row once and scores
 the whole query batch against it (``score_candidate_rows_batch``; the
-CUDA rows kernel with ``nd = 1`` under ``backend="cuda"``).
+CUDA rows kernel with ``nd = 1`` under ``backend="cuda"``). A shard of a
+sharded tree packs its rows straight from the doc range
+(``build_shard``).
 """
 
 from __future__ import annotations
@@ -28,6 +30,11 @@ class FlatEngine(EngineImpl):
 
     def build_arrays(self, fwd: ForwardIndex, cfg: RetrieverConfig):
         return layout.pack_rows(fwd, codec=cfg.codec, vq=cfg.vq).arrays()
+
+    def build_shard(self, fwd: ForwardIndex, cfg: RetrieverConfig, lo: int, hi: int):
+        """One shard's rows, packed from the doc range with shard-local
+        row ids — no sub-index to build."""
+        return layout.pack_rows(fwd, codec=cfg.codec, doc_range=(lo, hi), vq=cfg.vq).arrays()
 
     def search_batch(self, cfg: RetrieverConfig, n_docs: int, value_scale: float, arrays, Q):
         docs = torch.arange(arrays["nnz_rows"].shape[0], dtype=torch.int32, device=Q.device)

@@ -34,6 +34,9 @@ __all__ = ["SeismicEngine"]
 @register_engine("seismic")
 class SeismicEngine(EngineImpl):
     name = "seismic"
+    #: the reference's declaration: a document's blocks may reach several
+    #: shards of a block-partitioned index, so the sharded merge dedupes
+    dedupe_merge = True
     defaults = {
         # search-time (phase budgets)
         "cut": 8,  # query components probed

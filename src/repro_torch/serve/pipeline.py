@@ -16,6 +16,8 @@ Four layers, stacked as in the reference:
   the engine (an hnsw search: ~1,600). On a CPU retriever — the explicit
   ``device="cpu"`` request — a plan runs the engine eagerly on the
   padded batch and captures nothing. ``compiles`` counts plan creations.
+  A ``FacadePlan`` fans its batch out through other plans (a sharded
+  retriever's shards, ``serve/sharded.py``) and is never captured.
 
 * ``Pipeline`` — the host-side micro-batching scheduler: ``submit``
   admits one query at a time, the queue coalesces into the smallest
@@ -42,14 +44,19 @@ swaps with scores within rtol 1e-5.
 Threading (DESIGN.md §11): ``PlanCache`` creates plans under a lock and
 runs every capture and replay of its plans under a second one (they
 share one graph memory pool, and a replay overwrites its graph's static
-buffers); ``ResultCache`` and ``ServeStats`` guard their state;
-``Pipeline`` holds one scheduler lock across admission and dispatch.
-The wall clock is injectable (``clock=``) for deadline tests.
+buffers); a capture holds the process-wide ``CUDA_EXCLUSIVE`` lock,
+which a thread that allocates or synchronises beside a serving thread
+(the shard-staging worker) takes too; ``ResultCache`` and ``ServeStats``
+guard their state; ``Pipeline`` holds one scheduler lock across
+admission and dispatch. The wall clock is injectable (``clock=``) for
+deadline tests.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import threading
 import time
 from collections import OrderedDict, deque
@@ -81,9 +88,26 @@ __all__ = [
 #: smallest covering entry; power-of-two spacing bounds pad waste < 2×
 DEFAULT_BUCKETS: Tuple[int, ...] = (1, 2, 4, 8, 16, 32, 64, 128)
 
-#: one CUDA graph capture at a time in this process: a capture in the
-#: default (global) mode forbids unsafe CUDA calls from every thread
-_CAPTURE_LOCK = threading.Lock()
+#: held by every CUDA graph capture in this process, and by any other
+#: thread around CUDA calls that a capture in the default (global) mode
+#: forbids from every thread — allocation, pinned allocation, stream
+#: creation, synchronisation (the shard-staging worker's page-in copies)
+CUDA_EXCLUSIVE = threading.Lock()
+
+
+@contextlib.contextmanager
+def _no_cyclic_gc():
+    """Python's cyclic collector off for the duration, in every thread:
+    a collection during a capture can destroy an unreachable retriever's
+    CUDA graphs, a call the capture forbids (it invalidates the capture).
+    Garbage waits for the next collection."""
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was:
+            gc.enable()
 
 
 def plan_buckets(
@@ -139,8 +163,10 @@ def synthetic_trace(
 class PlanKey:
     """Identity of one search plan. ``mode`` is the resolved port
     backend (``"torch"`` or ``"cuda"``, ``kernels/modes.py``); ``shard``
-    and ``gen`` stay ``""`` until sharded and mutable serving are ported
-    (ROADMAP A6, A7); ``vq`` is the value codec."""
+    is ``""`` for a monolithic index, ``"<s>/<S>"`` for shard ``s`` of a
+    sharded one and ``"*/<S>"`` for the sharded retriever's fan-out
+    plan; ``gen`` stays ``""`` until mutable serving is ported (ROADMAP
+    A7); ``vq`` is the value codec."""
 
     engine: str
     codec: str
@@ -224,25 +250,26 @@ class SearchPlan:
             with torch.cuda.stream(side):
                 self._fn(Q)  # eager warm-up: libraries loaded, workspaces sized
             torch.cuda.current_stream(dev).wait_stream(side)
-            torch.cuda.synchronize(dev)
-            torch.cuda.empty_cache()  # what torch.cuda.graph does on entry, counted before
-            reserved = torch.cuda.memory_reserved(dev)
-            before = _captured()
-            graph = torch.cuda.CUDAGraph()
-            caller = torch.cuda.current_stream(dev)
-            t0 = time.perf_counter()
-            try:
-                with _CAPTURE_LOCK, torch.cuda.graph(graph, pool=self._pool, stream=side):
-                    out = self._fn(Q)
-            except RuntimeError as e:
-                # a failed capture_end leaves the capture stream current
-                torch.cuda.set_stream(caller)
-                raise RuntimeError(
-                    f"CUDA graph capture of plan {self.key} failed (an op in the engine's "
-                    f"search_batch synchronises with the host or is not capturable): {e}"
-                ) from e
-            self.capture_s = time.perf_counter() - t0
-            self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+            with CUDA_EXCLUSIVE:
+                torch.cuda.synchronize(dev)
+                torch.cuda.empty_cache()  # what torch.cuda.graph does on entry, counted before
+                reserved = torch.cuda.memory_reserved(dev)
+                before = _captured()
+                graph = torch.cuda.CUDAGraph()
+                caller = torch.cuda.current_stream(dev)
+                t0 = time.perf_counter()
+                try:
+                    with _no_cyclic_gc(), torch.cuda.graph(graph, pool=self._pool, stream=side):
+                        out = self._fn(Q)
+                except RuntimeError as e:
+                    # a failed capture_end leaves the capture stream current
+                    torch.cuda.set_stream(caller)
+                    raise RuntimeError(
+                        f"CUDA graph capture of plan {self.key} failed (an op in the engine's "
+                        f"search_batch synchronises with the host or is not capturable): {e}"
+                    ) from e
+                self.capture_s = time.perf_counter() - t0
+                self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
             self.launches = {
                 part: {k: n - before[part][k] for k, n in now.items() if n > before[part][k]}
                 for part, now in _captured().items()
@@ -271,6 +298,52 @@ class SearchPlan:
                 self.replays += 1
                 ids, scores = self._out
                 return ids[:n].clone(), scores[:n].clone()
+
+
+class FacadePlan:
+    """A plan that runs by executing: ``fn`` takes the padded ``[bucket,
+    dim]`` batch and returns ``(ids, scores, ran)``, where ``ran`` lists
+    a ``(label, launches, stages)`` record of each plan the batch ran
+    through (a sharded retriever's per-shard plans; records, not the
+    plans, so an evicted shard's graphs are not kept alive). It is never
+    captured, by design: its work admits shards, copies them to the
+    device and replays other plans' graphs. ``warm`` returns False (the
+    reference's facade contract; ``Pipeline.warm`` executes a zero query
+    through it instead). After each call ``launches`` sums the
+    sub-plans' records and ``stages`` holds ``(label, stage)`` pairs, so
+    two buckets compare equal only where every sub-plan took the same
+    stages; ``replays`` counts calls."""
+
+    __slots__ = ("key", "_fn", "launches", "stages", "replays")
+
+    def __init__(self, key: PlanKey, fn: Callable):
+        self.key = key
+        self._fn = fn
+        self.launches: dict = {"variants": {}, "stages": {}}
+        self.stages: frozenset = frozenset()
+        self.replays = 0
+
+    def warm(self, dim: int) -> bool:
+        return False
+
+    @torch.inference_mode()
+    def __call__(self, Q) -> Tuple[torch.Tensor, torch.Tensor]:
+        Q = torch.as_tensor(Q, dtype=torch.float32)
+        n, bucket = Q.shape[0], self.key.bucket
+        if n > bucket:
+            raise ValueError(f"batch of {n} exceeds plan bucket {bucket}")
+        if n < bucket:
+            Q = torch.cat([Q, Q.new_zeros((bucket - n, Q.shape[1]))])
+        ids, scores, ran = self._fn(Q)
+        launches: dict = {"variants": {}, "stages": {}}
+        for _, record, _ in ran:
+            for part, counts in record.items():
+                for name, c in counts.items():
+                    launches[part][name] = launches[part].get(name, 0) + c
+        self.launches = launches
+        self.stages = frozenset((label, st) for label, _, stages in ran for st in stages)
+        self.replays += 1
+        return ids[:n], scores[:n]
 
 
 class PlanCache:
@@ -438,7 +511,8 @@ class ServeStats:
     ``snapshot()`` returns the reference's flat dict: qps, p50/p95/p99_us,
     cache_hit_rate, cache_invalidations, cache_invalidated_entries,
     n_queries, dispatches and bucket_occupancy per bucket, recompiles,
-    and the overlap counters (zero until A6 and A7 are ported)."""
+    and the overlap counters (the prefetch ones from a sharded retriever;
+    the merge ones zero until A7 is ported)."""
 
     def __init__(self, clock: Callable[[], float], window: int = 8192):
         self._clock = clock
@@ -625,12 +699,18 @@ class Pipeline:
     # -- warmup ---------------------------------------------------------
     def warm(self) -> int:
         """Create (and on the card capture) every configured bucket's
-        plan, so capture cost stays out of a measured trace; restarts the
-        QPS clock. Returns the number of plans it created."""
+        plan, so capture cost stays out of a measured trace; a facade
+        plan is warmed by running one zero query through it, outside the
+        stats and the result cache. Restarts the QPS clock. Returns the
+        number of plans it created."""
         dim = int(self.retriever.dim)
         before = self.plans.compiles
         for b in self.plans.buckets:
-            self.plans.get(b).warm(dim)
+            plan = self.plans.get(b)
+            if isinstance(plan, FacadePlan):
+                plan(torch.zeros((1, dim), dtype=torch.float32))
+            else:
+                plan.warm(dim)
         self.stats.reset_clock()
         return self.plans.compiles - before
 

@@ -992,3 +992,180 @@ def test_plan_over_a_host_syncing_engine_raises(plan_retrievers, engine):
     assert torch.ones(3, device="cuda").sum().item() == 3  # the context still works
     ids, _ = base.search(Q[:4])  # and so do the other plans
     assert torch.equal(ids, _eager(base, Q[:4], 4)[0])
+
+
+# -- sharded serving: pinned staging, prefetch, captures beside the staging worker --------
+
+
+@pytest.fixture(scope="module")
+def shard_trees(tmp_path_factory):
+    """A four-shard dotvbyte tree per engine, saved uncompressed, over the
+    400-doc collection of the plan tests, with its 64 queries."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from repro_torch.data.synthetic import generate_collection, splade_config
+    from repro_torch.serve.api import Retriever, RetrieverConfig
+
+    col = generate_collection(splade_config(400, 64, 5), value_format="f16")
+    Q = torch.from_numpy(np.stack([col.query_dense(i) for i in range(64)])).cuda()
+    root = tmp_path_factory.mktemp("shard_trees")
+    trees = {}
+    for engine, params in PLAN_PARAMS.items():
+        cfg = RetrieverConfig(engine=engine, codec="dotvbyte", backend="cuda", n_shards=4,
+                              params=params)
+        trees[engine] = Retriever.build(col.fwd, cfg, device="cuda").save(root / engine)
+    return trees, Q
+
+
+def _open_tree(tree, max_resident, prefetch):
+    from repro_torch.serve.api import open_retriever
+
+    r = open_retriever(tree, device="cuda")
+    r.max_resident, r.prefetch = max_resident, prefetch
+    return r
+
+
+def test_pinned_staging_places_shard_arrays_on_the_card(shard_trees):
+    """A memory-mapped shard is paged into pinned memory and copied to the
+    card on the copy stream: every array lands byte-equal on the device,
+    and a served shard never sits on the CPU."""
+    trees, Q = shard_trees
+    r = _open_tree(trees["flat"], 1, False)
+    arrays = r.shards[2].arrays
+    assert all(isinstance(a, np.memmap) for a in arrays.values() if a.size)
+    placed = r._place(arrays)
+    torch.cuda.synchronize()
+    assert r.builds == 1 and r.admission_s["page_in"] > 0 and r.admission_s["h2d"] > 0
+    for k, a in arrays.items():
+        assert placed[k].is_cuda and placed[k].shape == a.shape, k
+        assert torch.equal(placed[k].cpu(), torch.from_numpy(np.array(a))), k
+    r.search(Q)
+    assert len(r._resident) == 1
+    assert all(t.is_cuda for sr in r._resident.values() for t in sr.arrays.values())
+
+
+@pytest.mark.parametrize("engine", ["seismic", "hnsw", "flat"])
+def test_prefetch_on_equals_off_bitwise(shard_trees, engine):
+    """At max_resident 1 and 4, prefetch on and off answer bit for bit the
+    same; the staged shards are consumed from the second rotation on, each
+    search replays one plan per shard (the rows launches its graphs hold:
+    one per shard, 1 + iters per shard for hnsw), and the memory allocated
+    after the third rotation is the first's, within one shard's arrays and
+    one graph pool."""
+    trees, Q = shard_trees
+    want = None
+    for max_resident in (1, 4):
+        for prefetch in (False, True):
+            r = _open_tree(trees[engine], max_resident, prefetch)
+            got = r.search(Q)
+            if max_resident == 1 and prefetch:
+                r._staged[1].result()
+                torch.cuda.synchronize()
+                first = torch.cuda.memory_allocated()
+            for _ in range(2):
+                got = r.search(Q)
+            if max_resident == 1 and prefetch:
+                r._staged[1].result()
+                torch.cuda.synchronize()
+                grown = torch.cuda.memory_allocated() - first
+                shard = max(sum(int(a.nbytes) for a in sh.arrays.values()) for sh in r.shards)
+                assert grown <= shard + r.pool_bytes(), (grown, shard, r.pool_bytes())
+                assert r.prefetch_hits > 0 and r.evictions >= 8
+            if want is None:
+                want = got
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            plan = r.plans.get(64)
+            per_shard = 1 + PLAN_PARAMS["hnsw"]["iters"] if engine == "hnsw" else 1
+            assert sum(plan.launches["variants"].values()) == 4 * per_shard
+            assert {label for label, _ in plan.stages} == {"0/4", "1/4", "2/4", "3/4"}
+
+
+def test_no_capture_error_under_a_concurrent_trace(shard_trees):
+    """Two threads submit a trace through the pipeline of an out-of-core
+    tree (max_resident 1, prefetch on): the staging worker copies the next
+    shard while the serving thread captures each admitted shard's plans,
+    and no capture raises; every response holds to direct search under the
+    parity rule."""
+    import threading
+
+    from repro_torch.launch.serve import trace_parity
+    from repro_torch.serve.pipeline import synthetic_trace
+
+    trees, Q = shard_trees
+    r = _open_tree(trees["flat"], 1, True)
+    direct_ids, direct_scores = (t.cpu().numpy() for t in r.search(Q))
+    pipe = r.pipeline(deadline_us=200.0, cache_size=0)
+    Qn = Q.cpu().numpy()
+    traces = [synthetic_trace(np.random.default_rng(seed), 48, 64) for seed in (1, 2)]
+    tickets = [[], []]
+    errors = []
+
+    def drive(i):
+        try:
+            for qi in traces[i]:
+                pipe.poll()
+                tickets[i].append(pipe.submit(Qn[qi]))
+            pipe.flush()
+        except Exception as e:  # noqa: BLE001  (reported below, with its type)
+            errors.append(e)
+
+    threads = [threading.Thread(target=drive, args=(i,)) for i in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    trace = np.concatenate(traces)
+    done = tickets[0] + tickets[1]
+    assert all(t.done for t in done) and r.prefetch_hits > 0
+    trace_parity(pipe, trace, done, direct_ids, direct_scores, 64)
+
+
+def test_capture_survives_garbage_that_holds_a_graph(shard_trees):
+    """A collection by Python's cyclic collector in the middle of a
+    capture would destroy the CUDA graph an unreachable cycle holds (a
+    dropped sharded retriever is one: its plan cache refers back to it),
+    a call that invalidates the capture. Captures run with the collector
+    off: here a cycle holding another plan's graph turns unreachable
+    inside a capture, with the collector set to run at every allocation,
+    and the capture still succeeds."""
+    import gc
+
+    from repro_torch.serve import api
+
+    trees, Q = shard_trees
+    ref = _open_tree(trees["flat"], 1, False)
+    arrays = {k: np.array(a) for k, a in ref.shards[0].arrays.items()}
+    kw = dict(n_docs=ref.shards[0].n_docs, dim=ref.dim, value_scale=ref.value_scale,
+              value_format=ref.value_format, device="cuda")
+    other = api.Retriever(ref.cfg.replace(n_shards=1), arrays, **kw)
+    other.search(Q)  # one captured graph, held only by its plan below
+    victims = [other.plans.get(64)]
+    del other
+    inner = type(api.get_engine("flat"))
+
+    class DropsAGraph(inner):
+        def search_batch(self, cfg, n_docs, value_scale, arrays, Q):
+            if torch.cuda.is_current_stream_capturing() and victims:
+                cycle = [victims.pop()]
+                cycle.append(cycle)
+                del cycle
+                [object() for _ in range(64)]  # allocations: the collector's chance
+            return super().search_batch(cfg.replace(engine="flat"), n_docs, value_scale,
+                                        arrays, Q)
+
+    api.register_engine("test_drops_a_graph")(DropsAGraph)
+    threshold = gc.get_threshold()
+    gc.set_threshold(1)
+    try:
+        r = api.Retriever(ref.cfg.replace(n_shards=1, engine="test_drops_a_graph"), arrays,
+                          **kw)
+        ids, scores = r.search(Q)
+        torch.cuda.synchronize()
+    finally:
+        gc.set_threshold(*threshold)
+        api._ENGINES.pop("test_drops_a_graph", None)
+    assert not victims  # the cycle was made inside the capture
+    gc.collect()  # the graph goes now, outside any capture
+    want = api.Retriever(ref.cfg.replace(n_shards=1), arrays, **kw).search(Q)
+    assert torch.equal(ids, want[0]) and torch.equal(scores, want[1])

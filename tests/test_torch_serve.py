@@ -275,8 +275,9 @@ def test_config_validation(collection):
                             device="cpu")
     with pytest.raises(ValueError, match="unknown 'seismic' engine params"):
         api.Retriever.build(port.fwd, api.RetrieverConfig(params={"beam": 3}), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue A6"):
-        api.Retriever.build(port.fwd, api.RetrieverConfig(engine="flat", n_shards=2),
+    with pytest.raises(ValueError, match="at least one document"):
+        api.Retriever.build(port.fwd, api.RetrieverConfig(engine="flat",
+                                                          n_shards=port.fwd.n_docs + 1),
                             device="cpu")
     with pytest.raises(ValueError, match="no registered engine"):
         api.get_engine("ivf")
