@@ -139,8 +139,40 @@ no result:
    through ``ShardedRetriever.pipeline()``, held to direct sharded search
    by ``trace_parity``, with its ServeStats line and prefetch counters.
    The kernels' counts are zeroed just before this phase and read just
-   after;
-9. one JSON line of kernels, the card line, and as the last line
+   after; the flat tree is kept for phase 9;
+9. live mutation (``serve/segments.py``), dotvbyte/f16, the 64 queries:
+   phase 3's flat and Seismic retrievers (100,000 docs) and phase 6's
+   hnsw one, each wrapped by a ``MutableRetriever`` (stable ids
+   ``arange``, nothing rebuilt), take three seeded rounds from an insert
+   pool of 2,048 docs of a second collection (seed 1) — hnsw at beam 512,
+   since a part's budget k + its tombstones must fit the beam (``top_k``
+   raises past it, as the reference does): insert 1 doc and
+   delete 64 base ids (the first 20 one at a time, each followed by a
+   search: memory allocated after the 20th must be the first's within
+   one graph pool); insert 64 and update 32; insert 1,024, then delete
+   256 ids spread over the base and the segments, the one-doc segment's
+   doc among them. After each round: flat ids equal the exact top-k of
+   ``live_corpus()`` (its row scores taken once and assembled per part,
+   checked against ``exact_scores`` over ``live_corpus()``), Seismic and
+   hnsw ids tie-aware equal to a ``backend="torch"`` twin of the same
+   mutable index, recall@10, no deleted id served, every search one
+   replayed plan per part, and a 256-request trace through
+   ``m.pipeline()`` held by ``trace_parity`` with at least one cache
+   invalidation. Then ``merge(background=True)`` with the 64 queries
+   streaming through the flip (each response held to the generation
+   before or after it), the first search after the flip timed: flat
+   over its whole live corpus, Seismic over a base of the first 10,000
+   docs and hnsw of the first 1,000 (the same rounds scaled to the base;
+   their host builds are Python loops). A saved root crashed before its
+   flip reopens with ``open_retriever`` at the committed generation, bit
+   for bit; a mutable index over phase 8's 4-shard flat tree routes its
+   deletes through ``set_tombstones``. Printed: search ms at 0–4
+   segments; each mutation's host ms, its first search's ms, the plans
+   it captured, their capture ms and pool MiB; allocated memory over the
+   delete run; ``merge_wall_us``, ``blocked_swap_us``, the first search
+   after the flip; the ServeStats lines. The kernels' counts are zeroed
+   just before this phase and read just after;
+10. one JSON line of kernels, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -1462,7 +1494,10 @@ def sharded_phase(fwd, Q_np, Q, flat_mono, card: str, n_seismic: int, n_hnsw: in
         for x in rets.values():
             retire(x)
         del results, rets, r, r_off
-        shutil.rmtree(art, ignore_errors=True)
+        if engine == "flat":  # phase 9 serves a mutable index over this tree
+            rec["tree"] = str(art)
+        else:
+            shutil.rmtree(art, ignore_errors=True)
     variants = {k: v + replayed["variants"][k] for k, v in rows_dot.variant_launches.items()}
     stages = {k: v + replayed["stages"][k] for k, v in rows_dot.stage_launches.items()}
     out["_path"] = dict(rows_launches=variants[name],
@@ -1470,6 +1505,476 @@ def sharded_phase(fwd, Q_np, Q, flat_mono, card: str, n_seismic: int, n_hnsw: in
     if variants[name] <= 0:
         raise SystemExit("the sharded path launched no rows kernel")
     log(f"    sharded path launches (warm-ups + graph replays): {name}={variants[name]}, by "
+        f"stage {out['_path']['rows_stage_launches']}")
+    return out
+
+
+#: phase 9: the insert pool (a second collection, seed 1); the rounds' inserts,
+#: deletes and updates at scale 1; the single deletes of the delete run; the cut
+#: bases the Seismic and hnsw merges run on; the crash test's corpus
+MUT_POOL = 2_048
+MUT_ROUNDS = ((1, 64, 0), (64, 0, 32), (1024, 256, 0))
+MUT_DELETE_RUN = 20
+MUT_MERGE_DOCS = {"seismic": 10_000, "hnsw": 1_000}
+#: the hnsw beam the mutable index serves at over phase 6's graph: a part's
+#: budget k + its tombstones must fit the beam (top_k raises past it, as in the
+#: reference), and the rounds leave up to ~230 tombstones in one part
+MUT_HNSW_BEAM = 512
+#: the pause between the bursts of 64 queries streamed through a background merge
+MUT_STREAM_GAP_S = 0.02
+MUT_CRASH_DOCS = 20_000
+
+
+def sync() -> None:
+    torch.cuda.synchronize()
+
+
+class LiveTruth:
+    """Exact scores of a mutable index's live corpus, assembled from row
+    scores taken once per part: ``ForwardIndex.exact_scores`` sums each row
+    on its own, so a row scores the same bits in any corpus that holds it
+    (checked against ``exact_scores`` over ``live_corpus()`` for one query at
+    every use). ``top_k`` is ``exact_top_k``'s selection over them."""
+
+    def __init__(self, Q_np, base_scores):
+        self.Q, self.base, self.seg = Q_np, base_scores, {}
+
+    def scores(self, m):
+        parts = [self.base]
+        for s in m.segments:
+            if id(s.fwd) not in self.seg:
+                self.seg[id(s.fwd)] = (s.fwd, np.stack([s.fwd.exact_scores(q) for q in self.Q]))
+            parts.append(self.seg[id(s.fwd)][1])
+        S = np.concatenate(parts, axis=1)
+        ids = np.concatenate([m.base_ids] + [s.ids for s in m.segments])
+        dead = np.concatenate([m.base_dead] + [s.dead for s in m.segments])
+        pos = np.flatnonzero(~dead)
+        order = np.argsort(ids[pos], kind="stable")
+        live_fwd, live = m.live_corpus()
+        S, live_s = S[:, pos[order]], ids[pos][order]
+        if not (np.array_equal(live, live_s) and np.array_equal(S[0], live_fwd.exact_scores(
+                self.Q[0]))):
+            raise SystemExit("the assembled live scores differ from exact_scores over "
+                             "live_corpus()")
+        return S, live
+
+    def top_k(self, m, k: int = 10):
+        S, live = self.scores(m)
+        out_i, out_s = [], []
+        for row in S:
+            pos = np.argpartition(-row, min(k, len(row) - 1))[:k]
+            pos = pos[np.argsort(-row[pos])]
+            out_i.append(live[pos])
+            out_s.append(row[pos])
+        return np.stack(out_i), np.stack(out_s), S
+
+
+def mutation_phase(fwd, Q_np, Q, bases: dict, tree, card: str) -> dict:
+    """Phase 9: live mutation (``serve/segments.py``) over phase 3's flat and
+    Seismic retrievers and phase 6's hnsw one, each wrapped, not rebuilt (see
+    the module docstring) → per engine its records, and under ``"_path"`` the
+    rows launches of the phase."""
+    from repro_torch.core.seismic import recall_at_k
+    from repro_torch.data.synthetic import generate_collection, splade_config
+    from repro_torch.kernels import rows_dot
+    from repro_torch.launch.serve import trace_parity
+    from repro_torch.serve.api import Retriever, open_retriever
+    from repro_torch.serve.pipeline import ServeStats, synthetic_trace
+    from repro_torch.serve.segments import DeltaSegment, InjectedCrash, MutableRetriever
+
+    nq = Q.shape[0]
+    name = rows_dot.variant_name("dotvbyte", "f16")
+    rng = np.random.default_rng(9)
+    t0 = time.perf_counter()
+    pool = generate_collection(splade_config(MUT_POOL, 1, 1), value_format="f16").fwd
+    t1 = time.perf_counter()
+    base_scores = np.stack([fwd.exact_scores(q) for q in Q_np])
+    log(f"[9] live mutation: insert pool of {pool.n_docs} docs (a second collection, seed 1) "
+        f"in {t1 - t0:.1f}s; exact scores of the {fwd.n_docs} docs for {nq} queries in "
+        f"{time.perf_counter() - t1:.1f}s ({card})")
+    rows_dot.reset_launches()  # this path's launches only
+    replayed = {"variants": dict.fromkeys(rows_dot.variant_launches, 0),
+                "stages": dict.fromkeys(rows_dot.stage_launches, 0)}
+    per_part = {"flat": 1, "seismic": 1, "hnsw": 1 + HNSW_PARAMS["iters"]}
+
+    def counted(m):
+        """``m`` with every fan-out call's part records (the rows launches
+        each replayed graph holds) added to the path's count."""
+        inner = m._dispatch
+
+        def dispatch(Qp):
+            ids, scores, ran = inner(Qp)
+            for _, record, _ in ran:
+                for part, counts in record.items():
+                    for k, c in counts.items():
+                        replayed[part][k] += c
+            return ids, scores, ran
+
+        m._dispatch = dispatch
+        return m
+
+    def search(m):
+        """The 64 queries through ``m.search``: one replayed plan per part (its
+        rows launches: the parts, times 1 + iters for hnsw; a sharded base is
+        its shards)."""
+        got = m.search(Q)
+        sync()
+        plan = m.plans.get(m.plans.bucket_for(nq))
+        n_base = len(m.base.shards) if hasattr(m.base, "shards") else 1
+        want = (n_base + len(m.segments)) * per_part[m.cfg.engine]
+        n = sum(plan.launches["variants"].values())
+        if n != want and m.device.type == "cuda":  # (a CPU rehearsal launches nothing)
+            raise SystemExit(f"mutable {m.cfg.engine}: a search replayed {n} rows launches, "
+                             f"not {want} (one plan per part)")
+        return got
+
+    def twin_of(m):
+        """``m`` on ``backend="torch"``: the same base arrays, segments, ids and
+        tombstones."""
+        tcfg = m.cfg.replace(backend="torch")
+        b = Retriever(tcfg, m.base.arrays, n_docs=m.base.n_docs, dim=m.dim,
+                      value_scale=m.value_scale, value_format=m.value_format, device=m.device)
+        return MutableRetriever(
+            tcfg, b, base_fwd=m.base_fwd, base_ids=m.base_ids, base_dead=m.base_dead,
+            segments=[DeltaSegment(s.ids, s.fwd, s.arrays, s.dead) for s in m.segments],
+            next_id=m.next_id)
+
+    def step(m, rec, op, fn):
+        """One mutation, then the first search after it → ms of both, the plans
+        that search created (captured), their capture ms and graph pool MiB."""
+        before = list(m._wrappers.values())
+        c0 = m.plans.compiles
+        t = time.perf_counter()
+        fn()
+        mut_ms = 1e3 * (time.perf_counter() - t)
+        t = time.perf_counter()
+        search(m)
+        first_ms = 1e3 * (time.perf_counter() - t)
+        new = [p for r in m._wrappers.values() if not any(r is b for b in before)
+               for p in r.plans.created().values()]
+        st = dict(op=op, segments=len(m.segments), ms=mut_ms, first_search_ms=first_ms,
+                  plans=m.plans.compiles - c0, capture_ms=1e3 * sum(p.capture_s for p in new),
+                  pool_bytes=sum(p.pool_bytes for p in new))
+        del before, new
+        gc.collect()
+        sync()
+        st["allocated"] = torch.cuda.memory_allocated()
+        rec["steps"].append(st)
+        return st
+
+    def live_sample(m, n, exclude=()):
+        live = np.setdiff1d(m.live_ids(), np.asarray(list(exclude), np.int64))
+        return np.sort(rng.choice(live, size=n, replace=False))
+
+    def spread_sample(m, n, one_doc):
+        """``n`` live ids: half from the base, the rest from the segments,
+        the one-doc segment's doc among them."""
+        in_base = m.base_ids[~m.base_dead]
+        in_segs = np.setdiff1d(np.concatenate([s.ids[~s.dead] for s in m.segments]), [one_doc])
+        return np.union1d(np.union1d(rng.choice(in_base, n // 2, replace=False),
+                                     rng.choice(in_segs, n - n // 2 - 1, replace=False)),
+                          [one_doc])
+
+    def check(m, engine, truth, dead_ids, label, rec, pipe=None):
+        """After a round: ids held (flat to the live exact top-k, Seismic and
+        hnsw to the torch twin), recall, no deleted id served, the trace."""
+        ids_c, sc_c = search(m)
+        ids_np, sc_np = ids_c.cpu().numpy(), sc_c.cpu().numpy()
+        if np.intersect1d(ids_np, np.asarray(sorted(dead_ids), np.int64)).size:
+            raise SystemExit(f"mutable {engine} {label}: a deleted id was served")
+        t_ids, t_sc, _ = truth.top_k(m)
+        out = dict(label=label, segments=len(m.segments), n_live=m.n_live,
+                   recall_at_10=float(np.mean([recall_at_k(t_ids[i], ids_np[i])
+                                               for i in range(nq)])))
+        if engine == "flat":
+            out["tied_swaps_vs_exact"] = sum(
+                tie_aware_topk(f"mutable flat {label} query {i}", ids_np[i], sc_np[i], t_ids[i],
+                               t_sc[i]) for i in range(nq))
+        else:
+            twin = twin_of(m)
+            out["tied_swaps_vs_torch"] = same_topk(ids_c, sc_c, *twin.search(Q))
+            del twin
+            gc.collect()
+        if pipe is not None:
+            direct = (ids_np, sc_np)
+            inv0 = pipe.cache.invalidations
+            trace = synthetic_trace(np.random.default_rng(TRACE["seed"] + len(rec["rounds"])),
+                                    TRACE["requests"], nq, repeat_frac=TRACE["repeat_frac"])
+            tickets = []
+            for qi in trace:
+                pipe.poll()
+                tickets.append(pipe.submit(Q_np[qi]))
+            pipe.flush()
+            out["trace"] = trace_parity(pipe, trace, tickets, *direct, m.plans.bucket_for(nq))
+            out["trace_invalidations"] = pipe.cache.invalidations - inv0
+            if out["trace_invalidations"] < 1:
+                raise SystemExit(f"mutable {engine} {label}: the trace's cache was not "
+                                 "invalidated by the round's mutations")
+        rec["rounds"].append(out)
+        log(f"    {engine} {label}: {out['segments']} segments, {out['n_live']} live; "
+            + (f"ids == live exact_top_k ({out['tied_swaps_vs_exact']} tied swaps)"
+               if engine == "flat" else
+               f"ids == torch twin tie-aware ({out['tied_swaps_vs_torch']} tied swaps)")
+            + f", recall@10 {out['recall_at_10']:.4f}; no deleted id served"
+            + (f"; trace {out['trace']} with {out['trace_invalidations']} invalidation(s)"
+               if pipe is not None else ""))
+
+    def rounds(m, engine, truth, rec, scale, pipe=None, delete_run=0):
+        """The three rounds of MUT_ROUNDS, counts scaled (at least 1), the first
+        round's first ``delete_run`` deletes one at a time; → the deleted ids."""
+        dead_ids, n_pool = set(), 0
+        one_doc = None
+        for r, (n_ins, n_del, n_upd) in enumerate(MUT_ROUNDS):
+            n_ins, n_del, n_upd = (max(1, round(x * scale)) if x else 0
+                                   for x in (n_ins, n_del, n_upd))
+            if r == 2:  # inserts first, then deletes across base and segments
+                st = step(m, rec, f"insert {n_ins}", lambda: m.insert(
+                    pool.slice(n_pool, n_pool + n_ins)))
+                n_pool += n_ins
+                rec["search_ms"][len(m.segments)] = statistics.median(
+                    host_ms(lambda: m.search(Q), 5))
+                victims = spread_sample(m, n_del, one_doc)
+                step(m, rec, f"delete {len(victims)}", lambda: m.delete(victims))
+                dead_ids |= set(victims.tolist())
+            else:
+                if n_ins:
+                    step(m, rec, f"insert {n_ins}", lambda: m.insert(
+                        pool.slice(n_pool, n_pool + n_ins)))
+                    if n_ins == 1:
+                        one_doc = int(m.segments[-1].ids[0])
+                    n_pool += n_ins
+                    rec["search_ms"][len(m.segments)] = statistics.median(
+                        host_ms(lambda: m.search(Q), 5))
+                if n_del:
+                    victims = live_sample(m, n_del, [one_doc])
+                    mem = []
+                    for v in victims[:delete_run]:
+                        st = step(m, rec, "delete 1", lambda: m.delete([v]))
+                        mem.append((st["allocated"], st["pool_bytes"]))
+                    if mem:
+                        grown, pool_b = mem[-1][0] - mem[0][0], max(p for _, p in mem)
+                        rec["delete_run"] = dict(deletes=len(mem), allocated_first=mem[0][0],
+                                                 allocated_last=mem[-1][0], grown=grown,
+                                                 one_pool=pool_b)
+                        if grown > pool_b:
+                            raise SystemExit(f"mutable {engine}: allocated grew {grown} B over "
+                                             f"{len(mem)} deletes, more than one graph pool "
+                                             f"({pool_b} B)")
+                    if len(victims) > delete_run:
+                        step(m, rec, f"delete {len(victims) - delete_run}",
+                             lambda: m.delete(victims[delete_run:]))
+                    dead_ids |= set(victims.tolist())
+                if n_upd:
+                    ids = live_sample(m, n_upd, [one_doc])
+                    step(m, rec, f"update {n_upd}", lambda: m.update(
+                        pool.slice(n_pool, n_pool + n_upd), ids))
+                    n_pool += n_upd
+                    rec["search_ms"][len(m.segments)] = statistics.median(
+                        host_ms(lambda: m.search(Q), 5))
+            check(m, engine, truth, dead_ids, f"round {r + 1}", rec, pipe)
+        return dead_ids
+
+    def merge_streaming(m, engine, truth, dead_ids, rec):
+        """``merge(background=True)`` with the 64 queries streaming through the
+        flip (a pipeline without a cache, so each is dispatched); the
+        responses held to the generation before or after the flip, the first
+        search after the flip timed."""
+        pre = tuple(t.cpu().numpy() for t in search(m))
+        before_merge, _ = truth.scores(m)  # the live corpus: the merged base's rows
+        stream = m.pipeline(deadline_us=TRACE["deadline_us"], cache_size=0)
+        stream.warm()
+        gen0, w0, b0 = m.generation, m.merge_wall_us, m.blocked_swap_us
+        t = time.perf_counter()
+        handle = m.merge(background=True)
+        during = []
+        while not handle.done():
+            for qi in range(nq):
+                stream.poll()
+                during.append((qi, stream.submit(Q_np[qi])))
+            stream.flush()
+            time.sleep(MUT_STREAM_GAP_S)  # a gap between bursts: the merge's host build needs the GIL
+        handle.result()
+        wall_s = time.perf_counter() - t
+        t = time.perf_counter()
+        post_c = search(m)
+        first_ms = 1e3 * (time.perf_counter() - t)
+        post = tuple(x.cpu().numpy() for x in post_c)
+        if m.generation != gen0 + 1 or m.segments:
+            raise SystemExit(f"mutable {engine}: the background merge did not flip")
+        swaps = 0
+        for qi, tk in during:
+            ids, sc = tk.result()
+            if engine == "flat":
+                continue  # held below, with the post-merge answer, to the exact top-k
+            got = (torch.tensor(ids), torch.tensor(sc))
+            try:
+                swaps += same_topk(*got, torch.tensor(pre[0][qi]), torch.tensor(pre[1][qi]))
+            except SystemExit:
+                swaps += same_topk(*got, torch.tensor(post[0][qi]), torch.tensor(post[1][qi]))
+        truth.base, truth.seg = before_merge, {}
+        out = dict(n_docs_after=m.base.n_docs, during=len(during), merge_s=wall_s,
+                   merge_wall_us=m.merge_wall_us - w0, blocked_swap_us=m.blocked_swap_us - b0,
+                   first_search_after_flip_ms=first_ms,
+                   first_search_replayed_prewarm=all(
+                       p._graph is not None for p in m._wrappers["base"].plans.created().values()),
+                   during_tied_swaps=swaps, snapshot=stream.snapshot())
+        t_ids, t_sc, _ = truth.top_k(m)
+        if engine == "flat":
+            for qi, tk in during:
+                ids, sc = tk.result()
+                tie_aware_topk(f"mutable flat during the merge, query {qi}", ids, sc, t_ids[qi],
+                               t_sc[qi])
+            out["tied_swaps_vs_exact"] = sum(
+                tie_aware_topk(f"mutable flat after the merge, query {i}", post[0][i],
+                               post[1][i], t_ids[i], t_sc[i]) for i in range(nq))
+        else:
+            twin = twin_of(m)
+            out["tied_swaps_vs_torch"] = same_topk(*post_c, *twin.search(Q))
+            del twin
+        out["recall_at_10"] = float(np.mean([recall_at_k(t_ids[i], post[0][i])
+                                             for i in range(nq)]))
+        if np.intersect1d(post[0], np.asarray(sorted(dead_ids), np.int64)).size:
+            raise SystemExit(f"mutable {engine}: a deleted id was served after the merge")
+        rec["merge"] = out
+        log(f"    {engine} background merge over {out['n_docs_after']} live docs: "
+            f"{wall_s:.2f}s with {len(during)} responses streamed through the flip (held to "
+            f"the generation before or after it, {swaps} tied swaps); merge_wall_us "
+            f"{out['merge_wall_us']:.0f}, blocked_swap_us {out['blocked_swap_us']:.1f}; first "
+            f"search after the flip {first_ms:.3f} ms (prewarmed plans replayed: "
+            f"{out['first_search_replayed_prewarm']}); recall@10 {out['recall_at_10']:.4f} "
+            f"({card})")
+        log(f"    {engine} merge ServeStats: {ServeStats.summary(out['snapshot'])} ({card})")
+
+    def mut_cfg(engine):
+        cfg = bases[engine].cfg
+        if engine == "hnsw":
+            cfg = cfg.replace(params={**cfg.params, "beam": MUT_HNSW_BEAM})
+        return cfg
+
+    out = {}
+    for engine in ("flat", "seismic", "hnsw"):
+        t_e = time.perf_counter()
+        base = bases[engine]
+        n_base = base.n_docs
+        m = counted(MutableRetriever(mut_cfg(engine), base, base_fwd=fwd.slice(0, n_base),
+                                     base_ids=np.arange(n_base)))
+        truth = LiveTruth(Q_np, base_scores[:, :n_base])
+        rec = out[engine] = dict(n_base=n_base, steps=[], rounds=[], search_ms={})
+        search(m)
+        rec["search_ms"][0] = statistics.median(host_ms(lambda: m.search(Q), 5))
+        pipe = m.pipeline(deadline_us=TRACE["deadline_us"], cache_size=TRACE["cache_size"])
+        dead_ids = rounds(m, engine, truth, rec, 1.0, pipe, MUT_DELETE_RUN)
+        snap = pipe.snapshot()
+        rec["snapshot"] = snap
+        by_op = {}
+        for st in rec["steps"]:
+            by_op.setdefault(st["op"].split()[0], []).append(st)
+        log(f"    {engine} over docs [0, {n_base}), dotvbyte f16, backend cuda: search ms at "
+            + ", ".join(f"{k} segments {v:.3f}" for k, v in rec["search_ms"].items())
+            + f"; delete run of {rec['delete_run']['deletes']}: allocated "
+            f"{rec['delete_run']['allocated_first'] / 2**20:.1f} -> "
+            f"{rec['delete_run']['allocated_last'] / 2**20:.1f} MiB (one graph pool "
+            f"{rec['delete_run']['one_pool'] / 2**20:.1f} MiB) ({card})")
+        for op, sts in by_op.items():
+            log(f"      {op}: " + "; ".join(
+                f"{st['op']} {st['ms']:.1f} ms host, first search {st['first_search_ms']:.1f} "
+                f"ms ({st['plans']} plans captured in {st['capture_ms']:.1f} ms, pools "
+                f"{st['pool_bytes'] / 2**20:.1f} MiB)" for st in (sts if len(sts) <= 4 else
+                                                                 [sts[0], sts[-1]]))
+                + f" ({card})")
+        log(f"    {engine} ServeStats: {ServeStats.summary(snap)} ({card})")
+        if engine == "flat":
+            merge_streaming(m, engine, truth, dead_ids, rec)
+        del m, pipe
+        gc.collect()
+        rec["seconds"] = time.perf_counter() - t_e
+    # the Seismic and hnsw merges, over cut bases (their host builds are Python loops)
+    for engine, n_cut in MUT_MERGE_DOCS.items():
+        t_e = time.perf_counter()
+        n_cut = min(n_cut, fwd.n_docs)
+        cfg = mut_cfg(engine)
+        t = time.perf_counter()
+        base = Retriever.build(fwd.slice(0, n_cut), cfg, device=bases[engine].device)
+        build_s = time.perf_counter() - t
+        m = counted(MutableRetriever(cfg, base, base_fwd=fwd.slice(0, n_cut),
+                                     base_ids=np.arange(n_cut)))
+        truth = LiveTruth(Q_np, base_scores[:, :n_cut])
+        rec = out[engine]["merge_cut"] = dict(n_base=n_cut, build_s=build_s, steps=[],
+                                              rounds=[], search_ms={})
+        log(f"    {engine} merge base: docs [0, {n_cut}) built in {build_s:.1f}s; the rounds "
+            f"scaled by {n_cut / fwd.n_docs:g} ({card})")
+        dead_ids = rounds(m, engine, truth, rec, n_cut / fwd.n_docs)
+        merge_streaming(m, engine, truth, dead_ids, rec)
+        rec["seconds"] = time.perf_counter() - t_e
+        del m, base
+        gc.collect()
+    # a saved root crashed before its flip and reopened at the committed generation
+    t = time.perf_counter()
+    root = ROOT / "build" / "chip_smoke" / "mutable"
+    shutil.rmtree(root, ignore_errors=True)
+    n_crash = min(MUT_CRASH_DOCS, fwd.n_docs)
+    dev = bases["flat"].device
+    m = counted(MutableRetriever.create(fwd.slice(0, n_crash), bases["flat"].cfg, root,
+                                        device=dev))
+    m.insert(pool.slice(0, 64))
+    m.delete(np.arange(0, n_crash, n_crash // 32)[:32])
+    want = search(m)
+    try:
+        m.merge(crash_before_flip=True)
+    except InjectedCrash:
+        pass
+    else:
+        raise SystemExit("crash_before_flip did not raise")
+    r = open_retriever(root, device=dev)
+    if not (isinstance(r, MutableRetriever) and r.generation == 0 and len(r.segments) == 1
+            and r.device == dev):
+        raise SystemExit("the crashed root did not reopen at its committed generation")
+    got = counted(r).search(Q)
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise SystemExit("the reopened root serves other answers than before the crash")
+    m.merge()
+    r = counted(open_retriever(root, device=dev))
+    if r.generation != 1 or r.segments:
+        raise SystemExit("the retried merge did not commit generation 1")
+    got, want = r.search(Q), m.search(Q)
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        raise SystemExit("the reopened generation 1 serves other answers")
+    out["crash"] = dict(n_docs=n_crash, seconds=time.perf_counter() - t)
+    log(f"    crash test over docs [0, {n_crash}) + 64: crash_before_flip left generation 0 "
+        f"loadable, open_retriever served it bit for bit, the retry committed generation 1 "
+        f"({out['crash']['seconds']:.1f}s, {card})")
+    del m, r, got, want
+    # a mutable over phase 8's 4-shard flat tree: deletes through set_tombstones
+    t = time.perf_counter()
+    tree_r = open_retriever(tree, device=dev)
+    m = counted(MutableRetriever(tree_r.cfg, tree_r, base_fwd=fwd,
+                                 base_ids=np.arange(fwd.n_docs)))
+    truth = LiveTruth(Q_np, base_scores)
+    victims = np.sort(rng.choice(fwd.n_docs, 64, replace=False))
+    m.delete(victims)
+    ids_c, sc_c = search(m)
+    if not np.array_equal(tree_r._tombstones, victims):
+        raise SystemExit("the sharded base's tombstones are not the deleted rows")
+    per_shard = [int(c) for c in tree_r._shard_tombs]
+    m.insert(pool.slice(0, 64))
+    dead = set(victims.tolist())
+    rec = out["sharded_flat"] = dict(n_docs=fwd.n_docs, shards=len(tree_r.shards),
+                                     tombstones_per_shard=per_shard, steps=[], rounds=[])
+    check(m, "flat", truth, dead, "sharded base, 64 deletes + 64 inserts", rec)
+    rec["seconds"] = time.perf_counter() - t
+    log(f"    sharded flat tree of phase 8 ({len(tree_r.shards)} shards, memory-mapped): 64 "
+        f"deletes routed through set_tombstones {per_shard} per shard ({rec['seconds']:.1f}s, "
+        f"{card})")
+    del m, tree_r
+    gc.collect()
+    shutil.rmtree(ROOT / "build" / "chip_smoke", ignore_errors=True)
+    variants = {k: v + replayed["variants"][k] for k, v in rows_dot.variant_launches.items()}
+    stages = {k: v + replayed["stages"][k] for k, v in rows_dot.stage_launches.items()}
+    out["_path"] = dict(rows_launches=variants[name],
+                        rows_stage_launches={k: v for k, v in stages.items() if v})
+    if variants[name] <= 0:
+        raise SystemExit("the mutable path launched no rows kernel")
+    log(f"    mutable path launches (warm-ups + graph replays): {name}={variants[name]}, by "
         f"stage {out['_path']['rows_stage_launches']}")
     return out
 
@@ -1909,7 +2414,18 @@ def main() -> int:
     dv["sharded_phase"] = shard
     phase_s["8 sharded"] = time.perf_counter() - t0
 
-    # -- 9. summary -------------------------------------------------------------
+    # -- 9. live mutation --------------------------------------------------------------
+    t0 = time.perf_counter()
+    mut = mutation_phase(fwd, Q_np, Q, {"flat": flat["dotvbyte", "f16"],
+                                        "seismic": seismic["dotvbyte", "f16"],
+                                        "hnsw": hnsw_served["dotvbyte", "f16"]},
+                         shard["flat"]["tree"], card)
+    dv["launches_by_path"]["mutable"] = mut["_path"]["rows_launches"]
+    dv["launches"] += dv["launches_by_path"]["mutable"]
+    dv["mutation_phase"] = mut
+    phase_s["9 mutation"] = time.perf_counter() - t0
+
+    # -- 10. summary ------------------------------------------------------------
     log("phases: " + ", ".join(f"{k} {v:.1f}s" for k, v in phase_s.items()))
     log(f"ported kernels: {n_rows} rows_dot variants and {len(kernels) - n_rows} block-scan "
         f"entries ok; total {time.perf_counter() - t_start:.0f}s")

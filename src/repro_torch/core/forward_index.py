@@ -1,6 +1,7 @@
 """The forward index (paper §1-§2): doc_id → sparse vector, CSR layout
 (numpy; a copy of the parts of ``repro/core/forward_index.py`` the
-serving path, the full scan and the paper's space metric need).
+serving path, the full scan, the paper's space metric and the mutable
+index's merge — ``concat``, ``append``, ``select`` — need).
 
 Three arrays, as the paper describes: ``components`` (nonzero
 coordinate ids), ``values`` (their values), ``offsets`` (row pointers).
@@ -16,7 +17,7 @@ band (``start_abs``), so every block decodes on its own.
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterable, Mapping
+from typing import Iterable, Mapping, Sequence
 
 import numpy as np
 
@@ -97,6 +98,14 @@ class ForwardIndex:
         s, e = int(self.offsets[i]), int(self.offsets[i + 1])
         return self.components[s:e], self.value_format.dequantise(self.values[s:e])
 
+    def doc_raw_values(self, i: int) -> np.ndarray:
+        s, e = int(self.offsets[i]), int(self.offsets[i + 1])
+        return self.values[s:e]
+
+    def iter_docs(self) -> Iterable[tuple[np.ndarray, np.ndarray]]:
+        for i in range(self.n_docs):
+            yield self.doc(i)
+
     def slice(self, lo: int, hi: int) -> "ForwardIndex":
         """CSR view of the contiguous doc range ``[lo, hi)`` (zero-copy
         on components/values; only the rebased offsets allocate)."""
@@ -109,6 +118,72 @@ class ForwardIndex:
             components=self.components[s:e],
             values=self.values[s:e],
             offsets=(self.offsets[lo : hi + 1] - s).astype(np.int64),
+            dim=self.dim,
+            value_format=self.value_format,
+        )
+
+    @staticmethod
+    def concat(parts: Sequence["ForwardIndex"]) -> "ForwardIndex":
+        """Row-wise concatenation of CSR indexes (same dim and value
+        format) in one vectorised pass — how a mutable index's merge
+        stitches its base store and delta segments together
+        (``serve/segments.py``). One part is returned as it is."""
+        if not parts:
+            raise ValueError("concat needs at least one part")
+        dim = parts[0].dim
+        vf = parts[0].value_format
+        for p in parts[1:]:
+            if p.dim != dim:
+                raise ValueError(f"dim mismatch: {p.dim} != {dim}")
+            if p.value_format.name != vf.name:
+                raise ValueError(
+                    f"value_format mismatch: {p.value_format.name} != {vf.name}"
+                )
+        if len(parts) == 1:
+            return parts[0]
+        offs = [np.zeros(1, np.int64)]
+        base = 0
+        for p in parts:
+            offs.append(p.offsets[1:].astype(np.int64) + base)
+            base += int(p.offsets[-1])
+        return ForwardIndex(
+            components=np.concatenate([p.components for p in parts]),
+            values=np.concatenate([p.values for p in parts]),
+            offsets=np.concatenate(offs),
+            dim=dim,
+            value_format=vf,
+        )
+
+    def append(self, other: "ForwardIndex") -> "ForwardIndex":
+        """``concat([self, other])``."""
+        return ForwardIndex.concat([self, other])
+
+    def select(self, idx: np.ndarray) -> "ForwardIndex":
+        """Row gather: row ``r`` of the result is row ``idx[r]`` of this
+        index, in the given order (repeats allowed), stored values kept
+        byte for byte. The merge extracts the live rows in stable-id
+        order with this."""
+        idx = np.asarray(idx, dtype=np.int64)
+        if idx.size and (idx.min() < 0 or idx.max() >= self.n_docs):
+            raise ValueError(
+                f"row index outside [0, {self.n_docs}): [{idx.min()}, {idx.max()}]"
+            )
+        lens = np.diff(self.offsets)[idx]
+        new_off = np.zeros(len(idx) + 1, np.int64)
+        np.cumsum(lens, out=new_off[1:])
+        total = int(new_off[-1])
+        # element positions: per output row, a run of consecutive source
+        # positions from the source row's first element
+        starts = self.offsets[:-1][idx]
+        pos = (
+            np.repeat(starts, lens)
+            + np.arange(total, dtype=np.int64)
+            - np.repeat(new_off[:-1], lens)
+        )
+        return ForwardIndex(
+            components=self.components[pos],
+            values=self.values[pos],
+            offsets=new_off,
             dim=self.dim,
             value_format=self.value_format,
         )

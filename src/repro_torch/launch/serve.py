@@ -39,6 +39,15 @@ turns off the staging of the next shard. ``--save-index`` writes a
 sharded artifact tree and ``--load-index`` opens one memory-mapped; a
 tree serves the backend it was saved with. The result line adds the
 residency counters.
+
+``--mutate`` is the live-mutation load generator (the reference's
+``_mutate_loadgen``, ``serve/segments.py``): ``--mutations`` seeded
+inserts, deletes and updates in three rounds over a ``MutableRetriever``,
+each round followed by a query burst through the pipeline that is held
+to a fresh oracle over the live corpus, then a background merge with
+queries streaming through the flip; it prints ``mutation parity OK``
+with the ServeStats line. Budgets are exhaustive: keep ``--n-docs`` in
+the low hundreds.
 """
 
 from __future__ import annotations
@@ -87,48 +96,81 @@ def _report(name, codec, backend, k, recs, dt_us, fwd, device, extra=""):
 PARITY_RTOL = 1e-5
 
 
-def trace_parity(pipe, trace, tickets, direct_ids, direct_scores, direct_bucket) -> dict:
+def stage_names(stages) -> frozenset:
+    """A plan's stages as bare rows-kernel stage names: a fan-out plan's
+    ``(label, stage)`` pairs (nested, for a sharded base inside a mutable
+    index) lose their labels."""
+    out = set()
+    for st in stages:
+        while isinstance(st, tuple):
+            st = st[-1]
+        out.add(st)
+    return frozenset(out)
+
+
+def trace_parity(pipe, trace, tickets, direct_ids, direct_scores, direct_bucket=None, *,
+                 want_stages=None) -> dict:
     """Hold every trace response against direct search (host numpy
     ``[n_queries, k]``, run in ``direct_bucket``) → counts per rule.
 
-    A response dispatched in a bucket whose plan launched the same
-    rows-kernel stages as the direct plan's (``SearchPlan.stages``;
-    always on the CPU, where nothing is launched) must be byte-identical;
-    one from a bucket of other stages must have scores within rtol
-    :data:`PARITY_RTOL` at every rank, so ids may differ only at tied
-    positions; a cache hit must replay, byte for byte, a response served
-    for the same query before it. Raises ``AssertionError`` on the first
-    violation."""
-    plans = pipe.plans.created()
-    want_stages = plans[direct_bucket].stages
+    A response whose dispatch launched the same rows-kernel stages as the
+    direct plan (``PendingQuery.stages``; always on the CPU, where nothing
+    is launched) must be byte-identical; one of other stages must have
+    scores within rtol :data:`PARITY_RTOL` at every rank, so ids may
+    differ only at tied positions; a cache hit must replay, byte for
+    byte, a response served for the same query before it.
+
+    ``want_stages`` names the stages of a plan outside ``pipe`` that gave
+    the direct results (the mutation load generator's oracle): stages are
+    then compared by name (:func:`stage_names`), and a cache hit, which
+    may replay a response served before this trace, is held to the
+    direct results like any response — bit for bit where every dispatch
+    of the trace took ``want_stages``, else by the rtol rule. Raises
+    ``AssertionError`` on the first violation."""
+    oracle = want_stages is not None
+    if oracle:
+        want_stages, names = frozenset(want_stages), stage_names
+    else:
+        want_stages, names = pipe.plans.created()[direct_bucket].stages, (lambda st: st)
     counts = {"bitwise_same_stage": 0, "rtol_other_stage": 0, "bitwise_other_stage": 0,
               "tied_swaps_other_stage": 0, "cache_replays": 0}
     served: dict[int, list] = {}
+    hits, all_same = [], True
+
+    def hold(qi, t, same_stage, what, count=True) -> str:
+        same = np.array_equal(t.ids, direct_ids[qi]) and np.array_equal(
+            t.scores, direct_scores[qi])
+        if same_stage:
+            if not same:
+                raise AssertionError(
+                    f"query {qi}: {what} took the direct plan's stages {sorted(want_stages)} "
+                    f"but its top-k differs from direct search")
+            return "bitwise_same_stage"
+        if not np.allclose(t.scores, direct_scores[qi], rtol=PARITY_RTOL, atol=0):
+            raise AssertionError(
+                f"query {qi}: {what} scores differ from direct search beyond rtol "
+                f"{PARITY_RTOL}")
+        if count:
+            counts["bitwise_other_stage"] += int(same)
+            counts["tied_swaps_other_stage"] += int((t.ids != direct_ids[qi]).sum())
+        return "rtol_other_stage"
+
     for qi, t in zip(trace, tickets):
         qi = int(qi)
         if t.from_cache:
-            if not any(np.array_equal(t.ids, i) and np.array_equal(t.scores, s)
-                       for i, s in served.get(qi, ())):
+            if oracle:
+                hits.append((qi, t))
+            elif not any(np.array_equal(t.ids, i) and np.array_equal(t.scores, s)
+                         for i, s in served.get(qi, ())):
                 raise AssertionError(f"cache hit for query {qi} replays no served response")
             counts["cache_replays"] += 1
             continue
         served.setdefault(qi, []).append((t.ids, t.scores))
-        same = np.array_equal(t.ids, direct_ids[qi]) and np.array_equal(
-            t.scores, direct_scores[qi])
-        if plans[t.bucket].stages == want_stages:
-            if not same:
-                raise AssertionError(
-                    f"query {qi}: bucket {t.bucket} took the direct bucket's stages "
-                    f"{sorted(want_stages)} but its top-k differs from direct search")
-            counts["bitwise_same_stage"] += 1
-            continue
-        if not np.allclose(t.scores, direct_scores[qi], rtol=PARITY_RTOL, atol=0):
-            raise AssertionError(
-                f"query {qi}: bucket {t.bucket} scores differ from direct search beyond "
-                f"rtol {PARITY_RTOL}")
-        counts["rtol_other_stage"] += 1
-        counts["bitwise_other_stage"] += int(same)
-        counts["tied_swaps_other_stage"] += int((t.ids != direct_ids[qi]).sum())
+        same_stage = names(t.stages) == want_stages
+        all_same &= same_stage
+        counts[hold(qi, t, same_stage, f"bucket {t.bucket}")] += 1
+    for qi, t in hits:
+        hold(qi, t, all_same, "a cache hit", count=False)
     return counts
 
 
@@ -163,6 +205,111 @@ def _pipeline_loadgen(retriever, Q, args, rng) -> str:
             f"trace_recompiles={snap['recompiles'] - warm}")
 
 
+def _mutate_loadgen(col, engine, codec, args, device, rng) -> None:
+    """The live-mutation load generator (the reference's
+    ``_mutate_loadgen``): a ``MutableRetriever`` over the leading ~2/3 of
+    the collection (the rest is the insert pool) at budgets exhaustive for
+    the whole corpus; ``--mutations`` seeded inserts, deletes and updates
+    in three rounds, each followed by a query burst through the
+    micro-batching pipeline and a checkpoint that holds every burst
+    response to a fresh oracle ``Retriever.build`` over the live corpus
+    (stable id ``live_ids[pos]`` ↔ oracle position ``pos``) under
+    :func:`trace_parity`'s rule against the oracle's stages: byte for byte
+    on the CPU, stage-aware on the card. The merge then runs in the
+    background with queries streaming through the flip; those responses
+    join the post-merge checkpoint (the merge does not change the live
+    corpus). Raises ``AssertionError`` on a divergence, or if the result
+    cache was not invalidated once per round and once for the merge."""
+    from collections import Counter
+
+    from ..serve.api import Retriever, RetrieverConfig
+    from ..serve.pipeline import ServeStats, synthetic_trace
+    from ..serve.segments import MutableRetriever
+
+    fwd = col.fwd
+    n_docs = fwd.n_docs
+    exhaustive = {
+        "seismic": dict(cut=16, block_budget=1024, n_probe=1024, n_postings=100000,
+                        block_size=8),
+        "hnsw": dict(beam=n_docs + 8, iters=n_docs + 8, n_seeds=4, m=8, ef_construction=48),
+        "flat": {},
+    }
+    cfg = RetrieverConfig(engine=engine, codec=codec, k=args.k, backend=args.backend or "cuda",
+                          n_shards=args.n_shards, params=exhaustive[engine])
+    n_base = max(args.k + 4, (2 * n_docs) // 3)
+    pool = list(range(n_base, n_docs))  # docs not inserted yet
+    m = MutableRetriever.create(fwd.slice(0, n_base), cfg, device=device)
+    pipe = m.pipeline(deadline_us=args.deadline_us, cache_size=args.cache_size)
+    Q = np.stack([col.query_dense(i) for i in range(col.n_queries)])
+
+    def mutate_one() -> str:
+        live = m.live_ids()
+        ops = ["delete", "update"] + (["insert"] if pool else [])
+        if len(live) <= args.k + 2:  # the oracle needs k live docs
+            ops = ["insert"] if pool else ["update"]
+        op = ops[int(rng.integers(len(ops)))]
+        if op == "insert":
+            take = [pool.pop(0) for _ in range(min(len(pool), int(rng.integers(1, 4))))]
+            m.insert([fwd.doc(i) for i in take])
+        elif op == "delete":
+            m.delete(int(live[int(rng.integers(len(live)))]))
+        else:  # update in place: new content under the same stable id
+            victim = int(live[int(rng.integers(len(live)))])
+            c, v = fwd.doc(int(rng.integers(n_docs)))
+            m.update([(c, v)], ids=[victim])
+        return op
+
+    def burst_and_checkpoint(label: str, pre=()) -> int:
+        pipe.warm()  # new parts' plans captured out of the burst
+        trace = synthetic_trace(rng, max(8, args.requests // 4), Q.shape[0],
+                                repeat_frac=args.repeat_frac)
+        tickets = []
+        for qi in trace:
+            pipe.poll()
+            tickets.append(pipe.submit(Q[qi]))
+        pipe.flush()
+        live_fwd, live = m.live_corpus()
+        oracle = Retriever.build(live_fwd, cfg.replace(n_shards=1), device=device)
+        oids, osc = (t.cpu().numpy() for t in oracle.search(Q))
+        stages = oracle.plans.get(oracle.plans.bucket_for(Q.shape[0])).stages
+        everything = list(pre) + list(zip(trace, tickets))
+        try:
+            trace_parity(pipe, [qi for qi, _ in everything], [t for _, t in everything],
+                         live[oids], osc, want_stages=stages)
+        except AssertionError as e:
+            raise AssertionError(f"{engine}/{codec} {label}: the mutable top-k diverges from "
+                                 f"the post-mutation oracle: {e}") from None
+        return len(everything)
+
+    served = burst_and_checkpoint("pre-mutation")
+    rounds, ops = 3, []
+    for r in range(rounds):
+        lo = (args.mutations * r) // rounds
+        hi = (args.mutations * (r + 1)) // rounds
+        ops += [mutate_one() for _ in range(lo, hi)]
+        served += burst_and_checkpoint(f"round {r + 1}")
+    # the merge in the background, queries streaming through the flip
+    handle = m.merge(background=True)
+    during = []
+    while not handle.done() and len(during) < 4 * args.requests:
+        pipe.poll()
+        qi = int(rng.integers(Q.shape[0]))
+        during.append((qi, pipe.submit(Q[qi])))
+    pipe.flush()
+    handle.result()
+    served += burst_and_checkpoint("post-merge", pre=during)
+    snap = pipe.snapshot()
+    rounds = min(args.mutations, rounds)  # one invalidation per mutated round + the merge
+    assert snap["cache_invalidations"] >= rounds + 1, (
+        f"{engine}/{codec}: the result cache survived a mutation "
+        f"(invalidations={snap['cache_invalidations']})")
+    mix = ",".join(f"{k}={v}" for k, v in sorted(Counter(ops).items()))
+    print(f"{engine:8s} codec={codec:13s} backend={cfg.backend} mutation parity OK "
+          f"({served} responses, {len(during)} during background merge, {args.mutations} "
+          f"mutations [{mix}], {len(m.base_ids)} docs after merge, gen={m.generation}, "
+          f"{_device_name(device)}) [{ServeStats.summary(snap)}]")
+
+
 def main(argv=None) -> None:
     from ..core.layout import available_layouts
     from ..kernels.modes import BACKENDS
@@ -193,6 +340,14 @@ def main(argv=None) -> None:
                     help="online-serving load generator: drive a synthetic trace "
                          "through the micro-batching scheduler, hold every response "
                          "against direct search, report ServeStats")
+    ap.add_argument("--mutate", action="store_true",
+                    help="live-mutation load generator: a seeded insert/delete/update "
+                         "stream between query bursts over a MutableRetriever, every "
+                         "response held to a fresh oracle at each checkpoint, then a "
+                         "background merge and the check again; exhaustive budgets, so "
+                         "keep --n-docs small")
+    ap.add_argument("--mutations", type=int, default=12,
+                    help="--mutate stream length (events across 3 rounds)")
     ap.add_argument("--requests", type=int, default=256, help="trace length for --pipeline")
     ap.add_argument("--deadline-us", type=float, default=1000.0,
                     help="--pipeline batch-filling deadline (µs)")
@@ -217,6 +372,9 @@ def main(argv=None) -> None:
     if args.pipeline and (args.save_index or args.load_index):
         ap.error("--pipeline is a serving-loop mode; run it without "
                  "--save-index/--load-index")
+    if args.mutate and (args.pipeline or args.save_index or args.load_index):
+        ap.error("--mutate is a serving-loop mode; run it without "
+                 "--pipeline/--save-index/--load-index")
 
     from .. import resolve_device
     from ..core.seismic import exact_top_k, recall_at_k
@@ -228,9 +386,14 @@ def main(argv=None) -> None:
     col = generate_collection(splade_config(args.n_docs, args.n_queries, args.seed),
                               value_format="f16")
     print(f"(nnz/doc={col.fwd.total_nnz / col.fwd.n_docs:.0f})")
+    codecs = available_layouts() if args.compare_codecs else [args.codec]
+    if args.mutate:
+        for codec in codecs:
+            _mutate_loadgen(col, args.engine, codec, args, device,
+                            np.random.default_rng(args.seed + 2))
+        return
     Q = np.stack([col.query_dense(i) for i in range(col.n_queries)])
     truth = [exact_top_k(col.fwd, Q[i], args.k)[0] for i in range(col.n_queries)]
-    codecs = available_layouts() if args.compare_codecs else [args.codec]
 
     params = {
         "seismic": dict(cut=args.cut, block_budget=512, n_probe=args.n_probe,

@@ -24,7 +24,10 @@ leading axis. The engine-agnostic surface is:
   sub-index per contiguous doc range, saved as a tree of per-shard
   artifacts, memory-mapped on open and served out of core through an
   LRU of resident shards; ``map_local_ids`` and ``merge_topk`` are its
-  sentinel-safe merge contract.
+  sentinel-safe merge contract;
+* ``MutableRetriever`` (``serve/segments.py``) — delta segments,
+  tombstones and the crash-safe generation flip over a base index;
+  ``open_retriever`` on a root that holds ``CURRENT`` opens one.
 
 Every entry point runs on ``cuda`` unless the caller passes
 ``device="cpu"`` (``repro_torch.resolve_device``).
@@ -551,13 +554,14 @@ def open_retriever(path, *, device=None):
     specs) before serving. A sharded tree (``format`` =
     ``repro.serve.retriever-sharded``) opens as a ``ShardedRetriever``
     with every shard's arrays memory-mapped (``sharded.mmap_npz``): no
-    array byte is read until a search admits the shard. Mutable roots
-    are not ported yet (ROADMAP queue A7)."""
+    array byte is read until a search admits the shard. A mutable root
+    (one that holds a ``CURRENT`` file) opens as a ``MutableRetriever``
+    at its committed generation (``serve/segments.py``)."""
     path = pathlib.Path(path)
     if (path / "CURRENT").is_file():
-        raise NotImplementedError(
-            "mutable index roots are not ported yet (ROADMAP queue A7)"
-        )
+        from .segments import open_mutable
+
+        return open_mutable(path, device=device)
     manifest = load_manifest(path)
     fmt = manifest.get("format")
     if fmt == _SHARDED_FORMAT:

@@ -17,7 +17,8 @@ Four layers, stacked as in the reference:
   ``device="cpu"`` request — a plan runs the engine eagerly on the
   padded batch and captures nothing. ``compiles`` counts plan creations.
   A ``FacadePlan`` fans its batch out through other plans (a sharded
-  retriever's shards, ``serve/sharded.py``) and is never captured.
+  retriever's shards, ``serve/sharded.py``; a mutable index's base and
+  delta segments, ``serve/segments.py``) and is never captured.
 
 * ``Pipeline`` — the host-side micro-batching scheduler: ``submit``
   admits one query at a time, the queue coalesces into the smallest
@@ -26,7 +27,9 @@ Four layers, stacked as in the reference:
 
 * ``ResultCache`` — an LRU over the quantized sparse query; a hit
   replays the top-k served before, byte for byte. The ``epoch`` check
-  is generic (``getattr(retriever, "epoch", None)``).
+  is generic (``getattr(retriever, "epoch", None)``): a mutable index
+  bumps its epoch at every mutation and generation flip, and the next
+  admission flushes the cache.
 
 * ``ServeStats`` — QPS, p50/p95/p99 end-to-end latency, hit rate,
   dispatches and occupancy per bucket, the recompile count and the
@@ -46,7 +49,10 @@ runs every capture and replay of its plans under a second one (they
 share one graph memory pool, and a replay overwrites its graph's static
 buffers); a capture holds the process-wide ``CUDA_EXCLUSIVE`` lock,
 which a thread that allocates or synchronises beside a serving thread
-(the shard-staging worker) takes too; ``ResultCache`` and ``ServeStats``
+(the shard-staging worker, a mutable index's writers and merge worker)
+takes too. A capture on such a thread runs in the ``"thread_local"``
+capture mode (``SearchPlan.warm``), so the serving thread may replay,
+allocate and copy while it runs. ``ResultCache`` and ``ServeStats``
 guard their state; ``Pipeline`` holds one scheduler lock across
 admission and dispatch. The wall clock is injectable (``clock=``) for
 deadline tests.
@@ -91,8 +97,11 @@ DEFAULT_BUCKETS: Tuple[int, ...] = (1, 2, 4, 8, 16, 32, 64, 128)
 #: held by every CUDA graph capture in this process, and by any other
 #: thread around CUDA calls that a capture in the default (global) mode
 #: forbids from every thread — allocation, pinned allocation, stream
-#: creation, synchronisation (the shard-staging worker's page-in copies)
-CUDA_EXCLUSIVE = threading.Lock()
+#: creation, synchronisation, graph destruction (the shard-staging
+#: worker's page-in copies; a mutable index's segment placement, merge
+#: placement and prewarm, and the release of its retired parts).
+#: Reentrant: a worker holds it across a whole prewarm, captures included
+CUDA_EXCLUSIVE = threading.RLock()
 
 
 @contextlib.contextmanager
@@ -164,9 +173,11 @@ class PlanKey:
     """Identity of one search plan. ``mode`` is the resolved port
     backend (``"torch"`` or ``"cuda"``, ``kernels/modes.py``); ``shard``
     is ``""`` for a monolithic index, ``"<s>/<S>"`` for shard ``s`` of a
-    sharded one and ``"*/<S>"`` for the sharded retriever's fan-out
-    plan; ``gen`` stays ``""`` until mutable serving is ported (ROADMAP
-    A7); ``vq`` is the value codec."""
+    sharded one, ``"*/<S>"`` for the sharded retriever's fan-out plan,
+    ``"mut"`` for a mutable index's fan-out plan and ``"mut:<part>"``
+    for its parts' plans; ``gen`` is ``"g<N>"`` on the mutable fan-out
+    plan (generation ``N``: a merge's flip retires the plan) and ``""``
+    elsewhere; ``vq`` is the value codec."""
 
     engine: str
     codec: str
@@ -228,20 +239,24 @@ class SearchPlan:
         """The rows-kernel stages the captured graph launches."""
         return frozenset(self.launches["stages"])
 
-    def warm(self, dim: int) -> bool:
+    def warm(self, dim: int, capture_error_mode: str = "global") -> bool:
         """Capture this plan's graph for ``[bucket, dim]`` batches.
         Idempotent; returns True iff a capture happened (never on the
-        CPU, where there is nothing to capture)."""
+        CPU, where there is nothing to capture). A thread other than the
+        serving thread captures in ``"thread_local"`` mode, holding
+        ``CUDA_EXCLUSIVE`` across the whole call (the mutable index's
+        merge worker): the serving thread's replays, allocations and
+        copies then neither wait nor invalidate the capture."""
         if self._device.type != "cuda":
             return False
         with self._lock:
             if self._graph is not None:
                 return False
-            self._capture(int(dim))
+            self._capture(int(dim), capture_error_mode)
             return True
 
     @torch.inference_mode()
-    def _capture(self, dim: int) -> None:
+    def _capture(self, dim: int, capture_error_mode: str = "global") -> None:
         dev = self._device
         with torch.cuda.device(dev):
             Q = torch.zeros((self.key.bucket, dim), dtype=torch.float32, device=dev)
@@ -259,7 +274,9 @@ class SearchPlan:
                 caller = torch.cuda.current_stream(dev)
                 t0 = time.perf_counter()
                 try:
-                    with _no_cyclic_gc(), torch.cuda.graph(graph, pool=self._pool, stream=side):
+                    with _no_cyclic_gc(), torch.cuda.graph(
+                            graph, pool=self._pool, stream=side,
+                            capture_error_mode=capture_error_mode):
                         out = self._fn(Q)
                 except RuntimeError as e:
                     # a failed capture_end leaves the capture stream current
@@ -511,8 +528,9 @@ class ServeStats:
     ``snapshot()`` returns the reference's flat dict: qps, p50/p95/p99_us,
     cache_hit_rate, cache_invalidations, cache_invalidated_entries,
     n_queries, dispatches and bucket_occupancy per bucket, recompiles,
-    and the overlap counters (the prefetch ones from a sharded retriever;
-    the merge ones zero until A7 is ported)."""
+    and the overlap counters (the prefetch ones from a sharded retriever
+    or a mutable index's sharded base; the merge ones from a mutable
+    index: Σ merge wall-clock and Σ the flip's critical section)."""
 
     def __init__(self, clock: Callable[[], float], window: int = 8192):
         self._clock = clock
@@ -625,10 +643,11 @@ def _host(x) -> np.ndarray:
 class PendingQuery:
     """Ticket returned by ``Pipeline.submit``; ``result()`` flushes the
     owning pipeline if the query is still queued. ``bucket`` is the
-    bucket it was dispatched in (None for a cache hit)."""
+    bucket it was dispatched in and ``stages`` the rows-kernel stages
+    that dispatch's plan took (None for a cache hit)."""
 
     __slots__ = ("q", "key", "t_submit", "done", "ids", "scores", "from_cache", "bucket",
-                 "_pipeline")
+                 "stages", "_pipeline")
 
     def __init__(self, pipeline: "Pipeline", q: np.ndarray, key: bytes, t_submit: float):
         self._pipeline = pipeline
@@ -638,6 +657,7 @@ class PendingQuery:
         self.done = False
         self.from_cache = False
         self.bucket: Optional[int] = None
+        self.stages: Optional[frozenset] = None
         self.ids: Optional[np.ndarray] = None
         self.scores: Optional[np.ndarray] = None
 
@@ -701,8 +721,10 @@ class Pipeline:
         """Create (and on the card capture) every configured bucket's
         plan, so capture cost stays out of a measured trace; a facade
         plan is warmed by running one zero query through it, outside the
-        stats and the result cache. Restarts the QPS clock. Returns the
-        number of plans it created."""
+        stats and the result cache, which creates and captures the plan
+        of that bucket in every part it fans out to (each shard, or a
+        mutable index's base and every delta segment). Restarts the QPS
+        clock. Returns the number of plans it created."""
         dim = int(self.retriever.dim)
         before = self.plans.compiles
         for b in self.plans.buckets:
@@ -766,14 +788,16 @@ class Pipeline:
         batch, self._queue = self._queue[:cap], self._queue[cap:]
         bucket = self.plans.bucket_for(len(batch))
         Q = np.stack([t.q for t in batch])
-        ids, scores = self.plans.get(bucket)(Q)
+        plan = self.plans.get(bucket)
+        ids, scores = plan(Q)
+        stages = plan.stages  # a fan-out plan's: this call's
         ids, scores = ids.cpu().numpy(), scores.cpu().numpy()
         ids.flags.writeable = scores.flags.writeable = False
         now = self._clock()
         self.stats.record_dispatch(bucket, len(batch))
         caching = self.cache.capacity > 0
         for i, t in enumerate(batch):
-            t.bucket = bucket
+            t.bucket, t.stages = bucket, stages
             t._complete(ids[i], scores[i], now, self.stats)
             if caching:
                 self.cache.put(t.key, ids[i], scores[i])

@@ -1169,3 +1169,226 @@ def test_capture_survives_garbage_that_holds_a_graph(shard_trees):
     gc.collect()  # the graph goes now, outside any capture
     want = api.Retriever(ref.cfg.replace(n_shards=1), arrays, **kw).search(Q)
     assert torch.equal(ids, want[0]) and torch.equal(scores, want[1])
+
+
+# -- live mutation: parts' plans, retired pools, the merge worker's captures ------------
+
+#: the reference's budgets, exhaustive for its 50-doc mutation fixture
+MUT_PARAMS = {
+    "seismic": dict(cut=16, block_budget=512, n_probe=512, n_postings=10000, block_size=8),
+    "hnsw": dict(beam=64, iters=64, n_seeds=4, m=8, ef_construction=48),
+    "flat": {},
+}
+
+
+@pytest.fixture(scope="module")
+def mut_collection():
+    """The reference's mutation fixture (50 docs at dim 256, seed 7, 4
+    queries), made by the port's generator."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from repro_torch.data.synthetic import SyntheticConfig, generate_collection
+
+    col = generate_collection(SyntheticConfig(name="segments-test", dim=256, n_docs=50,
+                                              n_queries=4, doc_nnz_mean=24.0,
+                                              query_nnz_mean=8.0, seed=7), value_format="f16")
+    return col, np.stack([col.query_dense(i) for i in range(col.n_queries)])
+
+
+def _stage_names(stages):
+    from repro_torch.launch.serve import stage_names
+
+    return stage_names(stages)
+
+
+def _hold_stage_aware(got, want, same_stages, label):
+    """Bit for bit where both sides took the same rows-kernel stages, else
+    ids equal up to tied swaps with scores within rtol 1e-5."""
+    gi, gs = (t.cpu() if isinstance(t, torch.Tensor) else torch.tensor(np.asarray(t))
+              for t in got)
+    wi, ws = (t.cpu() if isinstance(t, torch.Tensor) else torch.tensor(np.asarray(t))
+              for t in want)
+    if same_stages:
+        assert torch.equal(gi, wi.to(gi.dtype)) and torch.equal(gs, ws), label
+        return
+    diff = gi != wi.to(gi.dtype)
+    assert not diff.any() or torch.allclose(gs[diff], ws[diff], rtol=1e-5, atol=0), label
+    torch.testing.assert_close(gs, ws, rtol=1e-5, atol=0, msg=label)
+
+
+def _hold_to_oracle(m, Q, label):
+    """The mutable index against a ``Retriever.build`` over its live
+    corpus on the card, by the stage-aware rule (``_hold_stage_aware``)."""
+    from repro_torch.serve.api import Retriever
+
+    live_fwd, live = m.live_corpus()
+    oracle = Retriever.build(live_fwd, m.cfg.replace(n_shards=1), device="cuda")
+    oi, osc = (t.cpu().numpy() for t in oracle.search(Q))
+    got = m.search(Q)
+    bucket = m.plans.bucket_for(len(Q))
+    same = (_stage_names(m.plans.get(bucket).stages)
+            == oracle.plans.get(oracle.plans.bucket_for(len(Q))).stages)
+    want_ids = np.where(oi < len(live), live[np.minimum(oi, len(live) - 1)], -1)
+    _hold_stage_aware(got, (want_ids, osc), same, label)
+
+
+@pytest.mark.parametrize("codec", ["uncompressed", "dotvbyte", "streamvbyte", "bitpack"])
+@pytest.mark.parametrize("engine", ["seismic", "hnsw", "flat"])
+def test_mutation_oracle_parity_on_the_card(mut_collection, engine, codec):
+    """The reference's mutation sweep (``tests/test_segments.py``) on the
+    card: tombstones at 0 segments, 1 and 3 segments (an update among
+    them), the merge; at every step the mutable index against the oracle
+    over its live corpus; every search replays one plan per part."""
+    from repro_torch.serve.api import RetrieverConfig
+    from repro_torch.serve.segments import MutableRetriever
+
+    col, Q = mut_collection
+    fwd = col.fwd
+    cfg = RetrieverConfig(engine=engine, codec=codec, backend="cuda", k=5,
+                          params=MUT_PARAMS[engine])
+    m = MutableRetriever.create(fwd.slice(0, 40), cfg, device="cuda")
+    per_part = 1 + MUT_PARAMS["hnsw"]["iters"] if engine == "hnsw" else 1
+
+    def check(label):
+        _hold_to_oracle(m, Q, f"{engine}/{codec} {label}")
+        plan = m.plans.get(m.plans.bucket_for(len(Q)))
+        assert sum(plan.launches["variants"].values()) == (1 + len(m.segments)) * per_part
+        assert {label for label, _ in plan.stages} <= {"base"} | {
+            f"seg{i}" for i in range(len(m.segments))}
+
+    m.delete([3, 17])
+    check("0 segments")
+    m.insert([fwd.doc(i) for i in range(40, 44)])
+    check("1 segment")
+    m.insert([fwd.doc(i) for i in range(44, 47)])
+    m.delete([41, 45])
+    m.update([fwd.doc(47)], ids=[10])
+    check("3 segments")
+    m.merge()
+    check("post-merge")
+    assert all(t.is_cuda for t in m.base.arrays.values())
+
+
+@pytest.mark.parametrize("engine", ["seismic", "hnsw", "flat"])
+def test_one_doc_and_all_dead_segments_on_the_card(mut_collection, engine):
+    """A one-doc segment and a segment whose rows are all dead, per
+    engine, held to the oracle on the card; nothing served is dead."""
+    from repro_torch.serve.api import RetrieverConfig
+    from repro_torch.serve.segments import MutableRetriever
+
+    col, Q = mut_collection
+    fwd = col.fwd
+    cfg = RetrieverConfig(engine=engine, codec="dotvbyte", backend="cuda", k=5,
+                          params=MUT_PARAMS[engine])
+    m = MutableRetriever.create(fwd.slice(0, 40), cfg, device="cuda")
+    one = m.insert([fwd.doc(40)])
+    _hold_to_oracle(m, Q, f"{engine} one-doc segment")
+    dead = m.insert([fwd.doc(i) for i in range(41, 45)])
+    m.delete(np.concatenate([dead, one]))
+    _hold_to_oracle(m, Q, f"{engine} all-dead segments")
+    ids = m.search(Q)[0].cpu().numpy()
+    assert not np.intersect1d(ids, np.concatenate([dead, one])).size
+
+
+@pytest.fixture(scope="module")
+def mut_seismic():
+    """A Seismic dotvbyte index over 2,000 SPLADE-statistics docs on the
+    card with 64 queries: a bucket-64 graph pool of the size the serving
+    path captures."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from repro_torch.data.synthetic import generate_collection, splade_config
+
+    col = generate_collection(splade_config(2000, 64, 9), value_format="f16")
+    return col, torch.from_numpy(np.stack([col.query_dense(i) for i in range(64)])).cuda()
+
+
+def test_retired_part_pools_are_released(mut_seismic):
+    """Every delete in the base moves its budget (``k + dead``) and makes
+    a new part wrapper, captured afresh; the retired wrapper's graphs and
+    pool are released once the dispatch ends, so after 20 deletes the
+    memory allocated is the first delete's within one graph pool."""
+    from repro_torch.serve.api import RetrieverConfig
+    from repro_torch.serve.segments import MutableRetriever
+
+    col, Q = mut_seismic
+    cfg = RetrieverConfig(engine="seismic", codec="dotvbyte", backend="cuda",
+                          params=PLAN_PARAMS["seismic"])
+    m = MutableRetriever.create(col.fwd, cfg, device="cuda")
+    m.search(Q)
+    mem, pools = [], []
+    for i in range(20):
+        before = m._wrappers["base"]
+        m.delete([i])
+        m.search(Q)
+        torch.cuda.synchronize()
+        assert m._wrappers["base"] is not before and not m._retired
+        mem.append(torch.cuda.memory_allocated())
+        pools.append(m._wrappers["base"].plans.get(64).pool_bytes)
+        del before
+    assert m._wrappers["base"].cfg.k == 30
+    assert mem[-1] - mem[0] <= max(pools), (mem, pools)
+    assert m.plans.compiles == 21
+
+
+@pytest.mark.parametrize("rep", range(5))
+def test_pipeline_stress_during_a_background_merge(mut_seismic, rep):
+    """Two threads submit through the pipeline while a background merge
+    builds the new base, places it and captures its plans on the worker
+    (thread-local capture mode) and flips: no capture raises, every
+    response holds to the pre-merge direct search by the stage-aware
+    rule, and the worker's prewarmed plans serve after the flip without
+    a capture on the serving thread."""
+    import threading
+
+    from repro_torch.serve.api import RetrieverConfig
+    from repro_torch.serve.segments import MutableRetriever
+
+    col, Q = mut_seismic
+    fwd = col.fwd
+    cfg = RetrieverConfig(engine="flat", codec="dotvbyte", backend="cuda")
+    m = MutableRetriever.create(fwd.slice(0, 1500), cfg, device="cuda")
+    m.insert(fwd.slice(1500, 1800))
+    m.insert(fwd.slice(1800, 2000))
+    m.delete(np.arange(rep, 400, 7))
+    pipe = m.pipeline(deadline_us=200.0, cache_size=0)
+    pipe.warm()
+    want = tuple(t.cpu().numpy() for t in m.search(Q))
+    want_stages = _stage_names(m.plans.get(64).stages)
+    Qn = Q.cpu().numpy()
+    tickets, errors, stop = [[], []], [], threading.Event()
+
+    def drive(i):
+        rng = np.random.default_rng(i + 10 * rep)
+        try:
+            while not stop.is_set() or len(tickets[i]) < 32:
+                qi = int(rng.integers(64))
+                pipe.poll()
+                tickets[i].append((qi, pipe.submit(Qn[qi])))
+            pipe.flush()
+        except Exception as e:  # noqa: BLE001  (reported below, with its type)
+            errors.append(e)
+            stop.set()
+
+    threads = [threading.Thread(target=drive, args=(i,)) for i in (0, 1)]
+    for t in threads:
+        t.start()
+    try:
+        new_base = m.merge(background=True).result(timeout=600)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=600)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    assert new_base is m.base and m.generation == 1
+    for qi, t in tickets[0] + tickets[1]:
+        ids, scores = t.result()
+        _hold_stage_aware((ids, scores), (want[0][qi], want[1][qi]),
+                          _stage_names(t.stages) == want_stages, f"query {qi}")
+    prewarmed = m._wrappers["base"].plans.created()
+    assert all(p._graph is not None for p in prewarmed.values())
+    graphs = {b: p._graph for b, p in prewarmed.items()}
+    got = m.search(Q)
+    assert m._wrappers["base"].plans.get(64)._graph is graphs[64]  # replayed, not captured
+    _hold_stage_aware(got, want, _stage_names(m.plans.get(64).stages) == want_stages,
+                      "after the flip")
