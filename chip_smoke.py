@@ -82,7 +82,7 @@ no result:
    must show no ``index_add_``;
 6. the hnsw engine — one host graph (the reference CLI's parameters:
    beam 64, 64 steps, 8 seeds, m 16, ef_construction 48) over the first
-   ``--hnsw-docs`` documents (default 5,000: the build is Python
+   ``--hnsw-docs`` documents (default 2,500: the build is Python
    insertion loops) with the same 64 queries, every rows variant served
    by swapping only its packed rows (dotvbyte/f16 saved and reopened
    with ``open_retriever``), searched with ``backend="cuda"``. Counts are
@@ -113,7 +113,7 @@ no result:
    device time a launch);
 8. sharded, out-of-core serving (``serve/sharded.py``), dotvbyte/f16,
    the 64 queries, S = 4 shards: flat over all the collection's docs,
-   Seismic over the first ``--shard-docs`` (default 25,000: its per-shard
+   Seismic over the first ``--shard-docs`` (default 5,000: its per-shard
    host build is phase 3's Python loops) and hnsw over the first 2,000
    (at most ``--hnsw-docs``). Each is built
    (``Retriever.build`` at ``n_shards=4``), saved uncompressed, reopened
@@ -161,8 +161,8 @@ no result:
    invalidation. Then ``merge(background=True)`` with the 64 queries
    streaming through the flip (each response held to the generation
    before or after it), the first search after the flip timed: flat
-   over its whole live corpus, Seismic over a base of the first 10,000
-   docs and hnsw of the first 1,000 (the same rounds scaled to the base;
+   over its whole live corpus, Seismic over a base of the first 2,000
+   docs and hnsw of the first 500 (the same rounds scaled to the base;
    their host builds are Python loops). A saved root crashed before its
    flip reopens with ``open_retriever`` at the committed generation, bit
    for bit; a mutable index over phase 8's 4-shard flat tree routes its
@@ -172,7 +172,41 @@ no result:
    delete run; ``merge_wall_us``, ``blocked_swap_us``, the first search
    after the flip; the ServeStats lines. The kernels' counts are zeroed
    just before this phase and read just after;
-10. one JSON line of kernels, the card line, and as the last line
+10. the SPLADE encoder and its training (``models/``, ``train/``) at the
+   full width, ``SparseEncoderConfig()`` (40,897,850 parameters), f32
+   matmuls at full precision: a 4 × 128 batch (half of its positions
+   masked, one row wholly) encoded on the card and on the CPU from the
+   same weights (pooled output within rtol = atol = 1e-4); every leaf's
+   gradient within 1e-3 of its norm (the contrastive scores reach ~6e4,
+   which f32 resolves in steps of ~0.004); one AdamW step — loss,
+   grad_norm and lr within rtol 1e-4, every updated parameter AdamW's
+   first step on the card's own clipped gradient and, where both
+   devices' clipped gradients share a sign on the step's flat part
+   (|g| ≥ 1e3 eps), the CPU's within rtol 1e-4; one QAT step at a clip
+   inside the activations' range (``quant_hi``'s gradient and update
+   finite). Then ``--encoder-steps`` (default 50) of the example's
+   stream (batch 16 × seq 24, AdamW lr 1e-3, warmup 20) through
+   ``Runner`` with checkpoints every 25 steps under
+   ``build/chip_smoke/``, twice under
+   ``torch.use_deterministic_algorithms(True)`` — with a fault at step 30
+   and without — the final states equal bit for bit, the loss falling,
+   the last checkpoint restored onto the CPU equal to the card's state;
+   the median of 10 train steps at 16 × 24 and 32 × 128 (tokens/s, peak
+   memory, 6 · params · tokens over the f32 peak, reported; a profile of
+   3 steps: device busy time and kernels a step), encode docs/s at
+   32 × 128, checkpoint save and restore time and size. Last,
+   ``--encoder-docs`` (default 1,488, the example's count) documents
+   and 64 queries encoded by the trained encoder (learned nnz/doc,
+   bits/comp for the four row codecs), served flat through the rows
+   kernel for every row codec at f16 (ids = ``exact_top_k``,
+   tie-aware), Seismic dotvbyte/f16 over the first 50 (after 50 steps
+   a document holds ~3,400 terms, and the host build, Python loops,
+   takes ~0.3–0.4 s a document; ids = its torch twin, tie-aware; recall@10;
+   search ms) and
+   the host ``SeismicIndex.search`` over the same (recall@10). The
+   kernels' counts are zeroed just before the serving part and read
+   just after (``launches_by_path["encoder"]``);
+11. one JSON line of kernels, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -182,6 +216,7 @@ import argparse
 import contextlib
 import gc
 import json
+import os
 import pathlib
 import re
 import shutil
@@ -1515,7 +1550,7 @@ def sharded_phase(fwd, Q_np, Q, flat_mono, card: str, n_seismic: int, n_hnsw: in
 MUT_POOL = 2_048
 MUT_ROUNDS = ((1, 64, 0), (64, 0, 32), (1024, 256, 0))
 MUT_DELETE_RUN = 20
-MUT_MERGE_DOCS = {"seismic": 10_000, "hnsw": 1_000}
+MUT_MERGE_DOCS = {"seismic": 2_000, "hnsw": 500}
 #: the hnsw beam the mutable index serves at over phase 6's graph: a part's
 #: budget k + its tombstones must fit the beam (top_k raises past it, as in the
 #: reference), and the rounds leave up to ~230 tombstones in one part
@@ -1979,21 +2014,413 @@ def mutation_phase(fwd, Q_np, Q, bases: dict, tree, card: str) -> dict:
     return out
 
 
+#: phase 10: the example's stream (batch, seq), its optimizer, the fault step,
+#: the checkpoint interval; the timed shapes; the parity batch and its tolerances
+ENC_BATCH, ENC_SEQ = 16, 24
+ENC_OPT = dict(lr=1e-3, warmup_steps=20)
+ENC_FAULT_AT, ENC_CKPT_EVERY = 30, 25
+ENC_TIMED = ((16, 24), (32, 128))
+ENC_PARITY_LENS = (128, 80, 48, 0)  # a 4 × 128 batch, half of its positions masked
+ENC_RTOL = ENC_ATOL = 1e-4
+#: a leaf gradient's norm-wise relative error, card against CPU: at init the
+#: contrastive scores q·d / T reach ~6e4, which f32 resolves in steps of ~0.004,
+#: so two summation orders give dL/ds (and every gradient) ~1e-4 apart
+ENC_GRAD_NORM_RTOL = 1e-3
+#: Adam's first step moves a parameter by lr · (g / (|g| + eps) + wd · p), g the
+#: clipped gradient: flat (±lr) where |g| ≫ eps, steep near 0; the flat part
+#: starts here (in eps)
+ENC_FLAT_G = 1e3
+ENC_QUERIES = 64
+#: the prefix of the learned corpus its Seismic index holds: after 50 steps a
+#: document holds ~3,400 terms, and the host build (Python loops, ROADMAP A4)
+#: takes ~0.3–0.4 s a document at that density
+ENC_SEISMIC_DOCS = 50
+ENC_QAT_CLIP = 0.5
+
+
+def encoder_parity(cfg, card: str) -> dict:
+    """Phase 10's first part: the full-width encoder on the card against
+    the port's CPU path on the same weights and batch — the pooled
+    output, every leaf's gradient, one AdamW step, and a QAT step."""
+    import dataclasses
+
+    from repro_torch.models.common import count_params
+    from repro_torch.models.sparse_encoder import contrastive_loss, encode, encoder_init
+    from repro_torch.train import optimizer, train_step
+    from repro_torch.tree import tree_leaves_with_path, tree_map
+
+    out = {}
+    dev = torch.device("cuda")
+    params_cpu = encoder_init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    n = count_params(params_cpu)
+    log(f"[10] the SPLADE encoder at full width: vocab {cfg.vocab}, {cfg.n_layers} layers, "
+        f"d {cfg.d_model}, {cfg.n_heads} heads, d_ff {cfg.d_ff}, max_len {cfg.max_len}: "
+        f"{n} parameters")
+    if n != 40_897_850:
+        raise SystemExit(f"the full configuration has {n} parameters, not 40,897,850")
+    params_gpu = tree_map(lambda t: t.to(dev), params_cpu)
+    rng = np.random.default_rng(0)
+    S = cfg.max_len
+    lens = np.array(ENC_PARITY_LENS)
+    batch_cpu = {}
+    for side in ("q", "d"):
+        batch_cpu[f"{side}_tokens"] = torch.from_numpy(rng.integers(0, cfg.vocab, (4, S)))
+        batch_cpu[f"{side}_mask"] = torch.from_numpy(np.arange(S)[None, :] < lens[:, None])
+    batch_gpu = {k: v.to(dev) for k, v in batch_cpu.items()}
+
+    with torch.inference_mode():
+        want = encode(params_cpu, cfg, batch_cpu["d_tokens"], batch_cpu["d_mask"])
+        got = encode(params_gpu, cfg, batch_gpu["d_tokens"], batch_gpu["d_mask"]).cpu()
+    if got.shape != (4, cfg.vocab) or not torch.isfinite(got).all():
+        raise SystemExit(f"encode on the card gave {tuple(got.shape)}, finite "
+                         f"{bool(torch.isfinite(got).all())}")
+    if not torch.allclose(got, want, rtol=ENC_RTOL, atol=ENC_ATOL):
+        raise SystemExit(f"encode on the card differs from the CPU by "
+                         f"{float((got - want).abs().max()):.3e}")
+    out["encode_max_abs_err"] = float((got - want).abs().max())
+    out["pooled_nnz_per_row"] = [int(c) for c in (want > 0).sum(-1)]
+    if bool(want[3].any()):
+        raise SystemExit("a fully masked row pooled a nonzero activation")
+
+    loss_fn = lambda p, b: contrastive_loss(p, cfg, b)  # noqa: E731
+    _, g_cpu = train_step.value_and_grad(loss_fn, params_cpu, batch_cpu)
+    _, g_gpu = train_step.value_and_grad(loss_fn, params_gpu, batch_gpu)
+    worst = 0.0
+    for (p, a), (_, b) in zip(tree_leaves_with_path(g_gpu), tree_leaves_with_path(g_cpu)):
+        err = float((a.cpu() - b).norm() / b.norm().clamp_min(1e-30))
+        if not err <= ENC_GRAD_NORM_RTOL:
+            raise SystemExit(f"gradient of {p} on the card differs from the CPU's by {err:.2e} "
+                             f"of its norm (limit {ENC_GRAD_NORM_RTOL})")
+        worst = max(worst, err)
+    out["grad_rel_norm_err"] = worst
+
+    ocfg = optimizer.OptimizerConfig(**ENC_OPT)
+    oinit, oupd = optimizer.make_optimizer(ocfg)
+    step = train_step.make_train_step(loss_fn, oupd)
+    s_cpu, m_cpu = step(train_step.init_train_state(params_cpu, oinit), batch_cpu)
+    s_gpu, m_gpu = step(train_step.init_train_state(params_gpu, oinit), batch_gpu)
+    for k in ("loss", "grad_norm", "lr"):
+        if not torch.allclose(m_gpu[k].cpu(), m_cpu[k], rtol=ENC_RTOL, atol=0):
+            raise SystemExit(f"the AdamW step's {k} on the card {float(m_gpu[k]):.6g} differs "
+                             f"from the CPU's {float(m_cpu[k]):.6g}")
+    # every param of the card's step is AdamW's first step on the card's own
+    # clipped gradient, p - lr (g / (|g| + eps) + wd p), within rtol 1e-4 (atol
+    # 1e-4 lr); and equal to the CPU's step within the same where both clipped
+    # gradients sit on the step's flat part with one sign
+    lr = float(m_cpu["lr"])
+    clip = {d: min(1.0, ocfg.grad_clip / max(float(m["grad_norm"]), 1e-9))
+            for d, m in (("cpu", m_cpu), ("gpu", m_gpu))}
+    steep = total = 0
+    for (p, a), (_, b), (_, g), (_, h), (_, p0) in zip(
+            tree_leaves_with_path(s_gpu["params"]), tree_leaves_with_path(s_cpu["params"]),
+            tree_leaves_with_path(g_cpu), tree_leaves_with_path(g_gpu),
+            tree_leaves_with_path(params_cpu)):
+        a, gc, hc = a.cpu(), g * clip["cpu"], h.cpu() * clip["gpu"]
+        own = p0 - lr * (hc / (hc.abs() + ocfg.eps) + (ocfg.weight_decay * p0 if p0.dim() >= 2
+                                                        else 0))
+        if not torch.allclose(a, own, rtol=ENC_RTOL, atol=ENC_RTOL * lr):
+            raise SystemExit(f"the AdamW step's {p} on the card is not AdamW's first step on "
+                             f"its own gradient: max {float((a - own).abs().max()):.3e}")
+        flat = (torch.sign(gc) == torch.sign(hc)) & (gc.abs() >= ENC_FLAT_G * ocfg.eps) & (
+            hc.abs() >= ENC_FLAT_G * ocfg.eps)
+        close = torch.isclose(a, b, rtol=ENC_RTOL, atol=ENC_RTOL * lr)
+        if bool((flat & ~close).any()):
+            raise SystemExit(f"the AdamW step's {p} on the card differs from the CPU's at "
+                             f"{int((flat & ~close).sum())} params on the step's flat part")
+        steep += int((~flat).sum())
+        total += a.numel()
+    out.update(loss=float(m_cpu["loss"]), grad_norm=float(m_cpu["grad_norm"]),
+               loss_rel_err=abs(float(m_gpu["loss"]) / float(m_cpu["loss"]) - 1),
+               step_params_off_flat=steep, step_params=total)
+
+    qcfg = dataclasses.replace(cfg, quantize=True, quant_clip_init=ENC_QAT_CLIP)
+    q_params = dict(params_gpu, quant_hi=torch.tensor(qcfg.quant_clip_init, device=dev))
+    qstep = train_step.make_train_step(lambda p, b: contrastive_loss(p, qcfg, b), oupd)
+    _, q_grads = train_step.value_and_grad(
+        lambda p, b: contrastive_loss(p, qcfg, b), q_params, batch_gpu)
+    q_state, _ = qstep(train_step.init_train_state(q_params, oinit), batch_gpu)
+    hi_grad, hi_new = float(q_grads["quant_hi"]), float(q_state["params"]["quant_hi"])
+    if not (np.isfinite(hi_grad) and np.isfinite(hi_new)):
+        raise SystemExit(f"quant_hi's gradient {hi_grad} or its update {hi_new} is not finite")
+    out.update(quant_hi_grad=hi_grad, quant_hi_after=hi_new)
+    log(f"    parity at 4 x {S} (row lengths {lens.tolist()}): pooled max err "
+        f"{out['encode_max_abs_err']:.2e} (nnz/row {out['pooled_nnz_per_row']}); gradients "
+        f"within {worst:.1e} of their norms; AdamW step: loss {out['loss']:.6g} (rel err "
+        f"{out['loss_rel_err']:.1e}), grad_norm {out['grad_norm']:.6g}, {steep} of {total} "
+        f"params off the step's flat part; QAT step: d quant_hi "
+        f"{hi_grad:.4g}, quant_hi {hi_new:.6g} ({card})")
+    return out
+
+
+def _dir_bytes(path) -> int:
+    return sum(f.stat().st_size for f in pathlib.Path(path).rglob("*") if f.is_file())
+
+
+def encoder_training(cfg, n_steps: int, seed: int, card: str) -> tuple[dict, dict]:
+    """Phase 10's second part: ``n_steps`` of the example's stream through
+    ``Runner`` twice under deterministic algorithms — once with a fault at
+    step ``ENC_FAULT_AT``, once without — whose final states must be equal
+    bit for bit, the checkpoint restored onto the CPU equal to the card's
+    state, then the step, encode and checkpoint timings. → (the trained
+    state, the numbers)."""
+    from repro_torch.launch.train_sparse_encoder import synth_pairs
+    from repro_torch.models.common import count_params
+    from repro_torch.models.sparse_encoder import contrastive_loss, encode, encoder_init
+    from repro_torch.train import checkpoint, optimizer, train_step
+    from repro_torch.train.elastic import FaultInjector, Runner, RunnerConfig
+    from repro_torch.tree import tree_leaves, tree_leaves_with_path
+
+    dev = torch.device("cuda")
+    root = ROOT / "build" / "chip_smoke" / "encoder"
+    shutil.rmtree(root, ignore_errors=True)
+    params = encoder_init(torch.Generator().manual_seed(seed), cfg, device=dev)
+    n_params = count_params(params)
+    oinit, oupd = optimizer.make_optimizer(optimizer.OptimizerConfig(**ENC_OPT,
+                                                                     total_steps=n_steps))
+    step = train_step.make_train_step(lambda p, b: contrastive_loss(p, cfg, b), oupd)
+    batch_fn = lambda i: synth_pairs(seed, i, cfg, batch=ENC_BATCH, seq=ENC_SEQ,  # noqa: E731
+                                     device=dev)
+    init = train_step.init_train_state(params, oinit)
+    out = {"params": n_params, "steps": n_steps}
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        runs = {}
+        # the uninterrupted run saves only its last step: saves leave the state alone
+        for name, fault, every in (("faulted", FaultInjector(fail_at=(ENC_FAULT_AT,)),
+                                    ENC_CKPT_EVERY), ("clean", None, n_steps)):
+            t = time.perf_counter()
+            runner = Runner(RunnerConfig(total_steps=n_steps, checkpoint_dir=str(root / name),
+                                         checkpoint_every=every),
+                            step, batch_fn, init, device=dev, fault_injector=fault)
+            state, hist = runner.run()
+            torch.cuda.synchronize()
+            runs[name] = (state, hist, runner.restarts, time.perf_counter() - t)
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+    (state, _, restarts, run_s), (clean, clean_hist, _, clean_s) = runs["faulted"], runs["clean"]
+    want_restarts = int(n_steps > ENC_FAULT_AT)
+    if restarts != want_restarts or [h["step"] for h in clean_hist] != list(range(n_steps)):
+        raise SystemExit(f"the faulted run restarted {restarts} times (want {want_restarts})")
+    for (p, a), (_, b) in zip(tree_leaves_with_path(state), tree_leaves_with_path(clean)):
+        if not torch.equal(a, b):
+            raise SystemExit(f"the faulted run's {p} differs from the uninterrupted run's")
+    losses = [h["loss"] for h in clean_hist]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise SystemExit(f"the loss did not fall: {losses[0]:.4g} → {losses[-1]:.4g}")
+    last = checkpoint.latest_step(str(root / "faulted"))
+    t = time.perf_counter()
+    on_cpu, _ = checkpoint.restore(str(root / "faulted"), state, device="cpu")
+    out["ckpt_restore_cpu_s"] = time.perf_counter() - t
+    out["ckpt_bytes"] = _dir_bytes(root / "faulted" / f"step_{last:08d}")
+    if last != n_steps - 1 or not all(torch.equal(a, b.cpu()) for a, b in
+                                      zip(tree_leaves(on_cpu), tree_leaves(state))):
+        raise SystemExit("the checkpoint restored onto the CPU differs from the card's state")
+    out.update(loss_first=losses[0], loss_last=losses[-1], restarts=restarts,
+               faulted_run_s=run_s, clean_run_s=clean_s, ckpt_steps=checkpoint.available_steps(
+                   str(root / "faulted")),
+               nnz_doc_last=clean_hist[-1]["nnz_doc"], acc_last=clean_hist[-1]["contrastive_acc"])
+    log(f"    {n_steps} steps through Runner, batch {ENC_BATCH} x seq {ENC_SEQ}, AdamW "
+        f"lr {ENC_OPT['lr']}, warmup {ENC_OPT['warmup_steps']}: loss {losses[0]:.4f} → "
+        f"{losses[-1]:.4f} (train nnz/doc {out['nnz_doc_last']:.0f}, acc {out['acc_last']:.3f}); "
+        f"fault at step {ENC_FAULT_AT} → {restarts} restart, final state equal bit for bit to "
+        f"the uninterrupted run's (deterministic algorithms; {run_s:.1f}s / {clean_s:.1f}s); "
+        f"checkpoint of step {last} restored onto the CPU equal")
+
+    # timings, outside deterministic mode
+    timed = {}
+    state_t = train_step.init_train_state(state["params"], oinit)
+    for B, S in ENC_TIMED:
+        batches = [synth_pairs(seed, 50_000 + i, cfg, batch=B, seq=S, device=dev)
+                   for i in range(12)]
+        for b in batches[:2]:
+            state_t, _ = step(state_t, b)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()  # earlier phases' arrays and this state
+        ms = []
+        for b in batches[2:]:
+            t = time.perf_counter()
+            state_t, m = step(state_t, b)
+            torch.cuda.synchronize()
+            ms.append(1e3 * (time.perf_counter() - t))
+        med, peak = statistics.median(ms), torch.cuda.max_memory_allocated()
+        prof = {}
+        b = batches[-1]
+
+        def one_step():
+            nonlocal state_t
+            state_t, _ = step(state_t, b)
+
+        device_breakdown(f"train step {B} x {S}", one_step, card, reps=3, out=prof)
+        tokens = 2 * B * S
+        timed[f"{B}x{S}"] = rec = dict(
+            step_ms=med, step_ms_all=ms, tokens=tokens, tokens_per_s=tokens / (med / 1e3),
+            max_memory_allocated=peak, held_before=held,
+            model_flops=6 * n_params * tokens,
+            f32_peak_share=6 * n_params * tokens / (med / 1e3) / F32_FLOP_PER_S,
+            profile_wall_ms=prof.get("wall_ms"), device_busy_ms=prof.get("busy_ms"),
+            kernels_per_step=sum(c for _, c in prof.get("kernels", {}).values()))
+        log(f"    train step {B} x {S} ({tokens} tokens): median {med:.3f} ms of 10 "
+            f"[{min(ms):.3f}–{max(ms):.3f}], {rec['tokens_per_s']:.0f} tokens/s, max allocated "
+            f"{peak / 2**30:.2f} GiB ({(peak - held) / 2**30:.2f} above the {held / 2**30:.2f} "
+            f"held before), 6·params·tokens = "
+            f"{rec['model_flops'] / 1e12:.3f} TFLOP = {100 * rec['f32_peak_share']:.1f}% of the "
+            f"f32 peak's time (reported, not claimed); {rec['kernels_per_step']:.0f} kernels a "
+            f"step ({card})")
+    del state_t
+    out["timed"] = timed
+    enc_b = [synth_pairs(seed, 60_000 + i, cfg, batch=32, seq=cfg.max_len, device=dev)
+             for i in range(12)]
+    pending = iter(enc_b)
+
+    @torch.inference_mode()
+    def encode_next():
+        b = next(pending)
+        encode(state["params"], cfg, b["d_tokens"], b["d_mask"])
+
+    encode_next(), encode_next()
+    ms = host_ms(encode_next, 10)
+    out["encode_docs_per_s"] = 32 / (statistics.median(ms) / 1e3)
+    out["encode_ms_32x128"] = statistics.median(ms)
+    t = time.perf_counter()
+    checkpoint.save(str(root / "timed"), n_steps - 1, state, keep_last=None)
+    out["ckpt_save_s"] = time.perf_counter() - t
+    out["ckpt_codec"] = "zstd" if checkpoint.zstandard is not None else "zlib"
+    log(f"    encode 32 x {cfg.max_len}: median {out['encode_ms_32x128']:.3f} ms, "
+        f"{out['encode_docs_per_s']:.0f} docs/s; checkpoint of the train state "
+        f"({out['ckpt_bytes'] / 2**20:.1f} MiB on disk, {out['ckpt_codec']}): save "
+        f"{out['ckpt_save_s']:.2f}s, restore to the CPU {out['ckpt_restore_cpu_s']:.2f}s ({card})")
+    shutil.rmtree(root, ignore_errors=True)
+    return state, out
+
+
+def encoder_serving(params, cfg, n_docs: int, n_seismic: int, seed: int, card: str) -> dict:
+    """Phase 10's last part: the trained encoder's corpus (``n_docs`` of the
+    example's stream) and 64 queries served through the rows kernel —
+    flat over all four row codecs at f16, Seismic dotvbyte/f16 over the
+    first ``n_seismic`` docs — and by the host Seismic search. Under
+    ``"_path"`` the rows launches of this part, per variant."""
+    from repro_torch.core.forward_index import ForwardIndex
+    from repro_torch.core.seismic import SeismicIndex, SeismicParams, exact_top_k, recall_at_k
+    from repro_torch.kernels import rows_dot
+    from repro_torch.launch.train_sparse_encoder import (SEISMIC_BUILD, SEISMIC_SEARCH,
+                                                         encode_corpus)
+    from repro_torch.serve.api import Retriever, RetrieverConfig
+
+    dev = torch.device("cuda")
+    out = {}
+    t = time.perf_counter()
+    docs, Q_np = encode_corpus(params, cfg, seed, n_docs // 16, ENC_QUERIES // 16, dev)
+    fwd = ForwardIndex.from_docs(docs, cfg.vocab, value_format="f16")
+    Q = torch.from_numpy(Q_np).to(dev)
+    out.update(encode_s=time.perf_counter() - t, n_docs=fwd.n_docs,
+               nnz_per_doc=fwd.total_nnz / fwd.n_docs,
+               nnz_per_query=float((Q_np > 0).sum(1).mean()))
+    out["bits_per_comp"] = {c: 8 * fwd.storage_bytes(c)["components"] / fwd.total_nnz
+                            for c in ("uncompressed", "dotvbyte", "streamvbyte", "bitpack")}
+    log(f"    corpus: {fwd.n_docs} docs + {len(Q_np)} queries encoded in {out['encode_s']:.1f}s;"
+        f" learned {out['nnz_per_doc']:.1f} nnz/doc, {out['nnz_per_query']:.1f} nnz/query; "
+        "bits/comp " + ", ".join(f"{c} {v:.2f}" for c, v in out["bits_per_comp"].items()))
+    t = time.perf_counter()
+    truth = [exact_top_k(fwd, q, 10) for q in Q_np]
+    out["exact_s"] = time.perf_counter() - t
+
+    rows_dot.reset_launches()  # this part's launches only
+    served, flat = [], {}
+    for codec in out["bits_per_comp"]:
+        t = time.perf_counter()
+        ret = Retriever.build(fwd, RetrieverConfig(engine="flat", codec=codec, backend="cuda"),
+                              device=dev)
+        served.append(ret)
+        ids, sc = (x.cpu().numpy() for x in ret.search(Q))
+        swaps = sum(tie_aware_topk(f"flat {codec}", ids[i], sc[i], *truth[i])
+                    for i in range(len(Q_np)))
+        ms = statistics.median(host_ms(lambda: ret.search(Q), 10))
+        flat[codec] = dict(tied_swaps=swaps, search_ms=ms, build_s=time.perf_counter() - t)
+        log(f"    flat {codec:12s} f16 (rows kernel): ids = exact_top_k ({swaps} tied swaps), "
+            f"search {ms:.3f} ms / {len(Q_np)} queries")
+    out["flat"] = flat
+
+    fwd_s = fwd if n_seismic >= fwd.n_docs else fwd.slice(0, n_seismic)
+    t = time.perf_counter()
+    index = SeismicIndex.build(fwd_s, SeismicParams(**SEISMIC_BUILD))
+    out["seismic_build_s"] = time.perf_counter() - t
+    truth_s = truth if fwd_s is fwd else [exact_top_k(fwd_s, q, 10) for q in Q_np]
+    cfg_s = RetrieverConfig(engine="seismic", codec="dotvbyte", backend="cuda",
+                            params=SEISMIC_BUILD)
+    ret = Retriever.from_host_index(index, cfg_s, device=dev)
+    twin = Retriever.from_host_index(index, cfg_s.replace(backend="torch"), device=dev)
+    served.append(ret)
+    ids, sc = ret.search(Q)
+    ids_t, sc_t = twin.search(Q)
+    swaps = same_topk(ids, sc, ids_t, sc_t)
+    ids = ids.cpu().numpy()
+    recall = float(np.mean([recall_at_k(truth_s[i][0], ids[i]) for i in range(len(Q_np))]))
+    ms = statistics.median(host_ms(lambda: ret.search(Q), 10))
+    index.prepare_codec("dotvbyte")
+    t = time.perf_counter()
+    host = float(np.mean([recall_at_k(truth_s[i][0], index.search(q, k=10, **SEISMIC_SEARCH)[0])
+                          for i, q in enumerate(Q_np)]))
+    out["seismic"] = dict(n_docs=fwd_s.n_docs, blocks=index.n_blocks,
+                          build_s=out["seismic_build_s"],
+                          tied_swaps_vs_torch=swaps, recall_at_10=recall, search_ms=ms,
+                          host_recall_at_10=host, host_search_s=time.perf_counter() - t)
+    log(f"    Seismic dotvbyte f16 over {fwd_s.n_docs} docs ({index.n_blocks} blocks, host build "
+        f"{out['seismic_build_s']:.1f}s): ids = torch twin ({swaps} tied swaps), recall@10 "
+        f"{recall:.4f}, search {ms:.3f} ms / {len(Q_np)} queries; host SeismicIndex.search "
+        f"(heap_factor 0.9, cut 8, dotvbyte) recall@10 {host:.4f} "
+        f"({out['seismic']['host_search_s']:.1f}s; {card})")
+    launches, stages = path_launches(served, {})
+    names = {c: rows_dot.variant_name(c, "f16") for c in flat}
+    missing = [n for n in names.values() if launches[n] <= 0]
+    if missing:
+        raise SystemExit(f"the encoder's serving path did not launch {missing}")
+    out["_path"] = dict(rows_launches={n: launches[n] for n in names.values()},
+                        rows_stage_launches={k: v for k, v in stages.items() if v})
+    log(f"    encoder path launches (warm-ups + graph replays): "
+        + ", ".join(f"{n}={launches[n]}" for n in names.values())
+        + f"; by stage {out['_path']['rows_stage_launches']}")
+    return out
+
+
+def encoder_phase(n_steps: int, n_docs: int, card: str) -> dict:
+    """Phase 10: the SPLADE encoder and its training at full width (see
+    the module docstring)."""
+    from repro_torch.models.sparse_encoder import SparseEncoderConfig
+
+    if torch.get_float32_matmul_precision() != "highest":
+        raise SystemExit("f32 matmuls must run at full precision (no TF32) for the parity checks")
+    cfg = SparseEncoderConfig()
+    out = {"parity": encoder_parity(cfg, card)}
+    state, out["training"] = encoder_training(cfg, n_steps, 0, card)
+    out["serving"] = encoder_serving(state["params"], cfg, n_docs, ENC_SEISMIC_DOCS, 0, card)
+    out["_path"] = out["serving"].pop("_path")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="smoke run of the port on one GPU")
     ap.add_argument("--n-docs", type=int, default=100_000,
                     help="collection size (MsMarco has 8,842,240; the host build bounds it)")
-    ap.add_argument("--hnsw-docs", type=int, default=5_000,
+    ap.add_argument("--hnsw-docs", type=int, default=2_500,
                     help="the prefix of the collection the hnsw phase serves (its host build "
                          "is Python insertion loops, ~10 ms a document)")
-    ap.add_argument("--shard-docs", type=int, default=25_000,
+    ap.add_argument("--shard-docs", type=int, default=5_000,
                     help="the prefix the sharded Seismic of phase 8 serves (its per-shard host "
                          "build is phase 3's Python loops)")
+    ap.add_argument("--encoder-steps", type=int, default=50,
+                    help="training steps of phase 10's encoder (the example's stream)")
+    ap.add_argument("--encoder-docs", type=int, default=1_488,
+                    help="documents phase 10 encodes and serves (the example's count)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    # phase 10 checks a restart under deterministic algorithms; cuBLAS reads
+    # its workspace setting once, at its first use in the process
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     # no matmul is on this path; full f32 stated all the same
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2425,7 +2852,17 @@ def main() -> int:
     dv["mutation_phase"] = mut
     phase_s["9 mutation"] = time.perf_counter() - t0
 
-    # -- 10. summary ------------------------------------------------------------
+    # -- 10. the encoder and its training ----------------------------------------------
+    t0 = time.perf_counter()
+    encoder = encoder_phase(args.encoder_steps, args.encoder_docs, card)
+    for rec in kernels[:n_rows]:
+        n = encoder["_path"]["rows_launches"].get(rec["name"], 0)
+        rec["launches_by_path"]["encoder"] = n
+        rec["launches"] += n
+    dv["encoder_phase"] = encoder
+    phase_s["10 encoder"] = time.perf_counter() - t0
+
+    # -- 11. summary ------------------------------------------------------------
     log("phases: " + ", ".join(f"{k} {v:.1f}s" for k, v in phase_s.items()))
     log(f"ported kernels: {n_rows} rows_dot variants and {len(kernels) - n_rows} block-scan "
         f"entries ok; total {time.perf_counter() - t_start:.0f}s")

@@ -1,7 +1,7 @@
-"""Seismic (Bruch et al., SIGIR 2024) — the host-side index build the
-paper plugs its compressed forward index into (numpy; a copy of the
-build half of ``repro/core/seismic.py``, byte-identical on the same
-input).
+"""Seismic (Bruch et al., SIGIR 2024) — the host-side index the paper
+plugs its compressed forward index into (numpy; a copy of
+``repro/core/seismic.py``: the build byte-identical, the search returning
+the same ids and scores on the same input).
 
 Build pipeline:
 
@@ -14,7 +14,12 @@ Build pipeline:
    pruned to the smallest component set covering ``summary_mass`` of its
    value mass and quantised to fixedU8.
 
-The batched search over these structures is the ``seismic`` engine
+Query processing (``search``, the reference's numpy heap engine): take
+the query's top-``cut`` components, walk their blocks, and score a
+block's documents exactly through the forward index (decoded with the
+codec of ``prepare_codec``) when its summary's estimate beats
+``heap_factor ×`` the current k-th best score. The batched search over
+these structures on the device is the ``seismic`` engine
 (``serve/engines/seismic.py``). The build is Python loops over
 components and blocks; vectorising it for MsMarco scale is ROADMAP
 queue A4.
@@ -23,9 +28,11 @@ queue A4.
 from __future__ import annotations
 
 import dataclasses
+import heapq
 
 import numpy as np
 
+from .codecs import get_codec
 from .forward_index import ForwardIndex
 
 __all__ = ["SeismicParams", "SeismicIndex", "exact_top_k", "recall_at_k"]
@@ -66,6 +73,8 @@ class SeismicIndex:
     summary_indptr: np.ndarray  # i64 [n_blocks+1]
     summary_comps: np.ndarray  # i32
     summary_vals: np.ndarray  # u8 (fixedU8, scale=params.summary_scale)
+    # decoded-doc cache for the codec-timed rescoring path
+    _decoded: dict | None = None
 
     @property
     def n_blocks(self) -> int:
@@ -148,6 +157,96 @@ class SeismicIndex:
                 else np.zeros(0, np.uint8)
             ),
         )
+
+    # ------------------------------------------------------------------
+    def prepare_codec(self, codec_name: str) -> None:
+        """Pre-encode every document with ``codec_name`` for rescoring."""
+        from .layout import encode_docs
+
+        self._decoded = {"codec": codec_name, "bufs": encode_docs(self.fwd, codec_name)}
+
+    def _doc_components(self, d: int, codec_name: str) -> np.ndarray:
+        """Decode doc d's components with the configured codec (timed path)."""
+        if codec_name == "uncompressed" or self._decoded is None:
+            s, e = int(self.fwd.offsets[d]), int(self.fwd.offsets[d + 1])
+            return self.fwd.components[s:e]
+        codec = get_codec(self._decoded["codec"])
+        return codec.decode_doc(self._decoded["bufs"][d], self.fwd.nnz(d))
+
+    def search(
+        self,
+        q_dense: np.ndarray,
+        k: int = 10,
+        heap_factor: float = 0.9,
+        cut: int = 8,
+        codec: str = "uncompressed",
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """Seismic query processing on the host (the reference's numpy
+        engine): → (ids i64 [≤ k], scores f32), best first."""
+        q = np.asarray(q_dense, dtype=np.float32)
+        qc = np.flatnonzero(q)
+        if len(qc) == 0:
+            return np.zeros(0, np.int64), np.zeros(0, np.float32)
+        qc = qc[np.argsort(-np.abs(q[qc]), kind="stable")][:cut]
+        sscale = np.float32(self.params.summary_scale)
+        vf = self.fwd.value_format
+
+        heap: list[float] = []  # min-heap of top-k scores
+        best: dict[int, float] = {}
+        visited: set[int] = set()
+        for c in qc:
+            for b in range(
+                int(self.comp_block_indptr[c]), int(self.comp_block_indptr[c + 1])
+            ):
+                ss, se = int(self.summary_indptr[b]), int(self.summary_indptr[b + 1])
+                est = float(
+                    q[self.summary_comps[ss:se]]
+                    @ (self.summary_vals[ss:se].astype(np.float32) * sscale)
+                )
+                threshold = heap[0] if len(heap) == k else -np.inf
+                if est <= heap_factor * threshold:
+                    continue
+                ds, de = int(self.block_doc_indptr[b]), int(self.block_doc_indptr[b + 1])
+                for d in self.block_docs[ds:de]:
+                    d = int(d)
+                    if d in visited:
+                        continue
+                    visited.add(d)
+                    comps = self._doc_components(d, codec)
+                    s0, e0 = int(self.fwd.offsets[d]), int(self.fwd.offsets[d + 1])
+                    score = float(q[comps] @ vf.dequantise(self.fwd.values[s0:e0]))
+                    best[d] = score
+                    if len(heap) < k:
+                        heapq.heappush(heap, score)
+                    elif score > heap[0]:
+                        heapq.heapreplace(heap, score)
+        ids = np.asarray(sorted(best, key=lambda d: -best[d])[:k], dtype=np.int64)
+        return ids, np.asarray([best[int(d)] for d in ids], dtype=np.float32)
+
+    # ------------------------------------------------------------------
+    def index_bytes(self, codec_name: str = "uncompressed") -> dict[str, int]:
+        """Index size accounting mirroring Table 2's GB column."""
+        fwd_sizes = self.fwd.storage_bytes(codec_name)
+        inverted = int(
+            self.block_docs.nbytes
+            + self.block_doc_indptr.nbytes
+            + self.comp_block_indptr.nbytes
+        )
+        summaries = int(
+            self.summary_comps.nbytes * 2 // 4 + self.summary_vals.nbytes
+        )  # comps storable as u16
+        return {
+            "forward_components": fwd_sizes["components"],
+            "forward_values": fwd_sizes["values"],
+            "forward_offsets": fwd_sizes["offsets"],
+            "inverted": inverted,
+            "summaries": summaries,
+            "total": fwd_sizes["components"]
+            + fwd_sizes["values"]
+            + fwd_sizes["offsets"]
+            + inverted
+            + summaries,
+        }
 
 
 def _summarise(fwd: ForwardIndex, docs: np.ndarray, params: SeismicParams):

@@ -1392,3 +1392,124 @@ def test_pipeline_stress_during_a_background_merge(mut_seismic, rep):
     assert m._wrappers["base"].plans.get(64)._graph is graphs[64]  # replayed, not captured
     _hold_stage_aware(got, want, _stage_names(m.plans.get(64).stages) == want_stages,
                       "after the flip")
+
+
+# -- the encoder and its training on the card ----------------------------------------
+
+#: a small encoder (the card's path at CPU-test speed)
+ENC_SMALL = dict(vocab=2048, n_layers=2, d_model=64, n_heads=4, d_ff=128, max_len=32)
+
+
+def _enc_setup(device, eps=1e-3, **kw):
+    from repro_torch.models import sparse_encoder as enc
+    from repro_torch.train import optimizer, train_step
+
+    cfg = enc.SparseEncoderConfig(**ENC_SMALL, **kw)
+    params = enc.encoder_init(torch.Generator().manual_seed(0), cfg, device=device)
+    init, upd = optimizer.make_optimizer(
+        optimizer.OptimizerConfig(lr=1e-3, warmup_steps=2, total_steps=20, eps=eps))
+    step = train_step.make_train_step(lambda p, b: enc.contrastive_loss(p, cfg, b), upd)
+    return cfg, train_step.init_train_state(params, init), step
+
+
+def _enc_batch(cfg, device, seed=0, B=4):
+    rng = np.random.default_rng(seed)
+    S = cfg.max_len
+    out = {}
+    for side in ("q", "d"):
+        out[f"{side}_tokens"] = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S))).to(device)
+        out[f"{side}_mask"] = torch.from_numpy(
+            np.arange(S)[None, :] < rng.integers(1, S + 1, B)[:, None]).to(device)
+    return out
+
+
+def test_encoder_and_a_train_step_on_the_card_match_the_cpu(cuda):
+    """Encode and one AdamW step (``eps`` 1e-3, so the update is a smooth
+    function of the gradient) on the card against the CPU, full f32."""
+    from repro_torch.models import sparse_encoder as enc
+    from repro_torch.tree import tree_leaves_with_path, tree_map
+
+    assert torch.get_float32_matmul_precision() == "highest"
+    cfg, state_cpu, step = _enc_setup("cpu")
+    state_gpu = tree_map(lambda t: t.to(cuda), state_cpu)
+    b_cpu = _enc_batch(cfg, "cpu")
+    b_gpu = {k: v.to(cuda) for k, v in b_cpu.items()}
+    want = enc.encode(state_cpu["params"], cfg, b_cpu["d_tokens"], b_cpu["d_mask"])
+    got = enc.encode(state_gpu["params"], cfg, b_gpu["d_tokens"], b_gpu["d_mask"])
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    s_cpu, m_cpu = step(state_cpu, b_cpu)
+    s_gpu, m_gpu = step(state_gpu, b_gpu)
+    assert all(v.is_cuda for v in m_gpu.values())
+    for k in ("loss", "grad_norm", "lr"):
+        torch.testing.assert_close(m_gpu[k].cpu(), m_cpu[k], rtol=1e-4, atol=0)
+    for (p, a), (_, b) in zip(tree_leaves_with_path(s_gpu), tree_leaves_with_path(s_cpu)):
+        assert a.is_cuda and a.dtype == b.dtype, p
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-4, atol=1e-6, msg=p)
+
+
+def test_checkpoint_saved_from_the_card_restores_on_the_cpu(cuda, tmp_path):
+    from repro_torch.train import checkpoint
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg, state, step = _enc_setup(cuda)
+    state, _ = step(state, _enc_batch(cfg, cuda))
+    checkpoint.save(str(tmp_path), 3, state)
+    on_cpu, meta = checkpoint.restore(str(tmp_path), state, device="cpu")
+    assert meta["step"] == 3
+    for a, b in zip(tree_leaves(on_cpu), tree_leaves(state)):
+        assert a.device.type == "cpu" and a.dtype == b.dtype and torch.equal(a, b.cpu())
+    back, _ = checkpoint.restore(str(tmp_path), tree_map(lambda t: t.cpu(), state), device=cuda)
+    assert all(a.is_cuda and torch.equal(a, b) for a, b in zip(tree_leaves(back), tree_leaves(state)))
+    same, _ = checkpoint.restore(str(tmp_path), state)  # each leaf where its template leaf is
+    assert all(a.is_cuda for a in tree_leaves(same))
+
+
+@pytest.fixture
+def deterministic():
+    """``torch.use_deterministic_algorithms(True)`` for one test (cuBLAS
+    needs a fixed workspace for it)."""
+    import os
+
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    before = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(before)
+
+
+def test_runner_replay_is_bit_for_bit_on_the_card(cuda, deterministic, tmp_path):
+    from repro_torch.launch.train_sparse_encoder import synth_pairs
+    from repro_torch.train.elastic import FaultInjector, Runner, RunnerConfig
+    from repro_torch.tree import tree_leaves_with_path
+
+    cfg, state, step = _enc_setup(cuda, eps=1e-8)
+    batch_fn = lambda i: synth_pairs(0, i, cfg, batch=8, seq=16, device=cuda)  # noqa: E731
+    faulted = Runner(RunnerConfig(total_steps=20, checkpoint_dir=str(tmp_path / "a"),
+                                  checkpoint_every=5, step_timeout_s=60.0),
+                     step, batch_fn, state, device=cuda,
+                     fault_injector=FaultInjector(fail_at=(7, 13)))
+    got, hist = faulted.run()
+    assert faulted.restarts == 2 and hist[-1]["step"] == 19
+    clean = Runner(RunnerConfig(total_steps=20, checkpoint_dir=str(tmp_path / "b"),
+                                checkpoint_every=5), step, batch_fn, state, device=cuda)
+    want, _ = clean.run()
+    for (p, a), (_, b) in zip(tree_leaves_with_path(got), tree_leaves_with_path(want)):
+        assert a.is_cuda and torch.equal(a, b), p
+
+
+def test_train_sparse_encoder_cli_on_the_card(cuda, capsys):
+    import re
+
+    from repro_torch.launch import train_sparse_encoder as cli
+
+    before = rows_dot.launches
+    cli.main(["--steps", "20", "--n-docs", "160"])
+    out = capsys.readouterr().out
+    loss = re.search(r"loss ([\d.]+) → ([\d.]+) over 20 steps", out)
+    assert loss and float(loss.group(2)) < float(loss.group(1)), out
+    flat = re.search(r"Retriever flat \(dotvbyte, backend=cuda\) recall@10: ([\d.]+)", out)
+    assert flat and float(flat.group(1)) == 1.0, out
+    assert re.search(r"Retriever seismic \(dotvbyte, backend=cuda\) recall@10: [\d.]+", out), out
+    assert rows_dot.launches > before  # the encoded corpus went through the rows kernel
