@@ -25,7 +25,12 @@ no result:
    values (vq f16 reads the stored dtype), and ``Retriever.build`` over
    an f32 and a fixedu8 collection served with ``backend="cuda"``. The
    per-query form in both its stages (row warps, entry lanes), and the
-   shared form at one query in every stage. Every
+   shared form at one query in every stage. One summation order in every
+   stage (C2): for every variant, rows of 1, 8, 9, 128, 129 and 256
+   entries (capacity 256) and of 257–3,430 (capacity 3,456), the shared
+   form at nq 1, 7, 8 and 32 and the per-query form at 15 and 16 × 4,096
+   in every stage that takes the shape, each stage's scores the same
+   bits as the others'. Every
    block-scan entry (dotvbyte, streamvbyte and bitpack at the per-block
    width, single and batched; bitpack at each static width its packs
    hold) against its plain version in both output modes — slot scores,
@@ -104,9 +109,8 @@ no result:
    64 for all 16 variants of each engine; a synthetic trace of 256
    requests (seed 0, repeat share 0.25) through ``Pipeline`` (deadline
    1000 µs, cache 1024) per engine with every response held to direct
-   search under the parity rule (byte-identical where the dispatch
-   bucket's plan took the direct plan's stages, else scores within rtol
-   1e-5; ``launch/serve.py::trace_parity``), its launches counted from
+   search bit for bit, whatever stages its bucket took
+   (``launch/serve.py::trace_parity``), its launches counted from
    zero, and the ServeStats line; and per engine, replayed against
    eager, the host-clock median of 10 searches and one profile of 5
    (device busy time, idle share, kernels a search, the rows kernel's
@@ -121,9 +125,8 @@ no result:
    served with ``backend="cuda"`` at ``max_resident`` 4 and 1, prefetch
    on and off. Checks: prefetch on equals off and ``max_resident`` 4
    equals 1 bit for bit; flat held to phase 3's monolithic flat retriever
-   and Seismic and hnsw to their ``backend="torch"`` sharded twins (bit
-   for bit where both took the same rows-kernel stages, else ids
-   tie-aware with scores within rtol 1e-5), with recall@10 against
+   bit for bit and Seismic and hnsw to their ``backend="torch"`` sharded
+   twins (ids tie-aware, scores within rtol 1e-5), with recall@10 against
    ``exact_top_k``; ``prefetch_hits > 0`` by the second rotation; each
    search replays one plan per shard (the rows launches its graphs hold:
    S, or S × (1 + iters) for hnsw); ``set_tombstones`` on 3 ids keeps
@@ -137,7 +140,8 @@ no result:
    and graph pool bytes, and the rows launches a search with their
    stages. Then a 256-request trace of the flat tree at ``max_resident=1``
    through ``ShardedRetriever.pipeline()``, held to direct sharded search
-   by ``trace_parity``, with its ServeStats line and prefetch counters.
+   bit for bit by ``trace_parity``, with its ServeStats line and prefetch
+   counters.
    The kernels' counts are zeroed just before this phase and read just
    after; the flat tree is kept for phase 9;
 9. live mutation (``serve/segments.py``), dotvbyte/f16, the 64 queries:
@@ -157,10 +161,11 @@ no result:
    hnsw ids tie-aware equal to a ``backend="torch"`` twin of the same
    mutable index, recall@10, no deleted id served, every search one
    replayed plan per part, and a 256-request trace through
-   ``m.pipeline()`` held by ``trace_parity`` with at least one cache
-   invalidation. Then ``merge(background=True)`` with the 64 queries
-   streaming through the flip (each response held to the generation
-   before or after it), the first search after the flip timed: flat
+   ``m.pipeline()`` held to direct search bit for bit by ``trace_parity``
+   with at least one cache invalidation. Then ``merge(background=True)``
+   with the 64 queries streaming through the flip (each response the
+   generation before or after it bit for bit), the first search after
+   the flip timed: flat
    over its whole live corpus, Seismic over a base of the first 2,000
    docs and hnsw of the first 500 (the same rounds scaled to the base;
    their host builds are Python loops). A saved root crashed before its
@@ -206,7 +211,27 @@ no result:
    the host ``SeismicIndex.search`` over the same (recall@10). The
    kernels' counts are zeroed just before the serving part and read
    just after (``launches_by_path["encoder"]``);
-11. one JSON line of kernels, the card line, and as the last line
+11. RGB and the LiLSR configuration, at the full width (dim 30,522):
+   Recursive Graph Bisection (the reference Table 1's ``max_iters=6``,
+   ``leaf_size=32``, seed 0; numpy on the host) over the first
+   ``RGB_DOCS`` documents (50,000) of phase 3's collection,
+   bits per component of all nine codecs before and after; the full scan
+   (``ops.score_*_batch`` at nq 64 and ``ops.score_*`` at nq 1, dotvbyte,
+   streamvbyte and bitpack) over the permuted pack with permuted queries
+   (``apply_permutation_dense``), held to ``torch.sparse.mm`` over the
+   permuted CSR and, top-10, to ``exact_top_k`` of the unpermuted prefix,
+   timed beside the unpermuted pack; flat over the permuted rows for the
+   four row codecs at f16 (ids = ``exact_top_k``, tie-aware). Then the
+   CLI in-process, ``launch.serve.main`` with ``--encoder lilsr --engine
+   all --compare-codecs --device cuda`` over ``LILSR_CLI_DOCS`` (1,000:
+   the Seismic and hnsw host builds are Python loops) LiLSR-statistics
+   documents (387 entries a document, 6 a query): recall@10 identical
+   across codecs for every engine, the rows kernel's stages printed; and
+   flat over ``LILSR_FLAT_DOCS`` (10,000) LiLSR documents (rows past
+   256 entries) for the four row codecs, ids = ``exact_top_k``. The
+   kernels' counts are zeroed just before this phase and read just after
+   (``launches_by_path["rgb_lilsr"]``);
+12. one JSON line of kernels, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -365,14 +390,16 @@ _MANGLED = {"f": "f32", "6__half": "f16", "h": "u8", "i": "i32", "a": "i8"}
 
 def ptxas_report(log_text: str) -> dict[str, list[str]]:
     """ptxas' ``-v`` lines per kernel variant (by template args) and
-    stage: rows ``<codec, vq, value storage>`` and block scan ``<code,
-    value storage, seg storage>`` (its resident-query kernel marked)."""
+    stage: rows ``<codec, vq, value storage>`` (query lanes also by the
+    queries a lane, ``/2`` or ``/4``) and block scan ``<code, value
+    storage, seg storage>`` (its resident-query kernel marked)."""
     from repro_torch.kernels import block_scan, rows_dot
     from repro_torch.core.values import VALUE_CODECS
 
     out, cur = {}, None
     for line in log_text.splitlines():
-        rows = re.search(r"rows_dot_(shared_|warp_)?kernelILi(\d)ELi(\d)E(f|6__half|h)?", line)
+        rows = re.search(r"rows_dot_(shared_|warp_)?kernelILi(\d)ELi(\d)E(f|6__half|h)?(?:Li(\d)E)?",
+                         line)
         scan = re.search(r"block_scan_(resident_)?kernelILi(\d+)E(f|6__half|h)(i|a)E", line)
         if (rows or scan) and ("Compiling entry" in line or "Function properties" in line):
             if rows:
@@ -380,8 +407,8 @@ def ptxas_report(log_text: str) -> dict[str, list[str]]:
                                             VALUE_CODECS[int(rows[3])])
                 if rows[4] and VALUE_CODECS[int(rows[3])] == "f16":  # the stored dtype
                     cur += f"[{_MANGLED[rows[4]]}]"
-                cur += {"shared_": " query lanes", "warp_": " row warps"}.get(rows[1],
-                                                                              " entry lanes")
+                cur += {"shared_": f" query lanes/{rows[5]}", "warp_": " row warps"}.get(
+                    rows[1], " entry lanes")
             else:
                 code = int(scan[2])
                 codec = block_scan.CODECS[min(code, 2)] + (f"_w{code - 2}" if code > 2 else "")
@@ -533,6 +560,46 @@ def check_kernel(codec, name, Q, docs, arrays, scale=1.0, stage=None, want=None)
     return err
 
 
+#: C2's row lengths: on both sides of the group (8), half-warp chunk
+#: (128) and warp (256) edges at capacity 256, and past it
+STAGE_LENGTHS = (1, 8, 9, 128, 129, 256)
+LONG_LENGTHS = (257, 511, 513, 700, 1100, 3430)
+#: the shared form's batch sizes (130: both 64-query passes of a query-lane
+#: tile and a second tile) and the per-query form's (nq x C) shapes
+STAGE_NQ = (1, 7, 8, 32, 130)
+STAGE_PER_QUERY = ((15, 4096), (16, 4096))
+
+
+def length_docs(dim: int, lengths, rng, n_random: int = 60):
+    """One document of each length, then random ones of 1-199 entries."""
+    ns = list(lengths) + [int(n) for n in rng.integers(1, 200, size=n_random)]
+    return [(np.sort(rng.choice(dim, size=n, replace=False)),
+             rng.gamma(2.0, 0.5, size=n).astype(np.float32)) for n in ns]
+
+
+def stages_agree(codec, name, Q, docs, arrays) -> list[str]:
+    """Every stage that takes the shape, on the card: the same bits (one
+    summation order, C2), and the plain version's within RTOL/ATOL →
+    the stages compared. These launches compare; they are not the main
+    path's."""
+    from repro_torch.kernels import rows_dot
+
+    nq, nd, C = Q.shape[0], docs.shape[0], docs.shape[1]
+    stages = [st for st in rows_dot.STAGES
+              if _takes(rows_dot.pick_stage, nq, nd, st, dim=Q.shape[1], C=C)]
+    outs = {st: rows_dot.rows_scores_for_codec(codec, arrays, Q, docs, 0.5, stage=st)
+            for st in stages}
+    torch.cuda.synchronize()
+    ref = outs[stages[0]].view(torch.int32)
+    for st in stages[1:]:
+        differ = int((outs[st].view(torch.int32) != ref).sum())
+        if differ:
+            raise SystemExit(f"{name} nq={nq} nd={nd} C={C}: {st} differs from {stages[0]} in "
+                             f"{differ} scores' bits")
+    check_kernel(codec, f"{name} nq={nq} nd={nd} C={C}", Q, docs, arrays, 0.5, stages[0])
+    return stages
+
+
 def same_topk(ids_a, sc_a, ids_b, sc_b) -> int:
     """Tie-aware top-k equality → the number of positions whose ids
     differ; raises where a differing position's two scores do not agree
@@ -542,6 +609,17 @@ def same_topk(ids_a, sc_a, ids_b, sc_b) -> int:
         raise SystemExit("top-k ids differ at positions whose scores are not tied")
     torch.testing.assert_close(sc_a, sc_b, rtol=1e-5, atol=1e-4)
     return int(diff.sum())
+
+
+def bitwise(what: str, got, want) -> None:
+    """Ids equal and scores the same bits, or exit: every rows-kernel
+    stage sums a dot in one order, so no answer of the card depends on the
+    batch or the stage it rode in."""
+    gi, gs = (torch.as_tensor(np.asarray(x.cpu() if torch.is_tensor(x) else x)) for x in got)
+    wi, ws = (torch.as_tensor(np.asarray(x.cpu() if torch.is_tensor(x) else x)) for x in want)
+    if not (torch.equal(gi.long(), wi.long())
+            and torch.equal(gs.float().view(torch.int32), ws.float().view(torch.int32))):
+        raise SystemExit(f"{what}: not bit for bit equal")
 
 
 def rows_stages(nq: int, nd: int, dim: int, C: int) -> list[str]:
@@ -1184,11 +1262,11 @@ def pipeline_phase(served: dict, Q_np, Q, card: str) -> dict:
     each engine (``served[engine][codec, vq]``) → per engine its records:
     every bucket's plan captured and its replay held against eager; the
     16 variants' bucket-64 plans held the same way; a synthetic trace
-    through ``Pipeline`` with every response held to direct search under
-    the parity rule (``launch/serve.py::trace_parity``), its launches
-    counted from zero; graph against eager latency and profiles."""
+    through ``Pipeline`` with every response held to direct search bit for
+    bit (``launch/serve.py::trace_parity``), its launches counted from
+    zero; graph against eager latency and profiles."""
     from repro_torch.kernels import rows_dot
-    from repro_torch.launch.serve import PARITY_RTOL, trace_parity
+    from repro_torch.launch.serve import stage_names, trace_parity
     from repro_torch.serve.pipeline import DEFAULT_BUCKETS, ServeStats, synthetic_trace
 
     nq, dim = Q.shape
@@ -1249,17 +1327,15 @@ def pipeline_phase(served: dict, Q_np, Q, card: str) -> dict:
         variants_l, stages_l = path_launches([ret], marks)
         if variants_l[rows_dot.variant_name("dotvbyte", "f16")] <= 0:
             raise SystemExit(f"{engine}: the pipeline trace launched no rows kernel")
-        counts = trace_parity(pipe, trace, tickets, direct_ids, direct_scores,
-                              ret.plans.bucket_for(nq))
+        counts = trace_parity(trace, tickets, direct_ids, direct_scores)
         snap = pipe.snapshot()
         rec.update(trace_s=trace_s, parity=counts, snapshot=snap,
                    rows_launches=variants_l[rows_dot.variant_name("dotvbyte", "f16")],
                    rows_stage_launches={k: n for k, n in stages_l.items() if n})
-        log(f"    {engine} trace ({TRACE}): {trace_s:.3f}s, responses: "
-            f"{counts['bitwise_same_stage']} bitwise (same stage as direct), "
-            f"{counts['rtol_other_stage']} within rtol {PARITY_RTOL} (other stage; "
-            f"{counts['bitwise_other_stage']} of them bitwise, {counts['tied_swaps_other_stage']} "
-            f"tied swaps), {counts['cache_replays']} cache replays; rows launches "
+        log(f"    {engine} trace ({TRACE}): {trace_s:.3f}s, responses: {counts['bitwise']} "
+            f"bit for bit equal to direct search, {counts['cache_replays']} cache replays; "
+            f"dispatch stages {sorted(stage_names(st for t in tickets if not t.from_cache for st in t.stages))}"
+            f"; rows launches "
             f"{rec['rows_launches']} {rec['rows_stage_launches']} ({card})")
         log(f"    {engine} ServeStats: {ServeStats.summary(snap)}")
         # 4. graph against eager: host clock in turns, then one profile each
@@ -1307,7 +1383,7 @@ def sharded_phase(fwd, Q_np, Q, flat_mono, card: str, n_seismic: int, n_hnsw: in
     ``"_path"`` the rows launches of the phase."""
     from repro_torch.core.seismic import exact_top_k, recall_at_k
     from repro_torch.kernels import rows_dot
-    from repro_torch.launch.serve import PARITY_RTOL, trace_parity
+    from repro_torch.launch.serve import stage_names, trace_parity
     from repro_torch.serve.api import Retriever, RetrieverConfig, open_retriever
     from repro_torch.serve.pipeline import ServeStats, synthetic_trace
     from repro_torch.serve.sharded import ShardedRetriever
@@ -1328,16 +1404,6 @@ def sharded_phase(fwd, Q_np, Q, flat_mono, card: str, n_seismic: int, n_hnsw: in
             for part, counts in p.launches.items():
                 for k, c in counts.items():
                     replayed[part][k] += c * p.replays
-
-    def hold(what, got, want, same_stages):
-        """Bit for bit where both took the same rows-kernel stages, else ids
-        tie-aware with scores within rtol 1e-5 → the tied swaps."""
-        if same_stages:
-            if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
-                raise SystemExit(f"{what}: not bit for bit equal, though both took the same "
-                                 "rows-kernel stages")
-            return 0
-        return same_topk(got[0], got[1], want[0], want[1])
 
     def memmapped(r):
         return all(isinstance(a, np.memmap) for sh in r.shards for a in sh.arrays.values()
@@ -1455,24 +1521,23 @@ def sharded_phase(fwd, Q_np, Q, flat_mono, card: str, n_seismic: int, n_hnsw: in
         base = results[SHARD_SETTINGS[0]]
         stages = stages_of[SHARD_SETTINGS[0]]
         for setting, got in results.items():  # prefetch on == off, resident 4 == 1
-            hold(f"sharded {engine} {setting}", got, base, stages_of[setting] == stages)
+            bitwise(f"sharded {engine} {setting}", got, base)
         truth = [exact_top_k(sub, Q_np[i], 10) for i in range(nq)]
         ids_np = base[0].cpu().numpy()
         rec["recall_at_10"] = float(np.mean([recall_at_k(truth[i][0], ids_np[i])
                                              for i in range(nq)]))
         if engine == "flat":
-            want = flat_mono.search(Q)
-            want_stages = search_plan(flat_mono, nq).stages
-            same = {st for _, st in stages} == set(want_stages)
-            rec["parity"] = dict(against="monolithic flat of phase 3", same_stages=same,
-                                 tied_swaps=hold("sharded flat vs monolithic", base, want, same))
+            bitwise("sharded flat vs monolithic", base, flat_mono.search(Q))
+            rec["parity"] = dict(against="monolithic flat of phase 3", bitwise=True,
+                                 stages=sorted(stage_names(stages)),
+                                 monolithic_stages=sorted(search_plan(flat_mono, nq).stages))
         else:
             r = rets[1, True]
             twin = ShardedRetriever(r.cfg.replace(backend="torch"), r.shards, dim=r.dim,
                                     value_scale=r.value_scale, value_format=r.value_format)
             want = twin.search(Q)
-            rec["parity"] = dict(against="backend=torch sharded twin", same_stages=False,
-                                 tied_swaps=hold(f"sharded {engine} vs torch", base, want, False))
+            rec["parity"] = dict(against="backend=torch sharded twin", bitwise=False,
+                                 tied_swaps=same_topk(*base, *want))
             del twin
         # tombstones on the out-of-core retriever with a staged shard
         r, r_off = rets[1, True], rets[1, False]
@@ -1487,16 +1552,16 @@ def sharded_phase(fwd, Q_np, Q, flat_mono, card: str, n_seismic: int, n_hnsw: in
         dead_off = r_off.search(Q)
         if np.intersect1d(dead[0].cpu().numpy(), victims).size:
             raise SystemExit(f"sharded {engine}: a tombstoned doc was served")
-        hold(f"sharded {engine} tombstoned, prefetch on vs off", dead, dead_off, True)
+        bitwise(f"sharded {engine} tombstoned, prefetch on vs off", dead, dead_off)
         for x in (r, r_off):
             x.set_tombstones([])
-        hold(f"sharded {engine} tombstones cleared", r.search(Q), base, True)
+        bitwise(f"sharded {engine} tombstones cleared", r.search(Q), base)
         rec["tombstones"] = victims.tolist()
         log(f"    {engine}: prefetch on == off and max_resident 4 == 1 bit for bit; "
             f"{rec['parity']['against']}: "
-            + ("bit for bit" if rec["parity"]["same_stages"] else
-               f"ids tie-aware ({rec['parity']['tied_swaps']} tied swaps), scores rtol "
-               f"{PARITY_RTOL}")
+            + (f"bit for bit (stages {rec['parity']['stages']} against "
+               f"{rec['parity']['monolithic_stages']})" if rec["parity"]["bitwise"] else
+               f"ids tie-aware ({rec['parity']['tied_swaps']} tied swaps)")
             + f"; recall@10 {rec['recall_at_10']:.4f} vs exact_top_k over [0, {n}); "
             f"tombstones {victims.tolist()} out of every answer, the staged shard retired, "
             f"prefetch on == off")
@@ -1516,15 +1581,13 @@ def sharded_phase(fwd, Q_np, Q, flat_mono, card: str, n_seismic: int, n_hnsw: in
             pipe.flush()
             torch.cuda.synchronize()
             trace_s = time.perf_counter() - t0
-            counts = trace_parity(pipe, trace, tickets, *direct, r.plans.bucket_for(nq))
+            counts = trace_parity(trace, tickets, *direct)
             snap = pipe.snapshot()
             rec["trace"] = dict(warm_s=warm_s, warm_compiles=warm, trace_s=trace_s,
                                 parity=counts, snapshot=snap)
             log(f"    flat trace at max_resident=1 ({TRACE}): warm {warm_s:.2f}s ({warm} plans), "
-                f"trace {trace_s:.3f}s; responses {counts['bitwise_same_stage']} bitwise (same "
-                f"stage), {counts['rtol_other_stage']} within rtol {PARITY_RTOL} (other stage; "
-                f"{counts['tied_swaps_other_stage']} tied swaps), {counts['cache_replays']} "
-                f"cache replays ({card})")
+                f"trace {trace_s:.3f}s; responses {counts['bitwise']} bit for bit equal to "
+                f"direct search, {counts['cache_replays']} cache replays ({card})")
             log(f"    flat ServeStats: {ServeStats.summary(snap)}")
         for x in rets.values():
             retire(x)
@@ -1740,7 +1803,7 @@ def mutation_phase(fwd, Q_np, Q, bases: dict, tree, card: str) -> dict:
                 pipe.poll()
                 tickets.append(pipe.submit(Q_np[qi]))
             pipe.flush()
-            out["trace"] = trace_parity(pipe, trace, tickets, *direct, m.plans.bucket_for(nq))
+            out["trace"] = trace_parity(trace, tickets, *direct)
             out["trace_invalidations"] = pipe.cache.invalidations - inv0
             if out["trace_invalidations"] < 1:
                 raise SystemExit(f"mutable {engine} {label}: the trace's cache was not "
@@ -1836,23 +1899,20 @@ def mutation_phase(fwd, Q_np, Q, bases: dict, tree, card: str) -> dict:
         post = tuple(x.cpu().numpy() for x in post_c)
         if m.generation != gen0 + 1 or m.segments:
             raise SystemExit(f"mutable {engine}: the background merge did not flip")
-        swaps = 0
-        for qi, tk in during:
-            ids, sc = tk.result()
-            if engine == "flat":
-                continue  # held below, with the post-merge answer, to the exact top-k
-            got = (torch.tensor(ids), torch.tensor(sc))
+        for qi, tk in during:  # each the generation before or after the flip, bit for bit
+            got = tk.result()
             try:
-                swaps += same_topk(*got, torch.tensor(pre[0][qi]), torch.tensor(pre[1][qi]))
+                bitwise("", got, (pre[0][qi], pre[1][qi]))
             except SystemExit:
-                swaps += same_topk(*got, torch.tensor(post[0][qi]), torch.tensor(post[1][qi]))
+                bitwise(f"mutable {engine} during the merge, query {qi} (neither generation)",
+                        got, (post[0][qi], post[1][qi]))
         truth.base, truth.seg = before_merge, {}
         out = dict(n_docs_after=m.base.n_docs, during=len(during), merge_s=wall_s,
                    merge_wall_us=m.merge_wall_us - w0, blocked_swap_us=m.blocked_swap_us - b0,
                    first_search_after_flip_ms=first_ms,
                    first_search_replayed_prewarm=all(
                        p._graph is not None for p in m._wrappers["base"].plans.created().values()),
-                   during_tied_swaps=swaps, snapshot=stream.snapshot())
+                   during_bitwise=len(during), snapshot=stream.snapshot())
         t_ids, t_sc, _ = truth.top_k(m)
         if engine == "flat":
             for qi, tk in during:
@@ -1873,7 +1933,7 @@ def mutation_phase(fwd, Q_np, Q, bases: dict, tree, card: str) -> dict:
         rec["merge"] = out
         log(f"    {engine} background merge over {out['n_docs_after']} live docs: "
             f"{wall_s:.2f}s with {len(during)} responses streamed through the flip (held to "
-            f"the generation before or after it, {swaps} tied swaps); merge_wall_us "
+            f"the generation before or after it bit for bit); merge_wall_us "
             f"{out['merge_wall_us']:.0f}, blocked_swap_us {out['blocked_swap_us']:.1f}; first "
             f"search after the flip {first_ms:.3f} ms (prewarmed plans replayed: "
             f"{out['first_search_replayed_prewarm']}); recall@10 {out['recall_at_10']:.4f} "
@@ -2399,6 +2459,197 @@ def encoder_phase(n_steps: int, n_docs: int, card: str) -> dict:
     return out
 
 
+#: phase 11: the reference Table 1's RGB settings and the prefix of phase
+#: 3's collection it reorders (numpy on the host); the LiLSR collection the
+#: CLI serves with every engine (its Seismic and hnsw host builds are Python
+#: loops) and the one flat serves
+RGB_PARAMS = dict(max_iters=6, leaf_size=32, seed=0)
+RGB_DOCS = 50_000
+LILSR_CLI_DOCS = 1_000
+LILSR_FLAT_DOCS = 10_000
+_CLI_LINE = re.compile(r"^(\w+)\s+codec=(\w+)\s+backend=cuda recall@10=([\d.]+) "
+                       r"latency=\s*(\d+)µs/q .*\(([\d.]+) bits/comp", re.M)
+
+
+def csr_of(fwd, dev):
+    """``fwd`` as a CSR tensor on the card (``torch.sparse.mm``'s operand)."""
+    with warnings.catch_warnings():  # "sparse CSR support is in beta"
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.sparse_csr_tensor(
+            torch.from_numpy(fwd.offsets.astype(np.int64)),
+            torch.from_numpy(fwd.components.astype(np.int64)),
+            torch.from_numpy(fwd.value_format.dequantise(fwd.values)),
+            size=(fwd.n_docs, fwd.dim), check_invariants=True).to(dev)
+
+
+def rgb_lilsr_phase(fwd, Q_np, Q, card: str, n_rgb: int, n_cli: int, n_flat: int) -> dict:
+    """Phase 11: RGB over a prefix of phase 3's collection and the LiLSR
+    configuration, at the full width (see the module docstring) → records,
+    and under ``"_path"`` the phase's rows and block-scan launches."""
+    import io
+
+    from repro_torch.core import rgb
+    from repro_torch.core.codecs import available_codecs
+    from repro_torch.core.layout import pack_blocks
+    from repro_torch.core.seismic import exact_top_k
+    from repro_torch.data.synthetic import generate_collection, lilsr_config
+    from repro_torch.kernels import block_scan, ops, rows_dot
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.serve.api import Retriever, RetrieverConfig, top_k
+
+    nq, dim = Q.shape
+    dev = Q.device
+    out = {}
+    rows_dot.reset_launches()  # this phase's launches only
+    block_scan.reset_launches()
+    retrievers = []
+
+    # -- RGB over the prefix --------------------------------------------------
+    sub = fwd.slice(0, n_rgb)
+    docs = [sub.components[sub.offsets[i]:sub.offsets[i + 1]] for i in range(sub.n_docs)]
+    t0 = time.perf_counter()
+    pi = rgb.recursive_graph_bisection(docs, dim, **RGB_PARAMS)
+    rgb_s = time.perf_counter() - t0
+    perm = sub.apply_component_permutation(pi)
+    cost = (rgb.log_gap_cost(docs), rgb.log_gap_cost(
+        [perm.components[perm.offsets[i]:perm.offsets[i + 1]] for i in range(perm.n_docs)]))
+    bits = {c: (8 * sub.storage_bytes(c)["components"] / sub.total_nnz,
+                8 * perm.storage_bytes(c)["components"] / perm.total_nnz)
+            for c in available_codecs()}
+    out["rgb"] = dict(docs=sub.n_docs, params=RGB_PARAMS, seconds=rgb_s, log_gap_cost=cost,
+                      bits_per_component={c: dict(before=b, after=a) for c, (b, a) in bits.items()})
+    log(f"[11] RGB ({RGB_PARAMS}) over the first {sub.n_docs} docs in {rgb_s:.1f}s on the host; "
+        f"log-gap cost {cost[0]:.0f} -> {cost[1]:.0f}; bits/comp before -> after: "
+        + ", ".join(f"{c} {b:.2f} -> {a:.2f}" for c, (b, a) in bits.items()))
+    Qp = torch.from_numpy(np.stack([rgb.apply_permutation_dense(q, pi) for q in Q_np])).to(dev)
+    truth = [exact_top_k(sub, Q_np[i], 10) for i in range(nq)]
+    # the full scan over the permuted pack: the path's calls first
+    packs = {}
+    for codec in BLOCK_CODECS:
+        for label, index in (("rgb", perm), ("unpermuted", sub)):
+            packs[codec, label] = pack_blocks(index, codec=codec, block_size=512).to(dev)
+    scans = {}
+    for codec in BLOCK_CODECS:
+        single, batch = ops.block_scorers(codec)
+        scans[codec] = (batch(Qp, packs[codec, "rgb"]), single(Qp[0], packs[codec, "rgb"]))
+    torch.cuda.synchronize()
+    block_path = {k: v for k, v in block_scan.variant_launches.items() if v}
+    csr_p = csr_of(perm, dev)
+    lib_b = torch.sparse.mm(csr_p, Qp.t().contiguous()).t()
+    lib_1 = torch.sparse.mm(csr_p, Qp[0].unsqueeze(1).contiguous()).t()[0]
+    out["scan"] = {}
+    for codec in BLOCK_CODECS:
+        got_b, got_1 = scans[codec]
+        torch.testing.assert_close(got_b, lib_b, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(got_1, lib_1, rtol=1e-4, atol=1e-4)
+        sc, ids = top_k(got_b, 10)
+        swaps = sum(tie_aware_topk(f"rgb {codec} scan query {i}", ids[i].cpu().numpy(),
+                                   sc[i].cpu().numpy(), *truth[i]) for i in range(nq))
+        single, batch = ops.block_scorers(codec)
+        rec = {"tied_swaps": swaps}
+        for label, Qx in (("rgb", Qp), ("unpermuted", Q)):
+            p = packs[codec, label]
+            rec[label] = dict(blocks=p.n_blocks, payload_bytes=p.payload_bytes(),
+                              ms_nq64=cuda_ms(lambda: batch(Qx, p), 10),
+                              ms_nq1=cuda_ms(lambda: single(Qx[0], p), 20))
+        out["scan"][codec] = rec
+        log(f"    full scan {codec} over the RGB pack: scores == sparse.mm over the permuted "
+            f"CSR (rtol=atol=1e-4), top-10 == exact_top_k of the unpermuted prefix ({swaps} "
+            f"tied swaps); nq 64 {rec['rgb']['ms_nq64']:.4f} ms (unpermuted "
+            f"{rec['unpermuted']['ms_nq64']:.4f}), nq 1 {rec['rgb']['ms_nq1']:.4f} ms "
+            f"({rec['unpermuted']['ms_nq1']:.4f}); payload {rec['rgb']['payload_bytes']} B "
+            f"({rec['unpermuted']['payload_bytes']}) ({card})")
+    del packs, scans, csr_p, lib_b
+    # flat through the rows kernel over the permuted rows
+    out["rgb_flat"] = {}
+    for codec in rows_dot.CODECS:
+        r = Retriever.build(perm, RetrieverConfig(engine="flat", codec=codec, backend="cuda",
+                                                  k=10), device=dev)
+        ids, sc = (t.cpu().numpy() for t in r.search(Qp))
+        swaps = sum(tie_aware_topk(f"rgb flat {codec} query {i}", ids[i], sc[i], *truth[i])
+                    for i in range(nq))
+        out["rgb_flat"][codec] = dict(tied_swaps=swaps,
+                                      search_ms=statistics.median(host_ms(lambda: r.search(Qp), 5)))
+        retrievers.append(r)
+    log("    flat over the permuted rows (f16): ids == exact_top_k of the unpermuted prefix; "
+        + ", ".join(f"{c} {v['search_ms']:.3f} ms/search ({v['tied_swaps']} tied swaps)"
+                    for c, v in out["rgb_flat"].items()) + f" ({card})")
+
+    # -- LiLSR: the CLI, every engine and codec, on the card --------------------
+    marks = replay_marks(retrievers)
+    eager0 = dict(rows_dot.variant_launches)
+    stages0 = {k: rows_dot.stage_launches[k] + rows_dot.captured_stage_launches[k]
+               for k in rows_dot.STAGES}
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        serve_cli.main(["--encoder", "lilsr", "--engine", "all", "--compare-codecs",
+                        "--device", "cuda", "--n-docs", str(n_cli), "--n-queries", str(nq)])
+    cli_s = time.perf_counter() - t0
+    text = buf.getvalue()
+    lines = _CLI_LINE.findall(text)
+    recall = {}
+    for engine, codec, rec10, lat, bpc in lines:
+        recall.setdefault(engine, {})[codec] = dict(recall_at_10=float(rec10),
+                                                    latency_us_per_q=int(lat),
+                                                    bits_per_component=float(bpc))
+    if sorted(recall) != ["flat", "hnsw", "seismic"] or any(len(v) != 4 for v in recall.values()):
+        raise SystemExit(f"the LiLSR CLI run printed {len(lines)} result lines:\n{text}")
+    for engine, per in recall.items():
+        if len({v["recall_at_10"] for v in per.values()}) != 1:
+            raise SystemExit(f"LiLSR {engine}: recall differs across codecs {per}")
+    nnz_cli = float(re.search(r"\(nnz/doc=(\d+)\)", text)[1])
+    cli_stages = {k: rows_dot.stage_launches[k] + rows_dot.captured_stage_launches[k] - stages0[k]
+                  for k in rows_dot.STAGES}
+    cli_eager = {k: v - eager0[k] for k, v in rows_dot.variant_launches.items() if v > eager0[k]}
+    out["lilsr_cli"] = dict(docs=n_cli, seconds=cli_s, nnz_per_doc=nnz_cli, results=recall,
+                            rows_stages=cli_stages, rows_eager_launches=cli_eager)
+    log(f"    LiLSR CLI (--encoder lilsr --engine all --compare-codecs --device cuda, {n_cli} "
+        f"docs, nnz/doc {nnz_cli:.0f}) in {cli_s:.1f}s: recall@10 identical across codecs: "
+        + ", ".join(f"{e} {next(iter(p.values()))['recall_at_10']:.3f}" for e, p in recall.items())
+        + "; latency µs/q " + "; ".join(
+            f"{e} " + ", ".join(f"{c} {v['latency_us_per_q']}" for c, v in p.items())
+            for e, p in recall.items())
+        + f"; rows launches (eager and captured) by stage {cli_stages} ({card})")
+    # flat over a larger LiLSR collection
+    t0 = time.perf_counter()
+    col = generate_collection(lilsr_config(n_flat, nq, 1), value_format="f16")
+    Ql_np = np.stack([col.query_dense(i) for i in range(col.n_queries)])
+    Ql = torch.from_numpy(Ql_np).to(dev)
+    truth_l = [exact_top_k(col.fwd, Ql_np[i], 10) for i in range(nq)]
+    gen_s = time.perf_counter() - t0
+    out["lilsr_flat"] = dict(docs=col.fwd.n_docs, nnz_per_doc=col.fwd.total_nnz / col.fwd.n_docs,
+                             generate_s=gen_s, codecs={})
+    for codec in rows_dot.CODECS:
+        r = Retriever.build(col.fwd, RetrieverConfig(engine="flat", codec=codec, backend="cuda",
+                                                     k=10), device=dev)
+        ids, sc = (t.cpu().numpy() for t in r.search(Ql))
+        swaps = sum(tie_aware_topk(f"LiLSR flat {codec} query {i}", ids[i], sc[i], *truth_l[i])
+                    for i in range(nq))
+        L = int(r.arrays["vals_rows"].shape[1])  # vq f16: one value a logical entry
+        out["lilsr_flat"]["codecs"][codec] = dict(
+            tied_swaps=swaps, L=L, stages=sorted(search_plan(r, nq).stages),
+            search_ms=statistics.median(host_ms(lambda: r.search(Ql), 5)))
+        retrievers.append(r)
+    lf = out["lilsr_flat"]
+    log(f"    LiLSR flat over {lf['docs']} docs (nnz/doc {lf['nnz_per_doc']:.1f}, generated in "
+        f"{gen_s:.1f}s): ids == exact_top_k; " + ", ".join(
+            f"{c} L={v['L']} {v['stages']} {v['search_ms']:.3f} ms/search ({v['tied_swaps']} "
+            f"tied swaps)" for c, v in lf["codecs"].items()) + f" ({card})")
+    variants_l, stages_l = path_launches(retrievers, marks)
+    out["_path"] = dict(rows_launches={k: v for k, v in variants_l.items() if v},
+                        rows_stages={k: v for k, v in stages_l.items() if v},
+                        block_launches=block_path)
+    for name in ("rows_dot_dotvbyte_f16", "rows_dot_streamvbyte_f16", "rows_dot_bitpack_f16",
+                 "rows_dot_uncompressed_f16"):
+        if out["_path"]["rows_launches"].get(name, 0) <= 0:
+            raise SystemExit(f"phase 11 did not launch {name}")
+    if any(block_path.get(f"block_scan_{c}{b}", 0) <= 0 for c in BLOCK_CODECS
+           for b in ("", "_batch")):
+        raise SystemExit(f"phase 11's full scan did not launch every entry: {block_path}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="smoke run of the port on one GPU")
     ap.add_argument("--n-docs", type=int, default=100_000,
@@ -2478,6 +2729,10 @@ def main() -> int:
     Qw = torch.rand((2, wide_dim), device=dev, generator=torch.Generator(dev).manual_seed(0))
     ids_w = torch.arange(fwd_w.n_docs + 1, dtype=torch.int32, device=dev)
     max_err = {v: 0.0 for v in variants}
+    len_fwd = {ls: ForwardIndex.from_docs(length_docs(dim, ls, rng), dim, value_format="f16")
+               for ls in (STAGE_LENGTHS, LONG_LENGTHS)}
+    Ql = torch.from_numpy(rng.standard_normal((max(STAGE_NQ + tuple(
+        n for n, _ in STAGE_PER_QUERY)), dim)).astype(np.float32)).to(dev)
     log(f"[2] rows kernel vs plain on edge rows (N={n_e}, dim={dim}, nq={nq}, C={C}; the "
         f"shared form also at nq {list(SHARED_NQ)} in both stages; rtol={RTOL}, atol={ATOL}):")
     for codec, vq in variants:
@@ -2506,8 +2761,28 @@ def main() -> int:
                                   ids_w.unsqueeze(0).repeat(2, 1), wa)]
             wide = f", dim {wide_dim} nd=1/nq {errs[2]:.2e}/{errs[3]:.2e}"
         max_err[codec, vq] = max(errs)
+        # one summation order (C2): rows of every length, every stage, the same bits
+        took = set()
+        for lengths, lq in ((STAGE_LENGTHS, Ql), (LONG_LENGTHS, Ql)):
+            la = {k: torch.from_numpy(v).to(dev) for k, v in pack_rows(
+                len_fwd[lengths], codec=codec, vq=vq).arrays().items()}
+            n_l = len_fwd[lengths].n_docs
+            lead = torch.tensor([*range(len(lengths)), n_l], dtype=torch.int32, device=dev)
+            shared = torch.cat([lead, torch.randint(0, n_l + 1, (300,), device=dev,
+                                                     dtype=torch.int32)]).unsqueeze(0)
+            for n in STAGE_NQ:
+                took.update(stages_agree(codec, names[codec, vq], lq[:n].contiguous(), shared,
+                                         la))
+            for n, c in STAGE_PER_QUERY:
+                per = torch.randint(0, n_l + 1, (n, c), device=dev, dtype=torch.int32)
+                per[:, : len(lead)] = lead
+                took.update(stages_agree(codec, names[codec, vq], lq[:n].contiguous(), per, la))
+        if took != set(rows_dot.STAGES):
+            raise SystemExit(f"{names[codec, vq]}: the stage checks took only {sorted(took)}")
         log(f"  {names[codec, vq]:28s} max_abs_err nd=1 {errs[0]:.2e} (every stage), nd=nq "
-            f"{errs[1]:.2e} (both stages){wide} ok")
+            f"{errs[1]:.2e} (both stages){wide} ok; every stage the same bits at rows of "
+            f"{list(STAGE_LENGTHS)} and {list(LONG_LENGTHS)} entries, shared nq "
+            f"{list(STAGE_NQ)}, per query {list(STAGE_PER_QUERY)}")
     del Qw
     # vq f16 reads the values as stored: f32 and fixedu8 rows too
     for vf in ("f32", "fixedu8"):
@@ -2862,7 +3137,20 @@ def main() -> int:
     dv["encoder_phase"] = encoder
     phase_s["10 encoder"] = time.perf_counter() - t0
 
-    # -- 11. summary ------------------------------------------------------------
+    # -- 11. RGB and the LiLSR configuration ------------------------------------------
+    t0 = time.perf_counter()
+    extra = rgb_lilsr_phase(fwd, Q_np, Q, card, min(RGB_DOCS, fwd.n_docs), LILSR_CLI_DOCS,
+                            LILSR_FLAT_DOCS)
+    for rec in kernels:
+        n = {**extra["_path"]["rows_launches"], **extra["_path"]["block_launches"]}.get(
+            rec["name"], 0)
+        rec.setdefault("launches_by_path", {})["rgb_lilsr"] = n
+        rec["launches"] += n
+    dv["rgb_lilsr_phase"] = extra
+    phase_s["11 rgb + lilsr"] = time.perf_counter() - t0
+    log(f"[11] {phase_s['11 rgb + lilsr']:.1f}s")
+
+    # -- 12. summary ------------------------------------------------------------
     log("phases: " + ", ".join(f"{k} {v:.1f}s" for k, v in phase_s.items()))
     log(f"ported kernels: {n_rows} rows_dot variants and {len(kernels) - n_rows} block-scan "
         f"entries ok; total {time.perf_counter() - t_start:.0f}s")

@@ -1,16 +1,22 @@
-"""Forward-index components codecs (paper §2) — the four the serve
-engines' row layouts use, with the reference's registry
-(``repro/core/codecs/__init__.py``):
+"""Forward-index components codecs (paper §2), with the reference's
+registry (``repro/core/codecs/__init__.py``). The four the serve
+engines' row layouts use:
 
 * ``uncompressed`` — raw u16, the paper's baseline (16 bits/component)
 * ``streamvbyte``  — Lemire et al., 2-bit controls, 4 values/control
 * ``dotvbyte``     — the paper's codec: 1-bit controls, 8 values/control
 * ``bitpack``      — fixed-width block packing
 
+and the rest of the paper's Table 1 space comparison, which no engine
+serves:
+
+* ``vbyte``        — Thiel & Heaps byte-aligned varint
+* ``elias_gamma`` / ``elias_delta`` — Elias universal codes
+* ``zeta``         — Boldi-Vigna zeta_k (k = 3)
+* ``dotnibble``    — the paper's future work: {4, 8, 12, 16}-bit codes
+
 ``ForwardIndex.storage_bytes`` reports the paper's space metric through
-them. The reference's survey-only codecs (``vbyte``, ``elias_gamma``,
-``elias_delta``, ``zeta``, ``dotnibble``) serve no engine and are not
-ported yet (ROADMAP)."""
+any of them."""
 
 import numpy as np
 
@@ -24,8 +30,12 @@ from .base import (
     register,
 )
 from .bitpack import BitpackCodec
+from .dotnibble import DotNibbleCodec
 from .dotvbyte import DotVByteCodec, control_bits
+from .elias import EliasDeltaCodec, EliasGammaCodec
 from .streamvbyte import StreamVByteCodec
+from .vbyte import VByteCodec
+from .zeta import ZetaCodec
 
 
 @register("uncompressed")
@@ -33,6 +43,7 @@ class UncompressedCodec(Codec):
     """Raw u16 components — the paper's 16-bits-per-component baseline."""
 
     name = "uncompressed"
+    supports_zero = True
 
     def encode_doc(self, components: np.ndarray) -> bytes:
         c = np.asarray(components, dtype=np.uint32)
@@ -59,7 +70,12 @@ __all__ = [
     "register",
     "control_bits",
     "UncompressedCodec",
+    "VByteCodec",
+    "EliasGammaCodec",
+    "EliasDeltaCodec",
+    "ZetaCodec",
     "StreamVByteCodec",
     "DotVByteCodec",
+    "DotNibbleCodec",
     "BitpackCodec",
 ]

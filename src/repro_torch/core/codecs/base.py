@@ -3,8 +3,10 @@
 
 A codec encodes ONE document's sorted ``components`` into a byte string
 and decodes it back. Documents are d-gap transformed first (paper §2):
-``g[0] = c[0]``, ``g[i] = c[i] - c[i-1]``. The byte codecs the serve
-engines use (StreamVByte, DotVByte, bitpack) encode gaps verbatim.
+``g[0] = c[0]``, ``g[i] = c[i] - c[i-1]``. The byte codecs (VByte,
+StreamVByte, DotVByte, DotNibble, bitpack) encode gaps verbatim; the
+bit-oriented universal codes (Elias gamma/delta, Zeta) cannot encode 0,
+so they encode ``g + 1``.
 
 Beyond the reference, every codec here also counts its encoded bytes
 for a whole collection at once (:meth:`Codec.doc_bytes`), vectorised
@@ -70,6 +72,9 @@ class Codec:
 
     #: registry key, e.g. "dotvbyte"
     name: str = "abstract"
+    #: True when the codec encodes raw gaps (can represent 0), False when
+    #: it encodes gaps+1 (bit-oriented universal codes)
+    supports_zero: bool = True
 
     def encode_doc(self, components: np.ndarray) -> bytes:
         raise NotImplementedError
@@ -82,6 +87,21 @@ class Codec:
         """``len(encode_doc(doc))`` of every document of a CSR
         collection → i64 [n_docs], counted vectorised."""
         raise NotImplementedError
+
+    def encoded_size_bytes(self, components: np.ndarray) -> int:
+        return len(self.encode_doc(components))
+
+    def bits_per_component(self, docs: list[np.ndarray]) -> float:
+        """Encoded bits over components of a list of documents' component
+        arrays (empty documents skipped), as the reference counts them."""
+        total_bits = 0
+        total_comps = 0
+        for c in docs:
+            if len(c) == 0:
+                continue
+            total_bits += 8 * self.encoded_size_bytes(c)
+            total_comps += len(c)
+        return total_bits / max(total_comps, 1)
 
 
 _REGISTRY: Dict[str, Callable[[], Codec]] = {}

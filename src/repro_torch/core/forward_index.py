@@ -202,6 +202,22 @@ class ForwardIndex:
         np.add.at(out, np.repeat(np.arange(self.n_docs), np.diff(self.offsets)), contrib)
         return out
 
+    def apply_component_permutation(self, pi: np.ndarray) -> "ForwardIndex":
+        """Relabel component c as ``pi[c]`` and re-sort each doc (paper §2,
+        ``core/rgb.py``); queries take the same permutation
+        (``rgb.apply_permutation_dense``). Equal, array for array, to the
+        reference's per-document loop: a permutation keeps a document's
+        components distinct, so one sort by (doc, new component) orders
+        every document at once."""
+        pi = np.asarray(pi, dtype=np.uint32)
+        if len(pi) != self.dim:
+            raise ValueError("permutation length must equal dim")
+        new_comp = pi[self.components]
+        doc = np.repeat(np.arange(self.n_docs), np.diff(self.offsets))
+        order = np.lexsort((new_comp, doc))
+        return ForwardIndex(new_comp[order], self.values[order], self.offsets.copy(), self.dim,
+                            self.value_format)
+
     def storage_bytes(self, codec_name: str = "uncompressed") -> dict[str, int]:
         """Bytes of the index with its components encoded per document
         by ``codec_name`` (the paper's space metric). Counts equal the

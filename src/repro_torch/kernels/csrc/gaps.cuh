@@ -73,13 +73,64 @@ __device__ __forceinline__ V group_exclusive_scan(V x, V* scratch, bool warp) {
   return (threadIdx.x & 31) ? excl : V(0);
 }
 
+// -- one summation order for a (query, row) dot -----------------------------
+//
+// Every scoring stage of rows_dot.cu sums a dot in this order, so a score does
+// not depend on the stage (and so on the batch) that computed it:
+//   - each product is rounded alone (__fmul_rn: never contracted to an FMA);
+//   - group g is entries 8g..8g+7, summed left to right from +0.f (__fadd_rn);
+//     a dead entry adds nothing;
+//   - the groups combine by the balanced pairwise tree over g, aligned at
+//     powers of two: (0,1), (2,3), ..., then pairs of pairs.
+// A sum that starts from +0.f is never -0.f under round-to-nearest, so a +0.f
+// (a dead entry, an empty group, a padding group or lane) adds exactly nothing
+// and the tree may be padded to any power of two.
+
+// The aligned pairwise tree over the W lanes of each group of W (xor offsets
+// ascending: lanes 2k and 2k+1 first); every lane gets the same bits. Every
+// lane of the warp must call it.
+template <int W = 32>
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
+  for (int o = 1; o < W; o <<= 1) x = __fadd_rn(x, __shfl_xor_sync(kFull, x, o));
   return x;
 }
 
-// Sum over the block; the result is valid in thread 0. Every thread must call it.
+// The aligned pairwise tree over items pushed one at a time: slot l holds a
+// complete subtree of 2^l items while bit l of the count is set, so K slots
+// take fewer than 2^K items.
+template <int K>
+struct PairStack {
+  float slot[K];
+
+  // Push x as item n (n items already pushed, n + 1 < 2^K).
+  __device__ __forceinline__ void push(float x, unsigned n) {
+    bool done = false;
+#pragma unroll
+    for (int l = 0; l < K; ++l) {
+      if (done) continue;
+      if ((n >> l) & 1u) {
+        x = __fadd_rn(slot[l], x);
+      } else {
+        slot[l] = x;
+        done = true;
+      }
+    }
+  }
+
+  // The tree over the n items pushed.
+  __device__ __forceinline__ float total(unsigned n) const {
+    float acc = 0.f;
+#pragma unroll
+    for (int l = 0; l < K; ++l)
+      if ((n >> l) & 1u) acc = __fadd_rn(slot[l], acc);
+    return acc;
+  }
+};
+
+// Sum over the block as the aligned tree over its threads (warp trees, then
+// the tree over warps); the result is valid in thread 0. Every thread must
+// call it.
 __device__ __forceinline__ float block_sum(float x, float* scratch) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int n_warps = blockDim.x >> 5;

@@ -43,7 +43,10 @@
 // entry 2i in the low nibble of byte i; pq entry j is codebook[code[j/2]*2 + j%2].
 // The dequant multiply and add are rounded separately (__fmul_rn, __fadd_rn),
 // so every value equals the plain torch version's bit for bit; only the order
-// of the final f32 sums differs.
+// of the final f32 sums differs. That order is one for all three stages below
+// (gaps.cuh: products rounded alone, groups of 8 entries summed left to right,
+// the balanced pairwise tree over the groups), so a score is the same bits
+// whichever stage the batch's shape picks.
 //
 // Three scoring stages, picked by the wrapper (kernels/rows_dot.py):
 //
@@ -66,6 +69,8 @@
 //   - each warp takes tasks in turn: lanes 0..7 load the task's row ids and
 //     lengths in two loads, and load the next task's ids and ask L2 for its
 //     rows' first lines before this task's decode;
+//   - a chunk of 128 entries (16 groups) reduces by the half-warp's pairwise
+//     tree, and the chunks of a longer row combine on a pairwise stack;
 //   - a warp scores its rows two at a time, a half-warp each (SPLADE rows hold
 //     ~119 entries: one 128-entry chunk, where a whole warp left half its
 //     lanes idle and ran one row's chain of loads at a time); a lane owns 8
@@ -97,23 +102,26 @@
 //   3. a second block scan of the per-thread gap sums gives absolute
 //      components (uncompressed reads them directly and skips 1-3);
 //   4. the thread dequantizes its 8 values (the PQ codebook is staged in
-//      shared memory once per block) and, for each query of the set, gathers
-//      Q[q, comp], multiplies and a block reduction writes the score. With
+//      shared memory once per block) and, for each query of the set, sums its
+//      group's products and a block reduction (the tree over threads, so over
+//      groups) writes the score. With
 //      nd == 1 the decoded row stays in registers across the whole query batch
 //      (decode once, score many).
 //
 // Query lanes (the shared form, nd == 1, from QUERY_LANES_MIN_NQ queries on;
 // the flat engine scores every row against the whole batch): Q arrives
 // transposed, Qt [dim, nq]. A thread block takes R consecutive candidates
-// (R = clamp(4096 / L, 1, 8)) and one tile of kQueryTile queries (grid.y):
+// (R = clamp(4096 / L, 1, 8)) and one tile of 32 x LQ queries (grid.y), LQ
+// queries a lane: 2 up to nq 64, else 4 (lane_queries):
 //   1. the block decodes its R rows into shared memory as {component, scaled
 //      value} (R x L x 8 B: 16 KB at L = 256). Up to L = 256 each of 4 warps
 //      decodes whole rows alone with warp scans (gaps.cuh, warp scope); above
 //      that all threads decode one row at a time with block scans. The PQ
 //      codebook is staged once per block, so once per R rows;
-//   2. warp w scores rows w, w + 4, ...: lane q walks the row and accumulates
-//      Qt[comp, q] * val (gaps.cuh::score_run): one coalesced row of Qt per
-//      entry, no reduction or barrier per query;
+//   2. warp w scores rows w, w + 4, ...: lane q walks the row a group of 8
+//      entries at a time and pushes each group's sum of Qt[comp, q] * val onto
+//      a pairwise stack (score_row): one coalesced row of Qt per entry, no
+//      reduction or barrier per query;
 //   3. the scores go through shared memory and out[q, c0 : c0 + R] is written
 //      as contiguous runs.
 // The wrapper's threshold is QUERY_LANES_MIN_NQ = 8: on an H100 (700 W), over
@@ -151,12 +159,34 @@ constexpr int kMaxRows = 8;
 constexpr int kRowEntries = 4096;
 constexpr int kDecodeWarps = 4;
 constexpr size_t kDefaultSmem = 48 * 1024;
+// levels of a row's pairwise tree over groups that a lane keeps in registers
+// (rows of up to 63 groups); a longer row keeps the rest in shared memory
+constexpr int kRegLevels = 6;
+// Query lanes: the queries a lane owns, LQ (lane l of a warp owns queries
+// q0 + l + 32k, k < LQ; a block's tile is 32 x LQ). Each query keeps a
+// kRegLevels stack of partial sums in registers. Up to 64 queries (the
+// serving bucket) two a lane, where four left half of each lane's idle;
+// above, four, so that a row is decoded and walked once for up to 128
+// queries (two 64-query walks took 10-35% longer at nq 128 on an H100,
+// tools/torch_rows_timing.py; PERF.md).
+__host__ __device__ inline int lane_queries(int nq) { return nq > 64 ? 4 : 2; }
 // the row-warp stage: candidates a warp scores in turn (one task), and
 // threads of a block (one block an SM: the query row takes most of the
 // shared memory; 768 threads leave 85 registers a thread)
 constexpr int kWarpRows = 8;
 constexpr int kRowThreads = 768;
 constexpr int kRowLanes = 16;  // lanes a row takes: a half-warp
+// levels of the pairwise stack over a row's 128-entry chunks (L <= 8,192: at
+// most 64 chunks)
+constexpr int kChunkLevels = 7;
+
+// Levels of the pairwise tree over the groups of a row of L entries that do
+// not fit kRegLevels (the bit length of L / 8, less kRegLevels).
+__host__ __device__ inline int hi_levels(int L) {
+  int levels = 0;
+  while ((L / 8) >> levels) ++levels;
+  return levels > kRegLevels ? levels - kRegLevels : 0;
+}
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__half v) { return __half2float(v); }
@@ -274,22 +304,120 @@ __global__ void rows_dot_kernel(const Args a) {
   }
   for (int q = q_lo; q < q_hi; ++q) {
     const float* qrow = a.Q + (size_t)q * a.dim;
-    float acc = 0.f;
+    float acc = 0.f;  // group t, left to right
 #pragma unroll
     for (int j = 0; j < 8; ++j)
-      if (8 * t + j < nnz && (unsigned)comp[j] < (unsigned)a.dim) acc += qrow[comp[j]] * val[j];
+      if (8 * t + j < nnz && (unsigned)comp[j] < (unsigned)a.dim)
+        acc = __fadd_rn(acc, __fmul_rn(qrow[comp[j]], val[j]));
     acc = block_sum(acc, fscratch);
     if (t == 0) a.out[(size_t)q * a.C + c] = acc;
   }
 }
 
-// The query-lane stage of the shared form (nd == 1); see the header.
-template <int CODEC, int VQ, typename VT = __half>
+// Query lanes: push x onto a lane's pairwise stack slots s[0 .. kRegLevels)
+// as the item after n items, where c, the trailing ones of n, is the number of
+// complete subtrees x closes (PairStack::push, with one uniform branch on c in
+// place of a test per level). Returns true when x closed every register level:
+// x is then a subtree of 2^kRegLevels items for the caller to carry on.
+__device__ __forceinline__ bool push_regs(float (&s)[kRegLevels], float& x, int c) {
+  static_assert(kRegLevels == 6, "push_regs spells out six levels");
+  switch (c) {
+    case 0: s[0] = x; return false;
+    case 1: x = __fadd_rn(s[0], x); s[1] = x; return false;
+    case 2: x = __fadd_rn(s[0], x); x = __fadd_rn(s[1], x); s[2] = x; return false;
+    case 3:
+      x = __fadd_rn(s[0], x); x = __fadd_rn(s[1], x); x = __fadd_rn(s[2], x);
+      s[3] = x;
+      return false;
+    case 4:
+      x = __fadd_rn(s[0], x); x = __fadd_rn(s[1], x); x = __fadd_rn(s[2], x);
+      x = __fadd_rn(s[3], x);
+      s[4] = x;
+      return false;
+    case 5:
+      x = __fadd_rn(s[0], x); x = __fadd_rn(s[1], x); x = __fadd_rn(s[2], x);
+      x = __fadd_rn(s[3], x); x = __fadd_rn(s[4], x);
+      s[5] = x;
+      return false;
+    default:
+      x = __fadd_rn(s[0], x); x = __fadd_rn(s[1], x); x = __fadd_rn(s[2], x);
+      x = __fadd_rn(s[3], x); x = __fadd_rn(s[4], x); x = __fadd_rn(s[5], x);
+      return true;
+  }
+}
+
+// Query lanes: lane q's dots of one row of n entries against its LQ
+// queries, each in the order of gaps.cuh. The lane walks the row a group of 8
+// entries at a time and pushes each group's sum onto a pairwise stack: levels
+// below kRegLevels in registers, the rest in `hi`, this warp's
+// [hi_levels(L)][32 x LQ] floats of shared memory. The row's entries from n
+// up to the next multiple of 8 must be dead ({0, 0.f}). Not inlined: its
+// registers are then its own, not the decode's; inlined, with the group's
+// loads in two runs of 4, the flat shape took up to twice the time on an H100
+// for some variants (tools/torch_rows_timing.py; PERF.md).
+template <int LQ>
+__device__ __noinline__ void score_row(const Ent* ent, int n, const float* Qt, int nq,
+                                          int q0, int nt, float* hi, float out[LQ]) {
+  const int lane = threadIdx.x & 31;
+  const float* base = Qt + q0 + lane;
+  const unsigned groups = (unsigned)(n + 7) >> 3;
+  float st[LQ][kRegLevels];
+  for (unsigned g = 0; g < groups; ++g) {
+    float s[LQ];
+#pragma unroll
+    for (int k = 0; k < LQ; ++k) s[k] = 0.f;
+#pragma unroll
+    for (int h = 0; h < 8; h += 4) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const Ent x = ent[8 * g + h + j];
+        const float* row = base + (size_t)(unsigned)x.c * nq;
+#pragma unroll
+        for (int k = 0; k < LQ; ++k)
+          if (lane + 32 * k < nt) s[k] = __fadd_rn(s[k], __fmul_rn(row[32 * k], x.v));
+      }
+    }
+    const int c = __ffs(~g) - 1;  // trailing ones of g: uniform across the warp
+#pragma unroll
+    for (int k = 0; k < LQ; ++k) {
+      if (!push_regs(st[k], s[k], c)) continue;
+      // s[k] is a complete subtree of 2^kRegLevels groups: carry it up in `hi`
+      const unsigned m = g >> kRegLevels;
+      float* h = hi + lane + 32 * k;
+      for (int l = 0;; ++l, h += 32 * LQ) {
+        if (!((m >> l) & 1u)) {
+          *h = s[k];
+          break;
+        }
+        s[k] = __fadd_rn(*h, s[k]);
+      }
+    }
+  }
+  const unsigned low = groups & ((1u << kRegLevels) - 1), m = groups >> kRegLevels;
+#pragma unroll
+  for (int k = 0; k < LQ; ++k) {
+    float acc = 0.f;
+#pragma unroll
+    for (int l = 0; l < kRegLevels; ++l)
+      if ((low >> l) & 1u) acc = __fadd_rn(st[k][l], acc);
+    const float* h = hi + lane + 32 * k;
+    for (int l = 0; (m >> l) != 0; ++l, h += 32 * LQ)
+      if ((m >> l) & 1u) acc = __fadd_rn(*h, acc);
+    out[k] = acc;
+  }
+}
+
+// The query-lane stage of the shared form (nd == 1), LQ queries a lane; see
+// the header.
+template <int CODEC, int VQ, typename VT, int LQ>
 __global__ void __launch_bounds__(1024) rows_dot_shared_kernel(const Args a) {
   extern __shared__ __align__(16) unsigned char dyn[];
   const int R = a.rows, L = a.L;
   Ent* ent = reinterpret_cast<Ent*>(dyn);                        // [R][L]
   float* sc = reinterpret_cast<float*>(ent + (size_t)R * L);     // [tile queries][R]
+  const int q0 = blockIdx.y * 32 * LQ;
+  const int nt = min(32 * LQ, a.nq - q0);
+  float* hi = sc + (size_t)nt * R;  // [scoring warps][hi_levels(L)][32 x LQ]
   __shared__ unsigned iscratch[32];
   __shared__ float cb[VQ == kPq ? kPqEntries : 1];
   __shared__ int row_nnz[kMaxRows];
@@ -337,7 +465,10 @@ __global__ void __launch_bounds__(1024) rows_dot_shared_kernel(const Args a) {
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int e = 8 * t + j;
-      if (e >= nnz) continue;
+      if (e >= nnz) {  // dead up to the next multiple of 8 (score_row's groups)
+        if (8 * t < nnz) out_row[e] = Ent{0, 0.f};
+        continue;
+      }
       out_row[e] = (unsigned)comp[j] < (unsigned)a.dim
                        ? Ent{comp[j], dequant<VQ, VT>(a, doc, e, cb, lo, step) * a.scale}
                        : Ent{0, 0.f};
@@ -345,14 +476,13 @@ __global__ void __launch_bounds__(1024) rows_dot_shared_kernel(const Args a) {
   }
   __syncthreads();
 
-  // 2. lane q of warp w scores rows w, w + W, ... against query q0 + q
-  const int q0 = blockIdx.y * kQueryTile;
-  const int nt = min(kQueryTile, a.nq - q0);
+  // 2. lane q of warp w scores rows w, w + W, ... against queries q0 + q
+  float* warp_hi = hi + (size_t)warp * hi_levels(L) * 32 * LQ;
   for (int r = warp; r < R; r += n_warps) {
-    float acc[kLaneQueries] = {};
-    score_run(ent + (size_t)r * L, row_nnz[r], a.Q, a.nq, q0, nt, acc);
+    float acc[LQ];
+    score_row<LQ>(ent + (size_t)r * L, row_nnz[r], a.Q, a.nq, q0, nt, warp_hi, acc);
 #pragma unroll
-    for (int k = 0; k < kLaneQueries; ++k)
+    for (int k = 0; k < LQ; ++k)
       if (lane + 32 * k < nt) sc[(lane + 32 * k) * R + r] = acc[k];
   }
   __syncthreads();
@@ -515,19 +645,21 @@ __global__ void __launch_bounds__(kRowThreads) rows_dot_warp_kernel(const Args a
         const bool scaled = (VQ == kU8 || VQ == kU4) && nnz;
         const float lo_v = scaled ? a.v0[doc] : 0.f;
         const float step = scaled ? a.v1[doc] : 0.f;
-        float acc = 0.f;
-        unsigned off = 0, t_run = 0;
-        for (int g = hl; 8 * (g - hl) < most; g += kRowLanes) {
+        PairStack<kChunkLevels> chunks;  // the row's chunk sums
+        unsigned off = 0, t_run = 0, n_chunks = 0;
+        for (int g = hl; 8 * (g - hl) < most; g += kRowLanes, ++n_chunks) {
           int comp[8];
           float val[8];
           const unsigned live = row_group<CODEC, VQ, VT>(a, doc, nnz, g, off, t_run, cb,
                                                              lo_v, step, comp, val);
+          float s = 0.f;  // group g, left to right
 #pragma unroll
           for (int j = 0; j < 8; ++j)
-            if (live >> j & 1) acc += qs[comp[j]] * val[j];
+            if (live >> j & 1) s = __fadd_rn(s, __fmul_rn(qs[comp[j]], val[j]));
+          s = warp_sum<kRowLanes>(s);  // the chunk: the tree over its 16 groups
+          chunks.push(s, n_chunks);
         }
-#pragma unroll
-        for (int o = kRowLanes / 2; o > 0; o >>= 1) acc += __shfl_xor_sync(kFull, acc, o);
+        const float acc = chunks.total(n_chunks);
         const float other = __shfl_xor_sync(kFull, acc, kRowLanes);  // the other half's row
         if (lane == r) keep = acc;
         if (lane == r + 1) keep = other;
@@ -568,19 +700,22 @@ int launch(const Args& a, int threads, int stage, cudaStream_t stream) {
         <<<dim3((unsigned)a.C, (unsigned)a.nd), threads, 0, stream>>>(a);
     return 0;
   }
-  const int nt = a.nq < kQueryTile ? a.nq : kQueryTile;
-  const size_t smem = (size_t)a.rows * a.L * sizeof(Ent) + (size_t)nt * a.rows * sizeof(float);
+  const int lq = lane_queries(a.nq), tile = 32 * lq;
+  auto kernel = lq == 4 ? rows_dot_shared_kernel<CODEC, VQ, VT, 4>
+                        : rows_dot_shared_kernel<CODEC, VQ, VT, 2>;
+  const int block_threads = a.L <= 256 ? 32 * kDecodeWarps : threads;
+  const int score_warps = a.rows < block_threads / 32 ? a.rows : block_threads / 32;
+  const int nt = a.nq < tile ? a.nq : tile;  // the first tile's queries: the most
+  const size_t smem = (size_t)a.rows * a.L * sizeof(Ent) + (size_t)nt * a.rows * sizeof(float) +
+                      (size_t)score_warps * hi_levels(a.L) * tile * sizeof(float);
   if (smem > kDefaultSmem) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        rows_dot_shared_kernel<CODEC, VQ, VT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
   const unsigned blocks = (unsigned)((a.C + a.rows - 1) / a.rows);
-  const unsigned tiles = (unsigned)((a.nq + kQueryTile - 1) / kQueryTile);
-  const int block_threads = a.L <= 256 ? 32 * kDecodeWarps : threads;
-  rows_dot_shared_kernel<CODEC, VQ, VT>
-      <<<dim3(blocks, tiles), block_threads, smem, stream>>>(a);
+  const unsigned tiles = (unsigned)((a.nq + tile - 1) / tile);
+  kernel<<<dim3(blocks, tiles), block_threads, smem, stream>>>(a);
   return 0;
 }
 
@@ -618,7 +753,7 @@ int rows_dot(int codec, int vq, int vals_t, int stage, const void* Q, const void
   const int threads = ((L / 8 + 31) / 32) * 32;
   if (L % 8 || threads < 32 || threads > 1024 || nq <= 0 || C <= 0 || nd <= 0 ||
       nd > 65535 || stage < kEntryLanes || stage > kRowWarps ||
-      (stage == kQueryLanes && (nd != 1 || (nq + kQueryTile - 1) / kQueryTile > 65535)) ||
+      (stage == kQueryLanes && (nd != 1 || (nq + 127) / 128 > 65535)) ||
       (stage == kRowWarps && nd != nq))
     return (int)cudaErrorInvalidValue;
   int rows = kRowEntries / L;

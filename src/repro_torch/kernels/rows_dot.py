@@ -28,8 +28,12 @@ rows or more in all; the shared form takes lanes
 across queries over the transposed batch ``Qᵀ [dim, nq]`` from
 :data:`QUERY_LANES_MIN_NQ` queries on; everything else takes entry
 lanes (a thread block per candidate row and a block reduction per
-query). The work is bound by bytes; see the source for the design and
-PERF.md for its time on the card.
+query). Every stage sums a (query, row) dot in one order — products
+rounded alone, groups of 8 entries left to right, the balanced pairwise
+tree over the groups (``csrc/gaps.cuh``) — so a score is the same bits
+whichever stage the batch's shape picks, and an answer does not depend
+on the batch it rode in. See the source for the design and PERF.md for
+its time on the card.
 
 :func:`rows_scores_for_codec` runs the kernel on CUDA tensors and its
 plain torch version (:func:`rows_scores_plain`) on CPU tensors; a CUDA

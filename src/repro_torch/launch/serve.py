@@ -6,13 +6,17 @@ needs.
     python -m repro_torch.launch.serve --engine seismic --codec dotvbyte \\
         --n-docs 20000 --n-queries 64
 
-builds the collection and the index on the host, moves the arrays to
+builds the collection (``--encoder splade``: SPLADE statistics, 119
+terms a document and 43 a query; ``lilsr``: LiLSR's, 387 and 6) and the
+index on the host, moves the arrays to
 the device (``cuda`` unless ``--device cpu``), runs one warm-up and one
 timed batched search, and prints recall@k against the exact top-k, the
 latency per query and the paper's space metric: the components' bits
 per component under the codec, against 16 for raw u16.
 ``--compare-codecs`` sweeps every registered row codec over ONE host
 index (the Seismic or HNSW build is the slow part; it is built once).
+``--engine both`` serves Seismic then hnsw, ``--engine all`` every
+registered engine in name order; every mode loops over the engines.
 ``--engine hnsw`` takes the reference CLI's graph parameters (``m=16``,
 ``ef_construction=48``, 8 seeds) with ``--beam`` and ``--iters``.
 ``--save-index DIR`` writes each artifact under ``DIR/<engine>-<codec>/``
@@ -26,8 +30,8 @@ reference's ``_pipeline_loadgen``): a seeded repeat-heavy trace of
 optional ``--trace-qps`` pacing) is driven through the micro-batching
 scheduler (``--deadline-us``, ``--cache-size``) after every bucket's
 plan is warmed (captured, on the card); every response is checked
-against a direct ``Retriever.search`` of the query batch under the
-parity rule (:func:`trace_parity`), then the ``ServeStats`` line is
+against a direct ``Retriever.search`` of the query batch bit for bit
+(:func:`trace_parity`), then the ``ServeStats`` line is
 printed. It refuses ``--save-index`` and ``--load-index`` as the
 reference does.
 
@@ -58,6 +62,11 @@ import time
 
 import numpy as np
 import torch
+
+from ..data.synthetic import lilsr_config, splade_config
+
+#: ``--encoder`` → the synthetic collection's statistics
+ENCODERS = {"splade": splade_config, "lilsr": lilsr_config}
 
 
 def _device_name(device: torch.device) -> str:
@@ -91,11 +100,6 @@ def _report(name, codec, backend, k, recs, dt_us, fwd, device, extra=""):
     )
 
 
-#: scores of one response against direct search where the two buckets
-#: took different rows-kernel stages (PERF.md §2's serving tolerance)
-PARITY_RTOL = 1e-5
-
-
 def stage_names(stages) -> frozenset:
     """A plan's stages as bare rows-kernel stage names: a fan-out plan's
     ``(label, stage)`` pairs (nested, for a sharded base inside a mutable
@@ -108,69 +112,42 @@ def stage_names(stages) -> frozenset:
     return frozenset(out)
 
 
-def trace_parity(pipe, trace, tickets, direct_ids, direct_scores, direct_bucket=None, *,
-                 want_stages=None) -> dict:
+def _same_bits(t, ids, scores) -> bool:
+    return np.array_equal(t.ids, ids) and np.array_equal(
+        np.asarray(t.scores, np.float32).view(np.uint32),
+        np.asarray(scores, np.float32).view(np.uint32))
+
+
+def trace_parity(trace, tickets, direct_ids, direct_scores, *, oracle: bool = False) -> dict:
     """Hold every trace response against direct search (host numpy
-    ``[n_queries, k]``, run in ``direct_bucket``) → counts per rule.
+    ``[n_queries, k]``) bit for bit → counts per rule.
 
-    A response whose dispatch launched the same rows-kernel stages as the
-    direct plan (``PendingQuery.stages``; always on the CPU, where nothing
-    is launched) must be byte-identical; one of other stages must have
-    scores within rtol :data:`PARITY_RTOL` at every rank, so ids may
-    differ only at tied positions; a cache hit must replay, byte for
-    byte, a response served for the same query before it.
-
-    ``want_stages`` names the stages of a plan outside ``pipe`` that gave
-    the direct results (the mutation load generator's oracle): stages are
-    then compared by name (:func:`stage_names`), and a cache hit, which
-    may replay a response served before this trace, is held to the
-    direct results like any response — bit for bit where every dispatch
-    of the trace took ``want_stages``, else by the rtol rule. Raises
-    ``AssertionError`` on the first violation."""
-    oracle = want_stages is not None
-    if oracle:
-        want_stages, names = frozenset(want_stages), stage_names
-    else:
-        want_stages, names = pipe.plans.created()[direct_bucket].stages, (lambda st: st)
-    counts = {"bitwise_same_stage": 0, "rtol_other_stage": 0, "bitwise_other_stage": 0,
-              "tied_swaps_other_stage": 0, "cache_replays": 0}
+    Every rows-kernel stage sums a dot in one order
+    (``kernels/csrc/gaps.cuh``), so a response is the same bytes whatever
+    bucket, and so whatever stage, its dispatch took. A cache hit must
+    replay, byte for byte, a response served for the same query before it.
+    With ``oracle`` the direct results come from a plan outside the
+    pipeline (the mutation load generator's oracle over the live corpus),
+    and a cache hit, which may replay a response served before this trace,
+    is held to them like any response. Raises ``AssertionError`` on the
+    first violation."""
+    counts = {"bitwise": 0, "cache_replays": 0}
     served: dict[int, list] = {}
-    hits, all_same = [], True
-
-    def hold(qi, t, same_stage, what, count=True) -> str:
-        same = np.array_equal(t.ids, direct_ids[qi]) and np.array_equal(
-            t.scores, direct_scores[qi])
-        if same_stage:
-            if not same:
-                raise AssertionError(
-                    f"query {qi}: {what} took the direct plan's stages {sorted(want_stages)} "
-                    f"but its top-k differs from direct search")
-            return "bitwise_same_stage"
-        if not np.allclose(t.scores, direct_scores[qi], rtol=PARITY_RTOL, atol=0):
-            raise AssertionError(
-                f"query {qi}: {what} scores differ from direct search beyond rtol "
-                f"{PARITY_RTOL}")
-        if count:
-            counts["bitwise_other_stage"] += int(same)
-            counts["tied_swaps_other_stage"] += int((t.ids != direct_ids[qi]).sum())
-        return "rtol_other_stage"
-
     for qi, t in zip(trace, tickets):
         qi = int(qi)
         if t.from_cache:
-            if oracle:
-                hits.append((qi, t))
-            elif not any(np.array_equal(t.ids, i) and np.array_equal(t.scores, s)
-                         for i, s in served.get(qi, ())):
-                raise AssertionError(f"cache hit for query {qi} replays no served response")
             counts["cache_replays"] += 1
-            continue
-        served.setdefault(qi, []).append((t.ids, t.scores))
-        same_stage = names(t.stages) == want_stages
-        all_same &= same_stage
-        counts[hold(qi, t, same_stage, f"bucket {t.bucket}")] += 1
-    for qi, t in hits:
-        hold(qi, t, all_same, "a cache hit", count=False)
+            if not oracle:
+                if not any(_same_bits(t, i, s) for i, s in served.get(qi, ())):
+                    raise AssertionError(f"cache hit for query {qi} replays no served response")
+                continue
+            what = "a cache hit"
+        else:
+            served.setdefault(qi, []).append((t.ids, t.scores))
+            counts["bitwise"] += 1
+            what = f"bucket {t.bucket} (stages {sorted(stage_names(t.stages))})"
+        if not _same_bits(t, direct_ids[qi], direct_scores[qi]):
+            raise AssertionError(f"query {qi}: {what}: the top-k differs from direct search")
     return counts
 
 
@@ -194,13 +171,9 @@ def _pipeline_loadgen(retriever, Q, args, rng) -> str:
         pipe.poll()  # fire expired deadlines before admitting
         tickets.append(pipe.submit(Q[qi]))
     pipe.flush()
-    counts = trace_parity(pipe, trace, tickets, direct_ids, direct_scores,
-                          retriever.plans.bucket_for(Q.shape[0]))
+    counts = trace_parity(trace, tickets, direct_ids, direct_scores)
     snap = pipe.snapshot()
-    return (f"parity: {counts['bitwise_same_stage']} bitwise (same stage), "
-            f"{counts['rtol_other_stage']} within rtol {PARITY_RTOL} (other stage; "
-            f"{counts['bitwise_other_stage']} bitwise, {counts['tied_swaps_other_stage']} "
-            f"tied swaps), {counts['cache_replays']} cache replays; "
+    return (f"parity: {counts['bitwise']} bitwise, {counts['cache_replays']} cache replays; "
             f"{ServeStats.summary(snap)} warm_compiles={warm} "
             f"trace_recompiles={snap['recompiles'] - warm}")
 
@@ -213,9 +186,8 @@ def _mutate_loadgen(col, engine, codec, args, device, rng) -> None:
     in three rounds, each followed by a query burst through the
     micro-batching pipeline and a checkpoint that holds every burst
     response to a fresh oracle ``Retriever.build`` over the live corpus
-    (stable id ``live_ids[pos]`` ↔ oracle position ``pos``) under
-    :func:`trace_parity`'s rule against the oracle's stages: byte for byte
-    on the CPU, stage-aware on the card. The merge then runs in the
+    (stable id ``live_ids[pos]`` ↔ oracle position ``pos``) bit for bit
+    (:func:`trace_parity`). The merge then runs in the
     background with queries streaming through the flip; those responses
     join the post-merge checkpoint (the merge does not change the live
     corpus). Raises ``AssertionError`` on a divergence, or if the result
@@ -271,11 +243,10 @@ def _mutate_loadgen(col, engine, codec, args, device, rng) -> None:
         live_fwd, live = m.live_corpus()
         oracle = Retriever.build(live_fwd, cfg.replace(n_shards=1), device=device)
         oids, osc = (t.cpu().numpy() for t in oracle.search(Q))
-        stages = oracle.plans.get(oracle.plans.bucket_for(Q.shape[0])).stages
         everything = list(pre) + list(zip(trace, tickets))
         try:
-            trace_parity(pipe, [qi for qi, _ in everything], [t for _, t in everything],
-                         live[oids], osc, want_stages=stages)
+            trace_parity([qi for qi, _ in everything], [t for _, t in everything],
+                         live[oids], osc, oracle=True)
         except AssertionError as e:
             raise AssertionError(f"{engine}/{codec} {label}: the mutable top-k diverges from "
                                  f"the post-mutation oracle: {e}") from None
@@ -310,12 +281,30 @@ def _mutate_loadgen(col, engine, codec, args, device, rng) -> None:
           f"{_device_name(device)}) [{ServeStats.summary(snap)}]")
 
 
+def expand_engines(name: str) -> tuple[str, ...]:
+    """``--engine``'s value → the engines served, in order: ``both`` is
+    Seismic then hnsw, ``all`` every registered engine in name order (the
+    reference CLI's expansion)."""
+    from ..serve.api import available_engines
+
+    if name == "both":
+        return ("seismic", "hnsw")
+    if name == "all":
+        return tuple(available_engines())
+    return (name,)
+
+
 def main(argv=None) -> None:
     from ..core.layout import available_layouts
     from ..kernels.modes import BACKENDS
+    from ..serve.api import available_engines
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--engine", choices=["seismic", "hnsw", "flat"], default="seismic")
+    ap.add_argument("--encoder", choices=list(ENCODERS), default="splade",
+                    help="the collection's statistics: SPLADE or LiLSR")
+    ap.add_argument("--engine", choices=[*available_engines(), "both", "all"],
+                    default="seismic",
+                    help="a registered engine, 'both' (seismic+hnsw) or 'all'")
     ap.add_argument("--codec", choices=available_layouts(), default="dotvbyte")
     ap.add_argument("--compare-codecs", action="store_true",
                     help="sweep every registered serving codec over the same index")
@@ -378,43 +367,49 @@ def main(argv=None) -> None:
 
     from .. import resolve_device
     from ..core.seismic import exact_top_k, recall_at_k
-    from ..data.synthetic import generate_collection, splade_config
+    from ..data.synthetic import generate_collection
     from ..serve.api import Retriever, RetrieverConfig, get_engine, open_retriever
 
     device = resolve_device(args.device)
-    print(f"generating {args.n_docs}-doc synthetic splade collection…")
-    col = generate_collection(splade_config(args.n_docs, args.n_queries, args.seed),
+    print(f"generating {args.n_docs}-doc synthetic {args.encoder} collection…")
+    col = generate_collection(ENCODERS[args.encoder](args.n_docs, args.n_queries, args.seed),
                               value_format="f16")
     print(f"(nnz/doc={col.fwd.total_nnz / col.fwd.n_docs:.0f})")
+    engines = expand_engines(args.engine)
     codecs = available_layouts() if args.compare_codecs else [args.codec]
     if args.mutate:
-        for codec in codecs:
-            _mutate_loadgen(col, args.engine, codec, args, device,
-                            np.random.default_rng(args.seed + 2))
+        for engine in engines:
+            for codec in codecs:
+                _mutate_loadgen(col, engine, codec, args, device,
+                                np.random.default_rng(args.seed + 2))
         return
     Q = np.stack([col.query_dense(i) for i in range(col.n_queries)])
     truth = [exact_top_k(col.fwd, Q[i], args.k)[0] for i in range(col.n_queries)]
 
-    params = {
+    search_params = {
         "seismic": dict(cut=args.cut, block_budget=512, n_probe=args.n_probe,
                         n_postings=2000, block_size=64),
         "hnsw": dict(beam=args.beam, iters=args.iters, n_seeds=8, m=16, ef_construction=48),
         "flat": {},
-    }[args.engine]
-    impl = get_engine(args.engine)
-    host_index = None
-    if not args.load_index and args.n_shards == 1 and hasattr(impl, "host_index"):
-        # one host index; every codec packs its rows over it (a sharded build
-        # makes one sub-index per doc range instead)
-        t0 = time.perf_counter()
-        host_index = impl.host_index(col.fwd, RetrieverConfig(engine=args.engine, params=params))
-        print(f"{args.engine}: host index built in {time.perf_counter() - t0:.1f}s")
+    }
+    # one host index per engine; every codec packs its rows over it (a
+    # sharded build makes one sub-index per doc range instead)
+    host_indexes = {}
+    if not args.load_index and args.n_shards == 1:
+        for engine in engines:
+            impl = get_engine(engine)
+            if not hasattr(impl, "host_index"):
+                continue
+            t0 = time.perf_counter()
+            host_indexes[engine] = impl.host_index(
+                col.fwd, RetrieverConfig(engine=engine, params=search_params[engine]))
+            print(f"{engine}: host index built in {time.perf_counter() - t0:.1f}s")
 
-    for codec in codecs:
-        cfg = RetrieverConfig(engine=args.engine, codec=codec, k=args.k,
+    for engine, codec in ((e, c) for e in engines for c in codecs):
+        cfg = RetrieverConfig(engine=engine, codec=codec, k=args.k,
                               backend=args.backend or "cuda", n_shards=args.n_shards,
-                              params=params)
-        art = pathlib.Path(args.load_index or args.save_index or ".") / f"{args.engine}-{codec}"
+                              params=search_params[engine])
+        art = pathlib.Path(args.load_index or args.save_index or ".") / f"{engine}-{codec}"
         if args.load_index:
             retriever = open_retriever(art, device=device)
             # a sharded tree serves the backend it was saved with
@@ -426,8 +421,8 @@ def main(argv=None) -> None:
                     value_scale=retriever.value_scale,
                     value_format=retriever.value_format, device=device,
                 )
-        elif host_index is not None:
-            retriever = Retriever.from_host_index(host_index, cfg, device=device)
+        elif engine in host_indexes:
+            retriever = Retriever.from_host_index(host_indexes[engine], cfg, device=device)
         else:
             retriever = Retriever.build(col.fwd, cfg, device=device)
         if hasattr(retriever, "shards"):
@@ -437,7 +432,7 @@ def main(argv=None) -> None:
 
         if args.pipeline:
             summary = _pipeline_loadgen(retriever, Q, args, np.random.default_rng(args.seed + 1))
-            print(f"{args.engine:8s} codec={codec:13s} backend={retriever.cfg.backend} "
+            print(f"{engine:8s} codec={codec:13s} backend={retriever.cfg.backend} "
                   f"pipeline parity OK ({args.requests} requests, {_device_name(device)}) "
                   f"[{summary}]{_shard_note(retriever)}")
             continue
@@ -464,7 +459,7 @@ def main(argv=None) -> None:
                 if not np.allclose(npz["scores"], scores, rtol=1e-5, atol=1e-6):
                     raise SystemExit(f"{art}: reopened top-k scores differ from the build-time run")
             extra = " roundtrip=ids-identical"
-        _report(args.engine, codec, retriever.cfg.backend, args.k, recs,
+        _report(engine, codec, retriever.cfg.backend, args.k, recs,
                 1e6 * dt / col.n_queries, col.fwd, device, extra + _shard_note(retriever))
 
 

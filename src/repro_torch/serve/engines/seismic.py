@@ -108,10 +108,23 @@ class SeismicEngine(EngineImpl):
         return arrays
 
     # -- serving --------------------------------------------------------
-    def candidates(self, cfg: RetrieverConfig, n_docs: int, arrays, Q):
-        """Phases 1 and the dedupe of phase 2: queries f32 [nq, dim] →
-        sorted candidate doc ids i32 [nq, n_probe·bs_max], repeats and
-        padding mapped to the sentinel ``n_docs``."""
+    def probe(self, cfg: RetrieverConfig, arrays, Q):
+        """Phase 1: queries f32 [nq, dim] → (the summary bounds ``est`` f32
+        [nq, block_budget], -inf past a component's blocks; the candidate
+        blocks ``cand`` i32 [nq, block_budget], -1 there; the probed blocks
+        i32 [nq, n_probe], the top ``n_probe`` of ``est``).
+
+        A bound is ``Σ_j q[sum_comps[b, j]] · sum_vals[b, j]``, an f32 sum
+        of ``s_max`` products (up to ~1,300 at the CLI's parameters). The
+        reference sums them in XLA's order, which no torch op reproduces
+        (a left-to-right loop, the pairwise trees and vector-lane orders
+        were all tried against it); here torch's reduction sums them, in
+        one order whatever the batch. So the contract with the reference
+        is a tie rule: a block probed by one side and not the other has a
+        bound within f32 rounding (``s_max · eps · Σ_j |q_j · sv_j|``, for
+        it and for the block at the ``n_probe`` cut) of the bound at the
+        cut (``tests/test_torch_seismic_bounds.py``; PERF.md §7 counts how
+        often at the CLI's parameters)."""
         p = self.params(cfg)
         cut, block_budget, n_probe = p["cut"], p["block_budget"], p["n_probe"]
         nq, dev = Q.shape[0], Q.device
@@ -127,7 +140,7 @@ class SeismicEngine(EngineImpl):
         valid = offs < lens.unsqueeze(-1)
         cand = torch.where(valid, cand, -1).reshape(nq, -1)  # [nq, budget]
 
-        # phase 1: summary upper bounds
+        # summary upper bounds
         blk = cand.clamp_min(0).long()
         sc = arrays["sum_comps"][blk]  # [nq, budget, s_max]
         sv = arrays["sum_vals"][blk]
@@ -135,8 +148,14 @@ class SeismicEngine(EngineImpl):
         est = (qs * sv).sum(-1)
         est = torch.where(cand >= 0, est, float("-inf"))
         _, probe = top_k(est, n_probe)
-        probe_blocks = torch.gather(cand, 1, probe)  # [nq, n_probe]
+        return est, cand, torch.gather(cand, 1, probe)  # [nq, n_probe]
 
+    def candidates(self, cfg: RetrieverConfig, n_docs: int, arrays, Q):
+        """Phases 1 and the dedupe of phase 2: queries f32 [nq, dim] →
+        sorted candidate doc ids i32 [nq, n_probe·bs_max], repeats and
+        padding mapped to the sentinel ``n_docs``."""
+        _, _, probe_blocks = self.probe(cfg, arrays, Q)
+        nq = Q.shape[0]
         # phase 2: gather candidate docs, dedupe
         docs = arrays["block_docs"][probe_blocks.clamp_min(0).long()]
         docs = torch.where((probe_blocks >= 0).unsqueeze(-1), docs, n_docs)

@@ -35,14 +35,13 @@ Four layers, stacked as in the reference:
   dispatches and occupancy per bucket, the recompile count and the
   invalidation and overlap counters, under the reference's keys.
 
-Parity: on the CPU, pipeline and padded search return byte-identical
-top-k to a direct search of any batch size (the same plain torch ops
-per query row). On the card a query scored in one bucket may take
-another scoring stage of the rows kernel than in another
-(``kernels/rows_dot.py::pick_stage`` picks it from the batch size), so
-results are byte-identical between buckets whose plans launched the
-same stages (``SearchPlan.launches``), and otherwise equal up to tied
-swaps with scores within rtol 1e-5.
+Parity: pipeline and padded search return byte-identical top-k to a
+direct search of any batch size. On the CPU the same plain torch ops run
+per query row; on the card a query scored in one bucket may take another
+scoring stage of the rows kernel than in another
+(``kernels/rows_dot.py::pick_stage`` picks it from the batch size), and
+every stage sums a dot in one order (``kernels/csrc/gaps.cuh``), so the
+bytes are the same whatever stages a plan launched.
 
 Threading (DESIGN.md §11): ``PlanCache`` creates plans under a lock and
 runs every capture and replay of its plans under a second one (they

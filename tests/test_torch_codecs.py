@@ -63,10 +63,10 @@ def test_storage_bytes_matches_reference(collection, codec):
 
 
 def test_codec_registry_matches_reference():
-    assert codecs.available_codecs() == sorted(CODECS)
-    assert set(codecs.available_codecs()) <= set(ref_codecs.available_codecs())
+    assert set(CODECS) <= set(codecs.available_codecs())
+    assert codecs.available_codecs() == sorted(ref_codecs.available_codecs())
     with pytest.raises(KeyError, match="unknown codec"):
-        codecs.get_codec("zeta")
+        codecs.get_codec("zeta3")
     with pytest.raises(ValueError, match="16-bit"):
         codecs.get_codec("uncompressed").encode_doc(np.array([70000]))
 

@@ -1084,8 +1084,8 @@ def test_no_capture_error_under_a_concurrent_trace(shard_trees):
     """Two threads submit a trace through the pipeline of an out-of-core
     tree (max_resident 1, prefetch on): the staging worker copies the next
     shard while the serving thread captures each admitted shard's plans,
-    and no capture raises; every response holds to direct search under the
-    parity rule."""
+    and no capture raises; every response equals direct search bit for
+    bit."""
     import threading
 
     from repro_torch.launch.serve import trace_parity
@@ -1118,7 +1118,7 @@ def test_no_capture_error_under_a_concurrent_trace(shard_trees):
     trace = np.concatenate(traces)
     done = tickets[0] + tickets[1]
     assert all(t.done for t in done) and r.prefetch_hits > 0
-    trace_parity(pipe, trace, done, direct_ids, direct_scores, 64)
+    trace_parity(trace, done, direct_ids, direct_scores)
 
 
 def test_capture_survives_garbage_that_holds_a_graph(shard_trees):
@@ -1195,41 +1195,28 @@ def mut_collection():
     return col, np.stack([col.query_dense(i) for i in range(col.n_queries)])
 
 
-def _stage_names(stages):
-    from repro_torch.launch.serve import stage_names
-
-    return stage_names(stages)
-
-
-def _hold_stage_aware(got, want, same_stages, label):
-    """Bit for bit where both sides took the same rows-kernel stages, else
-    ids equal up to tied swaps with scores within rtol 1e-5."""
+def _hold_bitwise(got, want, label):
+    """Ids equal and scores the same bits: every rows-kernel stage sums a
+    dot in one order, so no response depends on the stage its batch took."""
     gi, gs = (t.cpu() if isinstance(t, torch.Tensor) else torch.tensor(np.asarray(t))
               for t in got)
     wi, ws = (t.cpu() if isinstance(t, torch.Tensor) else torch.tensor(np.asarray(t))
               for t in want)
-    if same_stages:
-        assert torch.equal(gi, wi.to(gi.dtype)) and torch.equal(gs, ws), label
-        return
-    diff = gi != wi.to(gi.dtype)
-    assert not diff.any() or torch.allclose(gs[diff], ws[diff], rtol=1e-5, atol=0), label
-    torch.testing.assert_close(gs, ws, rtol=1e-5, atol=0, msg=label)
+    assert torch.equal(gi, wi.to(gi.dtype)), label
+    assert torch.equal(gs.float().view(torch.int32), ws.float().view(torch.int32)), label
 
 
 def _hold_to_oracle(m, Q, label):
     """The mutable index against a ``Retriever.build`` over its live
-    corpus on the card, by the stage-aware rule (``_hold_stage_aware``)."""
+    corpus on the card, bit for bit (``_hold_bitwise``)."""
     from repro_torch.serve.api import Retriever
 
     live_fwd, live = m.live_corpus()
     oracle = Retriever.build(live_fwd, m.cfg.replace(n_shards=1), device="cuda")
     oi, osc = (t.cpu().numpy() for t in oracle.search(Q))
     got = m.search(Q)
-    bucket = m.plans.bucket_for(len(Q))
-    same = (_stage_names(m.plans.get(bucket).stages)
-            == oracle.plans.get(oracle.plans.bucket_for(len(Q))).stages)
     want_ids = np.where(oi < len(live), live[np.minimum(oi, len(live) - 1)], -1)
-    _hold_stage_aware(got, (want_ids, osc), same, label)
+    _hold_bitwise(got, (want_ids, osc), label)
 
 
 @pytest.mark.parametrize("codec", ["uncompressed", "dotvbyte", "streamvbyte", "bitpack"])
@@ -1336,8 +1323,8 @@ def test_pipeline_stress_during_a_background_merge(mut_seismic, rep):
     """Two threads submit through the pipeline while a background merge
     builds the new base, places it and captures its plans on the worker
     (thread-local capture mode) and flips: no capture raises, every
-    response holds to the pre-merge direct search by the stage-aware
-    rule, and the worker's prewarmed plans serve after the flip without
+    response equals the pre-merge direct search bit for bit, and the
+    worker's prewarmed plans serve after the flip without
     a capture on the serving thread."""
     import threading
 
@@ -1354,7 +1341,6 @@ def test_pipeline_stress_during_a_background_merge(mut_seismic, rep):
     pipe = m.pipeline(deadline_us=200.0, cache_size=0)
     pipe.warm()
     want = tuple(t.cpu().numpy() for t in m.search(Q))
-    want_stages = _stage_names(m.plans.get(64).stages)
     Qn = Q.cpu().numpy()
     tickets, errors, stop = [[], []], [], threading.Event()
 
@@ -1383,15 +1369,185 @@ def test_pipeline_stress_during_a_background_merge(mut_seismic, rep):
     assert new_base is m.base and m.generation == 1
     for qi, t in tickets[0] + tickets[1]:
         ids, scores = t.result()
-        _hold_stage_aware((ids, scores), (want[0][qi], want[1][qi]),
-                          _stage_names(t.stages) == want_stages, f"query {qi}")
+        _hold_bitwise((ids, scores), (want[0][qi], want[1][qi]), f"query {qi}")
     prewarmed = m._wrappers["base"].plans.created()
     assert all(p._graph is not None for p in prewarmed.values())
     graphs = {b: p._graph for b, p in prewarmed.items()}
     got = m.search(Q)
     assert m._wrappers["base"].plans.get(64)._graph is graphs[64]  # replayed, not captured
-    _hold_stage_aware(got, want, _stage_names(m.plans.get(64).stages) == want_stages,
-                      "after the flip")
+    _hold_bitwise(got, want, "after the flip")
+
+
+# -- one summation order in every rows-kernel stage ------------------------------------
+
+#: row lengths on both sides of the group (8), half-warp chunk (128) and
+#: warp (256) edges, at row capacity 256; and past it
+STAGE_LENGTHS = (1, 8, 9, 128, 129, 256)
+LONG_LENGTHS = (257, 511, 512, 513, 700, 1100)
+
+
+def _length_rows(codec, vq, lengths, seed):
+    """Packed rows: one document of each length, then random ones."""
+    rng = np.random.default_rng(seed)
+    docs = [(np.sort(rng.choice(DIM, n, replace=False)), rng.gamma(2, .5, n)) for n in lengths]
+    docs += [(np.sort(rng.choice(DIM, n, replace=False)), rng.gamma(2, .5, n))
+             for n in rng.integers(1, 200, size=60)]
+    fwd = ForwardIndex.from_docs(docs, DIM, value_format="f16")
+    return fwd, pack_rows(fwd, codec=codec, vq=vq).arrays()
+
+
+def _stages_agree(codec, streams, Q, docs, scale=0.5):
+    """Every stage that takes the shape → the stages; their scores are the
+    same bits, and the plain version's within f32 reordering."""
+    nq, nd, C = Q.shape[0], docs.shape[0], docs.shape[1]
+    outs = {}
+    for st in rows_dot.STAGES:
+        try:
+            rows_dot.pick_stage(nq, nd, st, dim=Q.shape[1], C=C)
+        except ValueError:
+            continue
+        outs[st] = rows_dot.rows_scores_for_codec(codec, streams, Q, docs, scale, stage=st)
+    torch.cuda.synchronize()
+    (first, ref), *rest = outs.items()
+    for st, got in rest:
+        same = got.view(torch.int32) == ref.view(torch.int32)
+        assert bool(same.all()), (first, st, int((~same).sum()))
+    torch.testing.assert_close(ref, rows_dot.rows_scores_plain(codec, streams, Q, docs, scale),
+                               rtol=1e-5, atol=1e-3)
+    return list(outs)
+
+
+@pytest.mark.parametrize("form", ["shared", "per_query", "long_rows"])
+@pytest.mark.parametrize("codec,vq", VARIANTS, ids=[f"{c}-{v}" for c, v in VARIANTS])
+def test_rows_stages_agree_bitwise(cuda, codec, vq, form):
+    """Every variant's stages give the same bits (C2): the shared form at
+    nq 1, 7, 8, 32 and 130 (entry lanes, query lanes — 130 takes both
+    64-query passes of a tile and a second tile — and row warps at one
+    query), the per-query form at 15 and 16 x 4,096 (entry lanes, row
+    warps), rows of 1-256 entries at capacity 256 and of 257-1,100 past
+    it; queries of both signs."""
+    lengths = LONG_LENGTHS if form == "long_rows" else STAGE_LENGTHS
+    fwd, arrays = _length_rows(codec, vq, lengths, seed=50)
+    streams = _on(arrays, cuda)
+    rng = np.random.default_rng(51)
+    N = fwd.n_docs
+    lead = np.array([*range(len(lengths)), N], np.int32)  # every length, the sentinel
+    took = set()
+    if form == "per_query":
+        Q = torch.from_numpy(rng.standard_normal((16, DIM)).astype(np.float32)).to(cuda)
+        docs = rng.integers(0, N + 1, size=(16, 4096)).astype(np.int32)
+        docs[:, : len(lead)] = lead
+        docs = torch.from_numpy(docs).to(cuda)
+        for nq in (15, 16):
+            took |= set(_stages_agree(codec, streams, Q[:nq], docs[:nq].contiguous()))
+        assert took == {"entry_lanes", "row_warps"}
+        assert rows_dot.pick_stage(15, 15, dim=DIM, C=4096) == "entry_lanes"
+        assert rows_dot.pick_stage(16, 16, dim=DIM, C=4096) == "row_warps"
+        return
+    Q = torch.from_numpy(rng.standard_normal((130, DIM)).astype(np.float32)).to(cuda)
+    docs = np.concatenate([lead, rng.integers(0, N + 1, size=300).astype(np.int32)])[None]
+    docs = torch.from_numpy(docs).to(cuda)
+    for nq in (1, 7, 8, 32, 130):
+        took |= set(_stages_agree(codec, streams, Q[:nq].contiguous(), docs))
+    assert took == set(rows_dot.STAGES)
+
+
+#: the reference pipeline tests' collection and knobs (``tests/test_pipeline.py``)
+PIPE_COLLECTION = dict(name="pipe", dim=1024, n_docs=240, n_queries=7, doc_nnz_mean=35.0,
+                       query_nnz_mean=10.0, seed=3)
+PIPE_PARAMS = {
+    "seismic": dict(cut=8, block_budget=128, n_probe=24, n_postings=200, block_size=16),
+    "hnsw": dict(beam=16, iters=16, n_seeds=4, m=8, ef_construction=24),
+    "flat": {},
+}
+
+
+@pytest.fixture(scope="module")
+def pipe_collection():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from repro_torch.data.synthetic import SyntheticConfig, generate_collection
+    from repro_torch.serve.api import RetrieverConfig, get_engine
+
+    col = generate_collection(SyntheticConfig(**PIPE_COLLECTION), value_format="f16")
+    Q = np.stack([col.query_dense(i) for i in range(col.n_queries)])
+    hosts = {e: get_engine(e).host_index(col.fwd, RetrieverConfig(engine=e, params=PIPE_PARAMS[e]))
+             for e in ("seismic", "hnsw")}
+    return col, Q, hosts
+
+
+def _pipe_retriever(pipe_collection, engine, codec, **kw):
+    from repro_torch.serve.api import Retriever, RetrieverConfig
+
+    col, _, hosts = pipe_collection
+    cfg = RetrieverConfig(engine=engine, codec=codec, k=5, backend="cuda",
+                          params=PIPE_PARAMS[engine], **kw)
+    if engine in hosts:
+        return Retriever.from_host_index(hosts[engine], cfg, device="cuda")
+    return Retriever.build(col.fwd, cfg, device="cuda")
+
+
+PIPE_CODECS = ["uncompressed", "dotvbyte", "streamvbyte", "bitpack"]
+
+
+@pytest.mark.parametrize("codec", PIPE_CODECS)
+@pytest.mark.parametrize("engine", ["seismic", "hnsw", "flat"])
+def test_pipeline_matches_direct_search_on_the_card(pipe_collection, engine, codec):
+    """The reference's ``test_pipeline_matches_direct_search`` on
+    ``backend="cuda"``: the scheduler's dispatch and a cache-hit replay
+    give direct search's bytes."""
+    col, Q, _ = pipe_collection
+    r = _pipe_retriever(pipe_collection, engine, codec)
+    ids_d, sc_d = (t.cpu().numpy() for t in r.search(Q))  # direct: pads 7 → bucket 8
+    ids_p, sc_p = r.search_batch(Q)
+    _hold_bitwise((ids_p, sc_p), (ids_d, sc_d), "pipeline")
+    ids_c, sc_c = r.search_batch(Q)  # every query now a cache hit
+    _hold_bitwise((ids_c, sc_c), (ids_p, sc_p), "cache")
+    snap = r.pipeline().snapshot()
+    assert snap["cache_hit_rate"] == pytest.approx(0.5)
+    assert snap["n_queries"] == 2 * col.n_queries
+
+
+@pytest.mark.parametrize("codec", PIPE_CODECS)
+@pytest.mark.parametrize("engine", ["seismic", "hnsw", "flat"])
+def test_batch_size_hint_gets_exact_plan_on_the_card(pipe_collection, engine, codec):
+    """The reference's ``test_batch_size_hint_gets_exact_plan`` on
+    ``backend="cuda"``: the exact-fit bucket 7 gives the padded bucket 8's
+    bytes (flat: entry lanes at 7, query lanes at 8)."""
+    _, Q, _ = pipe_collection
+    r = _pipe_retriever(pipe_collection, engine, codec, batch_size=7)
+    assert 7 in r.plans.buckets and r.plans.bucket_for(7) == 7
+    got = r.search(Q)
+    r8 = _pipe_retriever(pipe_collection, engine, codec)
+    want = r8.search(Q)
+    _hold_bitwise(got, want, f"{engine}/{codec}")
+    if engine == "flat":
+        assert r.plans.get(7).stages != r8.plans.get(8).stages
+
+
+def test_seismic_buckets_15_and_16_agree_bitwise(cuda):
+    """Seismic at 64 probed blocks of 64 docs: 4,096 candidates a query, so
+    bucket 15 rescores on entry lanes and bucket 16 on row warps; the
+    responses are the same bytes."""
+    from repro_torch.data.synthetic import SyntheticConfig, generate_collection
+    from repro_torch.serve.api import Retriever, RetrieverConfig
+
+    col = generate_collection(SyntheticConfig(name="b16", dim=4096, n_docs=2500, n_queries=15,
+                                              doc_nnz_mean=60.0, query_nnz_mean=20.0, seed=9),
+                              value_format="f16")
+    Q = np.stack([col.query_dense(i) for i in range(col.n_queries)])
+    params = dict(cut=8, block_budget=512, n_probe=64, n_postings=2500, block_size=64)
+    cfg = RetrieverConfig(engine="seismic", codec="dotvbyte", backend="cuda", params=params)
+    r15 = Retriever.build(col.fwd, cfg.replace(batch_size=15), device="cuda")
+    r16 = Retriever(cfg, r15.arrays, n_docs=r15.n_docs, dim=r15.dim, value_scale=r15.value_scale,
+        value_format=r15.value_format, device="cuda")
+    got, want = r15.search(Q), r16.search(Q)
+    assert r15.plans.bucket_for(15) == 15 and r16.plans.bucket_for(15) == 16
+    C = r15.impl.candidates(r15.cfg, r15.n_docs, r15.arrays, torch.from_numpy(Q).cuda()).shape[1]
+    assert C == 4096, C
+    assert set(r15.plans.get(15).stages) == {"entry_lanes"}
+    assert set(r16.plans.get(16).stages) == {"row_warps"}
+    _hold_bitwise(got, want, "seismic 15 vs 16")
 
 
 # -- the encoder and its training on the card ----------------------------------------
