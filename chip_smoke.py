@@ -223,15 +223,46 @@ no result:
    timed beside the unpermuted pack; flat over the permuted rows for the
    four row codecs at f16 (ids = ``exact_top_k``, tie-aware). Then the
    CLI in-process, ``launch.serve.main`` with ``--encoder lilsr --engine
-   all --compare-codecs --device cuda`` over ``LILSR_CLI_DOCS`` (1,000:
+   all --compare-codecs --device cuda`` over ``LILSR_CLI_DOCS`` (500:
    the Seismic and hnsw host builds are Python loops) LiLSR-statistics
    documents (387 entries a document, 6 a query): recall@10 identical
    across codecs for every engine, the rows kernel's stages printed; and
-   flat over ``LILSR_FLAT_DOCS`` (10,000) LiLSR documents (rows past
+   flat over ``LILSR_FLAT_DOCS`` (5,000) LiLSR documents (rows past
    256 entries) for the four row codecs, ids = ``exact_top_k``. The
    kernels' counts are zeroed just before this phase and read just after
    (``launches_by_path["rgb_lilsr"]``);
-12. one JSON line of kernels, the card line, and as the last line
+12. the mesh fan-out on ``torch.distributed`` — ranks are spawned
+   processes (``launch.mesh.spawn_ranks``: ``file://`` rendezvous, a
+   deadline that kills every rank and fails the phase) that load the
+   kernels phase 1 built, and start while the parent makes their inputs.
+   (a) one NCCL rank: ``make_sharded_search`` over
+   ``build_shard_arrays(n_shards=1, host_index=phase 3's index)`` (100,000
+   docs, dotvbyte/f16, the CLI's Seismic parameters) equals phase 3's
+   Seismic ids and scores bit for bit. (b) four gloo ranks, all on
+   ``cuda:0``, each holding one shard: ``ShardedRetriever(use_mesh=True)``
+   over phase 8's trees (flat over 100,000 docs, Seismic over 5,000, hnsw
+   over 2,000, kept in ``build/chip_smoke_trees``) equals phase 8's
+   sequential answer bit for bit on every rank, and the sequential
+   rotation's after ``set_tombstones`` with 5 victims; and
+   ``make_sharded_search`` over ``build_shard_arrays(S=4, host_index=...)``
+   equals an in-process oracle (each shard's ``search_batch`` on the card
+   in turn, then the same merge) bit for bit. (c) the doc-aligned scan
+   (``scoring.make_doc_aligned_scan``) of ``pack_blocks_sharded`` of the
+   100,000 docs at S = 4, T = 512, D = 64 for dotvbyte, streamvbyte and
+   bitpack at nq 64 and 1, the ranks' slices held to ``torch.sparse.mm``
+   (rtol = atol = 1e-4) and, top-10, to ``exact_top_k``. (d) the
+   compressed data-parallel step: the reference test's quadratic problem
+   for 300 steps at world 1 (NCCL) and world 2 (gloo on ``cuda:0``) ends
+   below loss 0.01 and |w − w*| 0.2 with bit-identical replicas; 5 steps
+   of the full ``SparseEncoderConfig()`` at 16 × 24 split over 2 gloo
+   ranks keep the loss finite and the replicas bit-identical after every
+   step, step 0's loss equal to the plain step's within 1e-4. Logs the
+   backends, per-rank search ms beside phase 8's sequential ms, the
+   all-gather's bytes a query (8·k·S) and ms, the scan ms a rank and the
+   step ms: four ranks share one card, so these show overheads, not
+   scaling. The ranks' rows and block-scan launches go to
+   ``launches_by_path["mesh"]``;
+13. one JSON line of kernels, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -240,6 +271,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import gc
+import hashlib
 import json
 import os
 import pathlib
@@ -1424,7 +1456,7 @@ def sharded_phase(fwd, Q_np, Q, flat_mono, card: str, n_seismic: int, n_hnsw: in
         if not isinstance(built, ShardedRetriever):
             raise SystemExit(f"sharded {engine}: Retriever.build returned {type(built)}")
         build_s = time.perf_counter() - t0
-        art = ROOT / "build" / "chip_smoke" / f"sharded-{engine}"
+        art = TREES_DIR / f"sharded-{engine}"  # kept for phase 12
         t0 = time.perf_counter()
         built.save(art)
         save_s = time.perf_counter() - t0
@@ -1592,10 +1624,10 @@ def sharded_phase(fwd, Q_np, Q, flat_mono, card: str, n_seismic: int, n_hnsw: in
         for x in rets.values():
             retire(x)
         del results, rets, r, r_off
-        if engine == "flat":  # phase 9 serves a mutable index over this tree
-            rec["tree"] = str(art)
-        else:
-            shutil.rmtree(art, ignore_errors=True)
+        # phase 9 serves a mutable index over the flat tree; phase 12 serves
+        # every tree over the mesh and holds it to this phase's answers
+        rec["tree"] = str(art)
+        out.setdefault("_sequential", {})[engine] = tuple(x.cpu().numpy() for x in base)
     variants = {k: v + replayed["variants"][k] for k, v in rows_dot.variant_launches.items()}
     stages = {k: v + replayed["stages"][k] for k, v in rows_dot.stage_launches.items()}
     out["_path"] = dict(rows_launches=variants[name],
@@ -2465,8 +2497,9 @@ def encoder_phase(n_steps: int, n_docs: int, card: str) -> dict:
 #: loops) and the one flat serves
 RGB_PARAMS = dict(max_iters=6, leaf_size=32, seed=0)
 RGB_DOCS = 50_000
-LILSR_CLI_DOCS = 1_000
-LILSR_FLAT_DOCS = 10_000
+#: (cut from 1,000 and 10,000 to make room for phase 12)
+LILSR_CLI_DOCS = 500
+LILSR_FLAT_DOCS = 5_000
 _CLI_LINE = re.compile(r"^(\w+)\s+codec=(\w+)\s+backend=cuda recall@10=([\d.]+) "
                        r"latency=\s*(\d+)µs/q .*\(([\d.]+) bits/comp", re.M)
 
@@ -2647,6 +2680,463 @@ def rgb_lilsr_phase(fwd, Q_np, Q, card: str, n_rgb: int, n_cli: int, n_flat: int
     if any(block_path.get(f"block_scan_{c}{b}", 0) <= 0 for c in BLOCK_CODECS
            for b in ("", "_batch")):
         raise SystemExit(f"phase 11's full scan did not launch every entry: {block_path}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the mesh fan-out on torch.distributed
+# ---------------------------------------------------------------------------
+
+#: phase 12: the gloo world's ranks (all on cuda:0) and the compressed step's
+#: world; tombstones of the check; timed repetitions; the compressed step's
+#: steps (quadratic problem, encoder); each spawn's deadline (a hung
+#: collective fails the phase)
+MESH_RANKS, MESH_DP_RANKS = 4, 2
+MESH_VICTIMS = 5
+MESH_REPS = 10
+MESH_QUAD_STEPS, MESH_ENC_STEPS = 300, 5
+MESH_DEADLINE_S = 300
+MESH_DIR = ROOT / "build" / "chip_smoke_mesh"
+#: phase 8's trees, kept for phase 12 (phase 9 clears build/chip_smoke)
+TREES_DIR = ROOT / "build" / "chip_smoke_trees"
+
+
+def _wait_for(d: pathlib.Path, *names: str) -> None:
+    """Wait until the parent has written ``names`` in ``d``; raise where it
+    wrote ``abort`` or the deadline passes."""
+    t0 = time.monotonic()
+    while not all((d / n).exists() for n in names):
+        if (d / "abort").exists():
+            raise SystemExit("phase 12: the parent aborted")
+        if time.monotonic() - t0 > MESH_DEADLINE_S:
+            raise TimeoutError(f"phase 12: {names} not written within {MESH_DEADLINE_S}s")
+        time.sleep(0.05)
+
+
+def _save_arrays(d: pathlib.Path, name: str, arrays: dict) -> None:
+    (d / name).mkdir(parents=True, exist_ok=True)
+    for k, v in arrays.items():
+        np.save(d / name / f"{k}.npy", v)
+
+
+def _load_arrays(d: pathlib.Path, name: str) -> dict:
+    """The arrays of ``_save_arrays``, memory-mapped: a rank reads its slice."""
+    return {f.stem: np.load(f, mmap_mode="r") for f in sorted((d / name).glob("*.npy"))}
+
+
+def _replayed(retrievers) -> dict:
+    """Rows launches the plans of ``retrievers`` replayed: each plan's
+    record times its replays."""
+    out: dict = {}
+    for r in retrievers:
+        for p in r.plans.created().values():
+            for k, c in p.launches["variants"].items():
+                out[k] = out.get(k, 0) + c * p.replays
+    return out
+
+
+def _add(total: dict, more: dict) -> None:
+    for k, v in more.items():
+        total[k] = total.get(k, 0) + v
+
+
+def _quadratic(mesh, dev) -> dict:
+    """The reference's compressed data-parallel test problem: y = x · w*,
+    w* = 0..7, AdamW at lr 0.05 with 5 warmup steps of 300, a global batch
+    of 64 drawn from one seed on every rank and split over ``data``."""
+    from repro_torch.train.optimizer import OptimizerConfig, make_optimizer
+    from repro_torch.train.train_step import init_train_state, make_dp_compressed_train_step
+
+    true_w = np.arange(8, dtype=np.float32).reshape(8, 1)
+
+    def loss_fn(params, batch):
+        return torch.mean((batch["x"] @ params["w"] + params["b"] - batch["y"]) ** 2), {}
+
+    oinit, oupd = make_optimizer(OptimizerConfig(lr=0.05, warmup_steps=5,
+                                                 total_steps=MESH_QUAD_STEPS))
+    params = {"w": torch.zeros((8, 1), device=dev), "b": torch.zeros((1,), device=dev)}
+    step = make_dp_compressed_train_step(loss_fn, oupd, mesh, dp_axes=("data",))
+    state = init_train_state(params, oinit, mesh=mesh, dp_axes=("data",))
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    for _ in range(MESH_QUAD_STEPS):
+        x = rng.standard_normal((64, 8)).astype(np.float32)
+        state, m = step(state, {"x": torch.from_numpy(x).to(dev),
+                                "y": torch.from_numpy(x @ true_w).to(dev)})
+    torch.cuda.synchronize()
+    w = state["params"]["w"].cpu().numpy()
+    return dict(loss=float(m["loss"]), w_err=float(np.abs(w - true_w).max()),
+                w=w.ravel().tolist(), b=state["params"]["b"].cpu().numpy().tolist(),
+                step_ms=1e3 * (time.perf_counter() - t0) / MESH_QUAD_STEPS)
+
+
+def _params_digest(params) -> str:
+    from repro_torch.tree import tree_leaves_with_path
+
+    h = hashlib.sha256()
+    for path, leaf in tree_leaves_with_path(params):
+        h.update(path.encode())
+        h.update(leaf.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _encoder_dp(mesh, rank: int, dev) -> dict:
+    """``MESH_ENC_STEPS`` compressed data-parallel steps of the full
+    ``SparseEncoderConfig()`` at phase 10's 16 × 24, the batch split over
+    the mesh; a digest of the parameters after every step, and this rank's
+    plain ``make_train_step`` loss on its half of step 0's batch."""
+    from repro_torch.launch.train_sparse_encoder import synth_pairs
+    from repro_torch.models.sparse_encoder import SparseEncoderConfig, contrastive_loss, encoder_init
+    from repro_torch.train.optimizer import OptimizerConfig, make_optimizer
+    from repro_torch.train.train_step import (init_train_state, make_dp_compressed_train_step,
+                                              make_train_step)
+
+    cfg = SparseEncoderConfig()
+    params = encoder_init(torch.Generator().manual_seed(0), cfg, device=dev)
+    oinit, oupd = make_optimizer(OptimizerConfig(**ENC_OPT, total_steps=MESH_ENC_STEPS))
+    loss_fn = lambda p, b: contrastive_loss(p, cfg, b)  # noqa: E731
+    batch = lambda i: synth_pairs(0, i, cfg, batch=ENC_BATCH, seq=ENC_SEQ, device=dev)  # noqa: E731
+    half = ENC_BATCH // MESH_DP_RANKS
+    mine = {k: v[rank * half:(rank + 1) * half] for k, v in batch(0).items()}
+    _, plain = make_train_step(loss_fn, oupd)(init_train_state(params, oinit), mine)
+    step = make_dp_compressed_train_step(loss_fn, oupd, mesh, dp_axes=("data",))
+    state = init_train_state(params, oinit, mesh=mesh, dp_axes=("data",))
+    losses, digests, ms = [], [], []
+    for i in range(MESH_ENC_STEPS):
+        b = batch(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(float(m["loss"]))
+        digests.append(_params_digest(state["params"]))
+    return dict(plain_loss_step0=float(plain["loss"]), losses=losses, digests=digests,
+                step_ms=ms)
+
+
+def mesh_rank_nccl(rank: int, world: int, d: str) -> None:
+    """Phase 12's NCCL world (one rank, the card's own GPU): (a)
+    ``make_sharded_search`` over ``build_shard_arrays(n_shards=1,
+    host_index=phase 3's index)``, then (d) the quadratic problem."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import rows_dot
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.serve.api import RetrieverConfig, make_sharded_search
+
+    torch.set_num_threads(1)  # five processes share the host's eight cores
+    d = pathlib.Path(d)
+    _wait_for(d, "ready_a")
+    spec = json.loads((d / "a.json").read_text())
+    dev = torch.device("cuda")
+    rows_dot.reset_launches()
+    Q = torch.from_numpy(np.load(d / "Q.npy")).to(dev)
+    mesh = make_debug_mesh((1, 1), ("data", "model"))
+    stacked, idmap = _load_arrays(d, "a"), np.load(d / "a_idmap.npy")
+    fn = make_sharded_search(mesh, RetrieverConfig(**spec["cfg"]), spec["n_local"],
+                             spec["n_docs"], spec["scale"])
+    t0 = time.perf_counter()
+    ids, scores = fn(stacked, idmap, Q)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    lat = host_ms(lambda: fn(stacked, idmap, Q), MESH_REPS)
+    launches = dict(rows_dot.variant_launches)
+    _add(launches, _replayed([fn._placed[2]]))
+    quad = _quadratic(make_debug_mesh((1,), ("data",)), dev)
+    np.savez(d / "a_out.npz", ids=ids.cpu().numpy(), scores=scores.cpu().numpy())
+    (d / "a_out.json").write_text(json.dumps(dict(
+        backend=dist.get_backend(), first_s=first_s, search_ms=lat, rows_launches=launches,
+        quadratic=quad)))
+    (d / "done_a").touch()
+
+
+def mesh_rank_gloo(rank: int, world: int, d: str) -> None:
+    """One of phase 12's gloo ranks, every one on ``cuda:0``: (b)
+    ``ShardedRetriever(use_mesh=True)`` over phase 8's trees, without and
+    with tombstones, and ``make_sharded_search`` over
+    ``build_shard_arrays(S=world)``; (c) the doc-aligned scan of its range;
+    (d) on ranks 0 and 1, the compressed step on the quadratic problem and
+    the encoder."""
+    import torch.distributed as dist
+
+    from repro_torch.core.scoring import make_doc_aligned_scan
+    from repro_torch.dist.sharding import all_gather
+    from repro_torch.kernels import block_scan, rows_dot
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.serve.api import RetrieverConfig, make_sharded_search, open_retriever
+
+    torch.set_num_threads(1)
+    d = pathlib.Path(d)
+    _wait_for(d, "ready_b", "done_a")  # the NCCL world's timings run alone
+    spec = json.loads((d / "b.json").read_text())
+    dev = torch.device("cuda")
+    rows_dot.reset_launches()
+    block_scan.reset_launches()
+    Q = torch.from_numpy(np.load(d / "Q.npy")).to(dev)
+    arrays, out, replayed = {}, {"backend": dist.get_backend()}, {}
+    for engine, t in spec["trees"].items():
+        r = open_retriever(t["path"], device=dev)
+        r.use_mesh = True
+        t0 = time.perf_counter()
+        arrays[f"{engine}/ids"], arrays[f"{engine}/scores"] = (x.cpu().numpy()
+                                                               for x in r.search(Q))
+        first_s = time.perf_counter() - t0
+        lat = host_ms(lambda: r.search(Q), MESH_REPS)
+        _add(replayed, _replayed(r._resident.values()))
+        r.set_tombstones(np.asarray(t["victims"], np.int64))
+        arrays[f"{engine}/dead_ids"], arrays[f"{engine}/dead_scores"] = (x.cpu().numpy()
+                                                                         for x in r.search(Q))
+        _add(replayed, _replayed(r._resident.values()))
+        out[engine] = dict(first_s=first_s, search_ms=lat)
+        del r
+        gc.collect()
+    mesh = make_debug_mesh((1, world), ("data", "model"))
+    stacked, idmap = _load_arrays(d, "b"), np.load(d / "b_idmap.npy")
+    fn = make_sharded_search(mesh, RetrieverConfig(**spec["cfg"]), spec["n_local"],
+                             spec["n_docs"], spec["scale"])
+    arrays["search/ids"], arrays["search/scores"] = (x.cpu().numpy()
+                                                     for x in fn(stacked, idmap, Q))
+    out["search"] = dict(search_ms=host_ms(lambda: fn(stacked, idmap, Q), MESH_REPS))
+    _add(replayed, _replayed([fn._placed[2]]))
+    # the collective alone: one search's [nq, k] ids and scores over the index axis
+    ids_l = torch.zeros((Q.shape[0], spec["cfg"]["k"]), dtype=torch.int32, device=dev)
+    sc_l = torch.zeros(ids_l.shape, dtype=torch.float32, device=dev)
+    out["collective_ms"] = host_ms(lambda: (all_gather(ids_l, mesh, "model"),
+                                            all_gather(sc_l, mesh, "model")), 20)
+    out["scan"] = {}
+    for codec in BLOCK_CODECS:
+        packs = _load_arrays(d, f"c_{codec}")
+        scan = make_doc_aligned_scan(mesh, ("data", "model"), spec["docs_local"],
+                                     spec["scale"], codec)
+        arrays[f"scan/{codec}/batch"] = scan(packs, Q).cpu().numpy()
+        arrays[f"scan/{codec}/single"] = scan(packs, Q[:1]).cpu().numpy()
+        out["scan"][codec] = dict(ms_batch=cuda_ms(lambda: scan(packs, Q), MESH_REPS),
+                                  ms_single=cuda_ms(lambda: scan(packs, Q[:1]), MESH_REPS))
+        del packs, scan
+    out["rows_launches"] = dict(rows_dot.variant_launches)
+    _add(out["rows_launches"], replayed)
+    out["block_launches"] = dict(block_scan.variant_launches)
+    dp_mesh = make_debug_mesh((MESH_DP_RANKS,), ("data",))  # every rank takes part in its groups
+    if rank < MESH_DP_RANKS:
+        out["quadratic"] = _quadratic(dp_mesh, dev)
+        out["encoder"] = _encoder_dp(dp_mesh, rank, dev)
+        out["dp_backend"] = dist.get_backend(dp_mesh.get_group("data"))
+    np.savez(d / f"b_rank{rank}.npz", **arrays)
+    (d / f"b_rank{rank}.json").write_text(json.dumps(out))
+
+
+def mesh_phase(fwd, Q_np, Q, index, cfg_s, mono, trees: dict, card: str, csr, truth) -> dict:
+    """Phase 12: the mesh fan-out on ``torch.distributed`` (see the module
+    docstring) → its records, and under ``"_path"`` the rows and block-scan
+    launches of its ranks. ``mono`` is phase 3's Seismic answer, ``trees``
+    engine → (phase 8's tree, its sequential answer, its sequential search
+    ms)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.core.layout import pack_blocks_sharded
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.serve.api import (build_shard_arrays, get_engine, map_local_ids,
+                                       merge_topk, open_retriever, top_k)
+
+    d = MESH_DIR
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    n, (nq, k) = fwd.n_docs, mono[0].shape
+    scale = float(fwd.value_format.scale)
+    cfg_kw = dict(engine=cfg_s.engine, codec=cfg_s.codec, backend=cfg_s.backend, k=cfg_s.k,
+                  params=dict(cfg_s.params))
+    np.save(d / "Q.npy", Q_np)
+    out, prep = {}, {}
+    pool = ThreadPoolExecutor(2)
+    try:
+        # the ranks start (Python, torch, the card) while their inputs are made
+        fut_a = pool.submit(spawn_ranks, mesh_rank_nccl, 1, str(d), backend="nccl",
+                            init_file=d / "init_a", timeout_s=MESH_DEADLINE_S)
+        fut_b = pool.submit(spawn_ranks, mesh_rank_gloo, MESH_RANKS, str(d), backend="gloo",
+                            init_file=d / "init_b", timeout_s=MESH_DEADLINE_S)
+        t0 = time.perf_counter()
+        stacked, idmap, n_local1 = build_shard_arrays(fwd, cfg_s, 1, host_index=index)
+        _save_arrays(d, "a", stacked)
+        np.save(d / "a_idmap.npy", idmap)
+        (d / "a.json").write_text(json.dumps(dict(cfg=cfg_kw, n_local=n_local1, n_docs=n,
+                                                  scale=scale)))
+        (d / "ready_a").touch()
+        prep["a_s"] = time.perf_counter() - t0
+        del stacked, idmap
+        # (b): 5 victims among the first answers; the sequential rotation's
+        # answer after set_tombstones; the S-shard stack and its in-process oracle
+        t0 = time.perf_counter()
+        tree_spec, seq_dead = {}, {}
+        for engine, (path, seq, _) in trees.items():
+            victims = np.unique(seq[0][:, 0])[:MESH_VICTIMS].astype(np.int64)
+            r = open_retriever(path)
+            r.use_mesh = False
+            r.set_tombstones(victims)
+            seq_dead[engine] = tuple(x.cpu().numpy() for x in r.search(Q))
+            del r
+            tree_spec[engine] = dict(path=str(path), victims=victims.tolist())
+        prep["b_sequential_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        stacked, idmap, n_local = build_shard_arrays(fwd, cfg_s, MESH_RANKS, host_index=index)
+        _save_arrays(d, "b", stacked)
+        np.save(d / "b_idmap.npy", idmap)
+        impl = get_engine(cfg_s.engine)
+        flat_i, flat_s = [], []
+        for s in range(MESH_RANKS):  # the oracle: each shard's search_batch in turn
+            shard = {key: torch.from_numpy(np.ascontiguousarray(v[s])).to(Q.device)
+                     for key, v in stacked.items()}
+            ids_s, sc_s = impl.search_batch(cfg_s, n_local, scale, shard, Q)
+            flat_i.append(map_local_ids(torch.from_numpy(idmap[s]).to(Q.device), ids_s, n))
+            flat_s.append(sc_s)
+            del shard
+        oracle = tuple(x.cpu().numpy() for x in merge_topk(
+            torch.cat(flat_i, 1), torch.cat(flat_s, 1), k, dedupe=impl.dedupe_merge,
+            n_docs_global=n))
+        prep["b_stack_s"] = time.perf_counter() - t0
+        del stacked, idmap, flat_i, flat_s
+        t0 = time.perf_counter()
+        docs_local = 0
+        for codec in BLOCK_CODECS:
+            packs, docs_local = pack_blocks_sharded(fwd, MESH_RANKS, codec=codec, block_size=512)
+            _save_arrays(d, f"c_{codec}", packs)
+        prep["c_pack_s"] = time.perf_counter() - t0
+        (d / "b.json").write_text(json.dumps(dict(cfg=cfg_kw, n_local=n_local, n_docs=n,
+                                                  scale=scale, docs_local=docs_local,
+                                                  trees=tree_spec)))
+        (d / "ready_b").touch()
+        spawn_a_s, spawn_b_s = fut_a.result(), fut_b.result()
+    except BaseException:
+        (d / "abort").touch()
+        raise
+    finally:
+        pool.shutdown(wait=True)
+    a = json.loads((d / "a_out.json").read_text())
+    with np.load(d / "a_out.npz") as z:
+        bitwise("phase 12 (a): make_sharded_search at S = 1 (NCCL) vs phase 3's Seismic",
+                (z["ids"], z["scores"]), mono)
+    ranks = []
+    for r in range(MESH_RANKS):
+        with np.load(d / f"b_rank{r}.npz") as z:
+            ranks.append(({key: z[key] for key in z.files},
+                          json.loads((d / f"b_rank{r}.json").read_text())))
+    first = ranks[0][0]
+    for r, (got, _) in enumerate(ranks):  # every rank returns the global answer
+        for engine, (_, seq, _) in trees.items():
+            bitwise(f"phase 12 (b): {engine} use_mesh=True on rank {r} vs phase 8's sequential",
+                    (got[f"{engine}/ids"], got[f"{engine}/scores"]), seq)
+            bitwise(f"phase 12 (b): {engine} with {MESH_VICTIMS} tombstones on rank {r} vs the "
+                    f"sequential rotation", (got[f"{engine}/dead_ids"],
+                                            got[f"{engine}/dead_scores"]), seq_dead[engine])
+            if np.intersect1d(got[f"{engine}/dead_ids"], tree_spec[engine]["victims"]).size:
+                raise SystemExit(f"phase 12 (b): {engine} served a tombstoned doc")
+        bitwise(f"phase 12 (b): make_sharded_search at S = {MESH_RANKS} on rank {r} vs the "
+                f"in-process oracle", (got["search/ids"], got["search/scores"]), oracle)
+    # (c): the ranks' slices in rank order against sparse.mm and exact_top_k
+    lib = {"batch": torch.sparse.mm(csr, Q.t().contiguous()).t(),
+           "single": torch.sparse.mm(csr, Q[:1].t().contiguous()).t()}
+    scan_err = {}
+    for codec in BLOCK_CODECS:
+        for form, want in lib.items():
+            got = torch.from_numpy(np.concatenate([g[f"scan/{codec}/{form}"] for g, _ in ranks],
+                                                  axis=1)[:, :n]).to(Q.device)
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+            scan_err[f"{codec}/{form}"] = float((got - want).abs().max())
+            sc, ids = top_k(got, 10)
+            for i in range(ids.shape[0]):
+                tie_aware_topk(f"phase 12 (c) {codec} {form} query {i}", ids[i].cpu().numpy(),
+                               sc[i].cpu().numpy(), *truth[i])
+    # (d): the compressed step, world 1 (NCCL) and world 2 (gloo on cuda:0)
+    dp = [info for _, info in ranks[:MESH_DP_RANKS]]
+    for world, quads in ((1, [a["quadratic"]]), (MESH_DP_RANKS, [x["quadratic"] for x in dp])):
+        q = quads[0]
+        if not (q["loss"] < 0.01 and q["w_err"] < 0.2):
+            raise SystemExit(f"phase 12 (d): the quadratic problem at world {world} ended at "
+                             f"loss {q['loss']:.4g}, |w - w*| {q['w_err']:.3g}")
+        if any(x["w"] != q["w"] or x["b"] != q["b"] for x in quads):
+            raise SystemExit(f"phase 12 (d): the quadratic replicas at world {world} differ")
+    enc = [x["encoder"] for x in dp]
+    if any(e["digests"] != enc[0]["digests"] for e in enc):
+        raise SystemExit("phase 12 (d): the encoder replicas differ after a step")
+    if not (all(np.isfinite(e["losses"]).all() for e in enc)
+            and all(e["losses"] == enc[0]["losses"] for e in enc)):
+        raise SystemExit(f"phase 12 (d): encoder losses {[e['losses'] for e in enc]}")
+    plain0 = float(np.mean([e["plain_loss_step0"] for e in enc]))
+    loss0_rel = abs(enc[0]["losses"][0] / plain0 - 1)
+    if not loss0_rel <= 1e-4:
+        raise SystemExit(f"phase 12 (d): step 0's loss {enc[0]['losses'][0]:.8g} differs from "
+                         f"the plain step's {plain0:.8g} by {loss0_rel:.2e} of it")
+    # the path's launches: every rank's, the comparisons' not
+    rows, blocks = dict(a["rows_launches"]), {}
+    for _, info in ranks:
+        _add(rows, info["rows_launches"])
+        _add(blocks, info["block_launches"])
+    name = next(iter(k for k in rows if k.endswith("dotvbyte_f16")))
+    used = [f"block_scan_{c}{s}" for c in BLOCK_CODECS for s in ("", "_batch")]
+    if rows[name] <= 0 or any(blocks[e] <= 0 for e in used):
+        raise SystemExit(f"phase 12 launched rows {rows[name]}, block scans "
+                         f"{ {e: blocks[e] for e in used} }")
+    med = statistics.median
+    out = dict(
+        backends={"a": a["backend"], "b": ranks[0][1]["backend"],
+                  "dp": ranks[0][1]["dp_backend"]},
+        prep_s=prep, spawn_s={"nccl_world_1": spawn_a_s, f"gloo_world_{MESH_RANKS}": spawn_b_s},
+        a=dict(first_s=a["first_s"], search_ms_median=med(a["search_ms"]),
+               mono_stages="bitwise", n_local=n_local1),
+        b={engine: dict(search_ms_median_by_rank=[med(info[engine]["search_ms"])
+                                                   for _, info in ranks],
+                        first_s_by_rank=[info[engine]["first_s"] for _, info in ranks],
+                        sequential_ms_median=trees[engine][2],
+                        victims=tree_spec[engine]["victims"]) for engine in trees},
+        search=dict(n_local=n_local, search_ms_median_by_rank=[
+            med(info["search"]["search_ms"]) for _, info in ranks]),
+        collective=dict(bytes_per_query=8 * k * MESH_RANKS, ms_median_by_rank=[
+            med(info["collective_ms"]) for _, info in ranks]),
+        scan=dict(docs_local=docs_local, max_abs_err=scan_err, ms_by_rank={
+            codec: [info["scan"][codec] for _, info in ranks] for codec in BLOCK_CODECS}),
+        dp=dict(quadratic_world_1=a["quadratic"], quadratic_world_2=dp[0]["quadratic"],
+                encoder_losses=enc[0]["losses"], encoder_plain_loss_step0=plain0,
+                encoder_loss_step0_rel_err=loss0_rel,
+                encoder_step_ms_by_rank=[e["step_ms"] for e in enc]),
+        _path=dict(rows_launches=rows[name], block_launches=blocks),
+    )
+    log(f"[12] the mesh fan-out ({card}): backends (a) {out['backends']['a']} at world 1, "
+        f"(b)-(c) {out['backends']['b']} at world {MESH_RANKS} on one card, (d) "
+        f"{out['backends']['dp']} at world {MESH_DP_RANKS}; inputs made in "
+        + ", ".join(f"{key} {v:.1f}s" for key, v in prep.items())
+        + f"; spawns {spawn_a_s:.1f}s / {spawn_b_s:.1f}s")
+    log(f"    (a) make_sharded_search over build_shard_arrays(S=1, host_index) at {n} docs "
+        f"== phase 3's Seismic bit for bit; search {out['a']['search_ms_median']:.3f} ms "
+        f"(first {a['first_s']:.2f}s: placement + capture) ({card})")
+    for engine, rec in out["b"].items():
+        log(f"    (b) {engine} use_mesh=True == phase 8's sequential bit for bit on every rank, "
+            f"and with {MESH_VICTIMS} tombstones {rec['victims']}; per-rank search ms "
+            f"{[round(x, 3) for x in rec['search_ms_median_by_rank']]} vs sequential "
+            f"{rec['sequential_ms_median']:.3f} ({card})")
+    log(f"    (b) make_sharded_search at S = {MESH_RANKS} == in-process oracle bit for bit; "
+        f"per-rank ms {[round(x, 3) for x in out['search']['search_ms_median_by_rank']]}; "
+        f"all_gather of [{nq}, {k}] ids + scores ({8 * k * MESH_RANKS} B a query): ms "
+        f"{[round(x, 3) for x in out['collective']['ms_median_by_rank']]} ({card})")
+    for codec in BLOCK_CODECS:
+        ms = out["scan"]["ms_by_rank"][codec]
+        log(f"    (c) doc-aligned scan {codec} (T=512, S={MESH_RANKS}, {docs_local} docs a rank): "
+            f"== sparse.mm within 1e-4 (max {scan_err[f'{codec}/batch']:.2e} / "
+            f"{scan_err[f'{codec}/single']:.2e}), top-10 == exact_top_k; per-rank ms nq "
+            f"{nq} {[round(m['ms_batch'], 4) for m in ms]}, nq 1 "
+            f"{[round(m['ms_single'], 4) for m in ms]} ({card})")
+    q1, q2 = a["quadratic"], dp[0]["quadratic"]
+    log(f"    (d) quadratic, {MESH_QUAD_STEPS} steps: world 1 loss {q1['loss']:.2e}, |w - w*| "
+        f"{q1['w_err']:.3f}, {q1['step_ms']:.2f} ms a step; world {MESH_DP_RANKS} loss "
+        f"{q2['loss']:.2e}, |w - w*| {q2['w_err']:.3f}, {q2['step_ms']:.2f} ms a step, replicas "
+        f"bit-identical ({card})")
+    log(f"    (d) encoder (40,897,850 params) {MESH_ENC_STEPS} steps at {ENC_BATCH} x {ENC_SEQ} "
+        f"over {MESH_DP_RANKS} ranks: losses {[round(x, 4) for x in enc[0]['losses']]}, step 0 "
+        f"vs the plain step's {plain0:.8g}: rel err {loss0_rel:.1e}, replicas bit-identical after every step; step ms by rank "
+        f"{[[round(x, 1) for x in e['step_ms']] for e in enc]} ({card})")
+    log(f"    mesh path launches: {name}={rows[name]}, block scans "
+        + ", ".join(f"{e}={blocks[e]}" for e in used))
+    shutil.rmtree(d, ignore_errors=True)
+    shutil.rmtree(TREES_DIR, ignore_errors=True)
     return out
 
 
@@ -3150,7 +3640,23 @@ def main() -> int:
     phase_s["11 rgb + lilsr"] = time.perf_counter() - t0
     log(f"[11] {phase_s['11 rgb + lilsr']:.1f}s")
 
-    # -- 12. summary ------------------------------------------------------------
+    # -- 12. the mesh fan-out --------------------------------------------------------
+    t0 = time.perf_counter()
+    seq = shard.pop("_sequential")
+    trees = {e: (shard[e]["tree"], seq[e], shard[e]["settings"]["4/on"]["search_ms_median"])
+             for e in seq}
+    mesh = mesh_phase(fwd, Q_np, Q, index, cfg_s, results["seismic", "dotvbyte", "f16"], trees,
+                      card, csr, truth)
+    for rec in kernels:
+        n = (mesh["_path"]["rows_launches"] if rec["name"] == names["dotvbyte", "f16"]
+             else mesh["_path"]["block_launches"].get(rec["name"], 0))
+        rec.setdefault("launches_by_path", {})["mesh"] = n
+        rec["launches"] += n
+    dv["mesh_phase"] = mesh
+    phase_s["12 mesh"] = time.perf_counter() - t0
+    log(f"[12] {phase_s['12 mesh']:.1f}s")
+
+    # -- 13. summary ------------------------------------------------------------
     log("phases: " + ", ".join(f"{k} {v:.1f}s" for k, v in phase_s.items()))
     log(f"ported kernels: {n_rows} rows_dot variants and {len(kernels) - n_rows} block-scan "
         f"entries ok; total {time.perf_counter() - t_start:.0f}s")

@@ -21,7 +21,8 @@ from typing import Iterable, Mapping, Sequence
 
 import numpy as np
 
-__all__ = ["ValueFormat", "ForwardIndex", "PackedBlocks", "pack_forward_index", "VALUE_FORMATS"]
+__all__ = ["ValueFormat", "ForwardIndex", "PackedBlocks", "pack_forward_index",
+           "pack_forward_index_sharded", "VALUE_FORMATS"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,6 +119,25 @@ class ForwardIndex:
             components=self.components[s:e],
             values=self.values[s:e],
             offsets=(self.offsets[lo : hi + 1] - s).astype(np.int64),
+            dim=self.dim,
+            value_format=self.value_format,
+        )
+
+    def padded(self, n_docs: int) -> "ForwardIndex":
+        """This index extended with empty documents up to ``n_docs`` rows
+        (zero-copy on components and values) — how the shard builds pad
+        ragged ranges to one local size; an empty row scores 0 and is
+        mapped out of every merge by its shard's id map."""
+        if n_docs < self.n_docs:
+            raise ValueError(f"cannot pad {self.n_docs} docs down to {n_docs}")
+        if n_docs == self.n_docs:
+            return self
+        return ForwardIndex(
+            components=self.components,
+            values=self.values,
+            offsets=np.concatenate(
+                [self.offsets, np.full(n_docs - self.n_docs, self.offsets[-1], np.int64)]
+            ),
             dim=self.dim,
             value_format=self.value_format,
         )
@@ -370,3 +390,19 @@ def pack_forward_index(
     return pack_blocks(fwd, codec=codec, block_size=block_size,
                        max_docs_per_block=max_docs_per_block, seg_dtype=seg_dtype,
                        vq=vq, vq_clip=vq_clip)
+
+
+def pack_forward_index_sharded(
+    fwd: ForwardIndex,
+    n_shards: int,
+    codec: str = "dotvbyte",
+    block_size: int = 512,
+    seg_dtype=np.int32,
+) -> tuple[dict, int]:
+    """Doc-aligned sharded packing under the reference's import path (an
+    alias of ``core.layout.pack_blocks_sharded``): (stacked arrays,
+    docs_local), for ``scoring.make_doc_aligned_scan``."""
+    from .layout import pack_blocks_sharded
+
+    return pack_blocks_sharded(fwd, n_shards, codec=codec, block_size=block_size,
+                               seg_dtype=seg_dtype)

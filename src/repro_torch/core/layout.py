@@ -1,6 +1,6 @@
 """Codec-pluggable packed layouts — the one place a gap stream becomes
-device arrays (a copy of ``repro/core/layout.py`` without its sharded
-helpers; every packed array is byte-identical to the reference's).
+device arrays (a copy of ``repro/core/layout.py``; every packed array is
+byte-identical to the reference's).
 
 A ``ForwardIndex`` reaches the device in two fixed-shape forms:
 
@@ -24,12 +24,17 @@ value codec's pack factor) and the ctrl/data/words streams pad their
 trailing dim to a multiple of 128. Decoders therefore slice the control
 stream tight (``L // 8`` bytes for DotVByte, ``L // 4`` for
 StreamVByte) before decoding.
+
+Sharded forms stack per-shard arrays with a leading shard axis
+(``pad_stack``, every axis padded to the across-shard maximum):
+``pack_blocks_sharded`` packs contiguous doc ranges with range-local
+doc ids for the doc-aligned scan (``scoring.make_doc_aligned_scan``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Mapping
+from typing import Callable, Dict, Mapping, Sequence
 
 import numpy as np
 
@@ -47,7 +52,9 @@ __all__ = [
     "available_layouts",
     "PackedRows",
     "pack_blocks",
+    "pack_blocks_sharded",
     "pack_rows",
+    "pad_stack",
     "encode_docs",
     "BLOCK_PAD_VALUES",
     "LANE_MULTIPLE",
@@ -372,6 +379,44 @@ def pack_blocks(
     return out
 
 
+def pack_blocks_sharded(
+    fwd: ForwardIndex,
+    n_shards: int,
+    codec: str = "dotvbyte",
+    block_size: int = 512,
+    seg_dtype=np.int32,
+) -> tuple[dict, int]:
+    """Doc-aligned sharded packing: documents split into ``n_shards``
+    contiguous ranges of ``docs_local = ⌈n / n_shards⌉``, each range
+    packed on its own with range-local doc ids and ``pad_stack``ed to a
+    leading shard axis → (arrays, docs_local). As in the reference, a
+    short tail range is filled with one-entry documents (component 0,
+    value 0) and every value makes the dequantise → quantise round trip
+    of ``ForwardIndex.from_docs``; here in one vectorised pass, to the
+    same bytes."""
+    n = fwd.n_docs
+    docs_local = (n + n_shards - 1) // n_shards
+    vf = fwd.value_format
+    dicts = []
+    for s in range(n_shards):
+        hi = min((s + 1) * docs_local, n)
+        sub = fwd.slice(min(s * docs_local, hi), hi)
+        n_tail = docs_local - sub.n_docs
+        nnz = int(sub.offsets[-1])
+        sub = ForwardIndex(
+            components=np.concatenate([sub.components.astype(np.uint32),
+                                       np.zeros(n_tail, np.uint32)]),
+            values=np.concatenate([vf.quantise(vf.dequantise(sub.values)),
+                                   vf.quantise(np.zeros(n_tail, np.float32))]),
+            offsets=np.concatenate([sub.offsets, nnz + np.arange(1, n_tail + 1)]).astype(np.int64),
+            dim=fwd.dim,
+            value_format=vf,
+        )
+        dicts.append(pack_blocks(sub, codec=codec, block_size=block_size,
+                                 seg_dtype=seg_dtype).as_dict())
+    return pad_stack(dicts, BLOCK_PAD_VALUES), docs_local
+
+
 # ---------------------------------------------------------------------------
 # row form  [N+1, L]
 # ---------------------------------------------------------------------------
@@ -465,6 +510,35 @@ def pack_rows(
         payload=payload,
         vq=vq,
     )
+
+
+# ---------------------------------------------------------------------------
+# shard stacking
+# ---------------------------------------------------------------------------
+
+
+def pad_stack(
+    dicts: Sequence[Mapping[str, np.ndarray]],
+    pad_values: Mapping[str, int] | None = None,
+) -> dict[str, np.ndarray]:
+    """Stack per-shard array dicts with a leading shard axis, padding
+    every axis to the across-shard maximum with ``pad_values[key]``
+    (default 0): block counts and stream widths legitimately differ
+    between shards."""
+    pad_values = pad_values or {}
+    keys = list(dicts[0])
+    for d in dicts[1:]:
+        if list(d) != keys:
+            raise ValueError("shard dicts must share the same fields")
+    out: dict[str, np.ndarray] = {}
+    for k in keys:
+        arrs = [np.asarray(d[k]) for d in dicts]
+        target = tuple(max(a.shape[i] for a in arrs) for i in range(arrs[0].ndim))
+        buf = np.full((len(arrs), *target), pad_values.get(k, 0), dtype=arrs[0].dtype)
+        for s, a in enumerate(arrs):
+            buf[(s, *(slice(0, d) for d in a.shape))] = a
+        out[k] = buf
+    return out
 
 
 def encode_docs(fwd: ForwardIndex, codec_name: str) -> list[bytes]:

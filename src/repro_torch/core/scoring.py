@@ -15,6 +15,12 @@ of a block's gaps runs across all of its fragments and can pass 2**31
 at wide vocabularies, where the reference's int32 wraps; here it is
 int64.
 
+**The doc-aligned scan.** ``make_doc_aligned_scan`` is the full scan
+over a mesh: each rank holds one contiguous range of documents and the
+blocks that hold them (``layout.pack_blocks_sharded``, range-local doc
+ids), scans it through the block-scan entries of ``kernels/ops.py`` and
+returns its ``[nq, docs_local]`` slice, with no collective.
+
 **Candidate-row rescoring.**
 
 Every serve engine spends its rescoring time here: gather the packed
@@ -43,6 +49,7 @@ all-zero sentinel row N themselves.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..kernels import modes
@@ -60,6 +67,7 @@ __all__ = [
     "block_slot_scores",
     "score_packed",
     "score_packed_batch",
+    "make_doc_aligned_scan",
     "decode_gaps_dotvbyte",
     "decode_gaps_streamvbyte",
     "decode_gaps_bitpack",
@@ -316,6 +324,54 @@ def score_packed_batch(Q, packed) -> torch.Tensor:
 def score_packed(q, packed) -> torch.Tensor:
     """Scores of every document for one dense query → f32 [n_docs]."""
     return score_packed_batch(torch.as_tensor(q).reshape(1, -1), packed)[0]
+
+
+def make_doc_aligned_scan(mesh, axes, docs_local: int, scale: float, codec: str = "dotvbyte",
+                          *, device=None):
+    """The doc-aligned sharded scan: ``fn(arrays, Q [nq, dim]) → f32 [nq,
+    docs_local]``, this rank's documents' scores.
+
+    ``arrays`` are the stacked ``layout.pack_blocks_sharded`` arrays;
+    the rank takes its range (its row-major index over ``axes``, the
+    reference's ``P(axes)`` order) and keeps it resident on ``device``
+    (``cuda`` unless given) while the same ``arrays`` come back. Its
+    pack is scanned through ``kernels/ops.py``'s block-scan entry of
+    ``codec`` — the single-query one at nq 1, the batched one above —
+    so the score scatter stays on the rank; ``uncompressed``, which has
+    no block kernel (as in the reference), runs ``score_packed_batch``.
+    The reference's ``shard_map`` assembles ``[nq, S · docs_local]``;
+    here each rank returns its slice and the scan carries no
+    collective."""
+    from .. import resolve_device
+    from ..dist.sharding import axis_index
+    from .forward_index import PackedBlocks, ValueFormat
+
+    shard = axis_index(mesh, axes)
+    device = resolve_device(device)
+    placed: list = [None, None, None]  # arrays, dim, the rank's pack on the device
+
+    def tensor(a) -> torch.Tensor:
+        a = np.ascontiguousarray(a)
+        return torch.from_numpy(a if a.flags.writeable else a.copy()).to(device)
+
+    def scan(arrays, Q):
+        Q = torch.as_tensor(Q, dtype=torch.float32).to(device)
+        if placed[0] is not arrays or placed[1] != Q.shape[1]:
+            local = {k: v[shard] for k, v in arrays.items()}
+            vals = local["vals"]
+            placed[:] = [arrays, Q.shape[1], PackedBlocks(
+                codec=codec, block_size=int(vals.shape[-1]), n_docs=int(docs_local),
+                dim=int(Q.shape[1]), value_format=ValueFormat("scaled", vals.dtype, float(scale)),
+                **{k: tensor(v) for k, v in local.items()})]
+        packed = placed[2]
+        if codec == "uncompressed":
+            return score_packed_batch(Q, packed)
+        from ..kernels import ops
+
+        single, batch = ops.block_scorers(codec)
+        return single(Q[0], packed).unsqueeze(0) if Q.shape[0] == 1 else batch(Q, packed)
+
+    return scan
 
 
 # ---------------------------------------------------------------------------

@@ -25,6 +25,12 @@ leading axis. The engine-agnostic surface is:
   artifacts, memory-mapped on open and served out of core through an
   LRU of resident shards; ``map_local_ids`` and ``merge_topk`` are its
   sentinel-safe merge contract;
+* ``build_shard_arrays`` / ``make_sharded_search`` — the mesh fan-out on
+  ``torch.distributed``: every rank holds one self-contained sub-index
+  (its slice of the stacked shard arrays) on its device, searches it
+  through its plan cache and all-gathers ``[nq, k]`` ids and scores over
+  the index axis before the same merge (``ShardedRetriever`` takes this
+  path when a process group of ≥ ``n_shards`` ranks is initialised);
 * ``MutableRetriever`` (``serve/segments.py``) — delta segments,
   tombstones and the crash-safe generation flip over a base index;
   ``open_retriever`` on a root that holds ``CURRENT`` opens one.
@@ -70,6 +76,9 @@ __all__ = [
     "top_k",
     "map_local_ids",
     "merge_topk",
+    "build_shard_arrays",
+    "make_sharded_search",
+    "ShardedSearch",
 ]
 
 #: artifact layout version; shared with the reference so artifacts cross
@@ -95,8 +104,8 @@ class RetrieverConfig:
     ``batch_size`` joins the plan cache's bucket set (the expected
     batch gets an exact-fit plan). ``n_shards > 1`` builds and serves a
     sharded index (``serve/sharded.py``): contiguous doc ranges, one
-    sub-index each, searched one after another on one device and merged
-    (the reference's mesh fan-out across devices is ROADMAP A6b)."""
+    sub-index each, searched one after another on one device and merged,
+    or one a rank over a mesh (``ShardedRetriever.use_mesh``)."""
 
     engine: str = "seismic"
     codec: str = "uncompressed"
@@ -158,6 +167,14 @@ class EngineImpl:
         directory. The default builds the engine's arrays over the CSR
         slice."""
         return self.build_arrays(fwd.slice(lo, hi), cfg)
+
+    def shard_build(self, fwd: ForwardIndex, cfg: RetrieverConfig, n_shards: int):
+        """→ (per-shard array dicts, idmaps, n_docs_local, pad_values) —
+        the self-contained sub-indexes ``build_shard_arrays`` stacks.
+        ``idmaps[s]`` is i32 [n_docs_local + 1] mapping shard-local doc ids
+        to global ones (sentinel → global n_docs); ``pad_values`` feeds
+        ``layout.pad_stack``."""
+        raise NotImplementedError
 
     def search_batch(self, cfg: RetrieverConfig, n_docs: int, value_scale: float, arrays, Q):
         """Queries f32 [nq, dim] → (ids i32 [nq, k], scores f32 [nq, k])."""
@@ -252,6 +269,167 @@ def merge_topk(flat_ids: torch.Tensor, flat_scores: torch.Tensor, k: int, *, ded
         flat_scores = torch.gather(flat_scores, 1, order).masked_fill(dup, float("-inf"))
     top_s, pos = top_k(flat_scores, k)
     return torch.gather(flat_ids, 1, pos), top_s
+
+
+# ---------------------------------------------------------------------------
+# the mesh fan-out (torch.distributed, one rank a shard)
+# ---------------------------------------------------------------------------
+
+
+def build_shard_arrays(
+    fwd: ForwardIndex,
+    cfg: RetrieverConfig,
+    n_shards: int | None = None,
+    *,
+    host_index=None,
+):
+    """Partition a collection into self-contained per-shard sub-indexes
+    and stack their engine arrays with a leading shard axis → (stacked
+    numpy arrays, idmap i32 [n_shards, n_docs_local + 1], n_docs_local),
+    byte-identical to the reference's. How the split happens is the
+    engine's business (Seismic: blocks round-robin and doc ownership;
+    hnsw and flat: contiguous doc ranges); the stacking is
+    ``layout.pad_stack``. The arrays stay on the host: each rank of
+    ``make_sharded_search`` places only its own slice.
+
+    ``host_index`` reuses a built host index (``SeismicIndex``) instead
+    of rebuilding it; engines that split by doc range ignore it."""
+    impl = get_engine(cfg.engine)
+    n_shards = n_shards or cfg.n_shards
+    if host_index is not None and hasattr(impl, "shard_from_index"):
+        dicts, idmaps, n_docs_local, pad_values = impl.shard_from_index(host_index, cfg, n_shards)
+    else:
+        dicts, idmaps, n_docs_local, pad_values = impl.shard_build(fwd, cfg, n_shards)
+    return layout.pad_stack(dicts, pad_values), np.stack(idmaps), n_docs_local
+
+
+class ShardedSearch:
+    """The search ``make_sharded_search`` returns: ``fn(arrays, idmap, Q)
+    → (ids i32 [nq, k], scores f32 [nq, k])``, the global top-k, on
+    every rank of the mesh.
+
+    Each rank takes its shard ``s`` (its index along ``index_axis``) of
+    the stacked ``arrays`` and ``idmap`` and keeps it resident on
+    ``device`` as a ``Retriever`` at ``k_local`` (placed at the first
+    call, kept while the same ``arrays`` and ``idmap`` come back). Its
+    slice of ``Q`` along ``query_axes`` is searched through that
+    retriever's plan cache (on the card one CUDA graph per bucket, as
+    the sequential path), mapped to global ids with ``map_local_ids``,
+    and the ``[nq, k]`` ids and scores are all-gathered over
+    ``index_axis`` and merged as the reference does (``merge_local``);
+    the collective and the merge run outside the graph. The merged
+    slices are then gathered over ``query_axes``. Collective bytes a
+    query: 8·k·S."""
+
+    def __init__(self, mesh, cfg: RetrieverConfig, n_docs_local: int, n_docs_global: int,
+                 value_scale: float, *, index_axis: str, query_axes: tuple[str, ...],
+                 k_local: int | None, device=None):
+        from ..dist.sharding import axis_index, axis_size
+
+        self.impl = get_engine(cfg.engine)
+        self.mesh = mesh
+        self.cfg = cfg
+        self.n_docs_local = int(n_docs_local)
+        self.n_docs_global = int(n_docs_global)
+        self.value_scale = float(value_scale)
+        self.index_axis = index_axis
+        self.query_axes = tuple(query_axes)
+        self.k_local = cfg.k if k_local is None else int(k_local)
+        self.shard = axis_index(mesh, index_axis)
+        self.n_shards = axis_size(mesh, index_axis)
+        self.device = resolve_device(device)
+        self._placed: tuple | None = None  # (arrays, idmap, Retriever, idmap tensor)
+
+    def local(self, arrays, idmap, dim: int) -> tuple["Retriever", torch.Tensor]:
+        """This rank's shard of ``arrays`` / ``idmap`` on the device."""
+        p = self._placed
+        if p is None or p[0] is not arrays or p[1] is not idmap:
+            s = self.shard
+            ret = Retriever(self.cfg.replace(n_shards=1, k=self.k_local),
+                            {k: _to_tensor(v[s]) for k, v in arrays.items()},
+                            n_docs=self.n_docs_local, dim=dim, value_scale=self.value_scale,
+                            value_format="", device=self.device,  # never saved
+                            shard=f"{s}/{self.n_shards}")
+            p = self._placed = (arrays, idmap, ret, _to_tensor(idmap[s]).to(self.device))
+        return p[2], p[3]
+
+    def merge_local(self, ids: torch.Tensor, scores: torch.Tensor, idmap: torch.Tensor):
+        """This rank's local top ``≤ k_local`` (ids, scores) of a query
+        batch → the merged global (ids, scores) of the batch: a shard
+        that returned fewer than ``k_local`` candidates sentinel-pads
+        them, ``map_local_ids`` maps them, ``[nq, k_local]`` ids and
+        scores are gathered over the index axis in shard order, the
+        merge width is sentinel-padded up to ``cfg.k`` where ``S · k``
+        falls short, and ``merge_topk`` (dedupe iff the engine asks)."""
+        from ..dist.sharding import all_gather
+
+        nq = ids.shape[0]
+        if ids.shape[1] < self.k_local:
+            pad = self.k_local - ids.shape[1]
+            ids = torch.cat([ids, ids.new_full((nq, pad), -1)], dim=1)
+            scores = torch.cat([scores, scores.new_full((nq, pad), float("-inf"))], dim=1)
+        gids = map_local_ids(idmap, ids, self.n_docs_global)
+        ag_s = all_gather(scores, self.mesh, self.index_axis)  # [S, nq, k]
+        ag_i = all_gather(gids, self.mesh, self.index_axis)
+        S, _, k = ag_s.shape
+        flat_s = ag_s.transpose(0, 1).reshape(nq, S * k)
+        flat_i = ag_i.transpose(0, 1).reshape(nq, S * k)
+        if S * k < self.cfg.k:  # k > corpus: sentinel-pad the merge width
+            pad = self.cfg.k - S * k
+            flat_i = torch.cat([flat_i, flat_i.new_full((nq, pad), self.n_docs_global)], dim=1)
+            flat_s = torch.cat([flat_s, flat_s.new_full((nq, pad), float("-inf"))], dim=1)
+        return merge_topk(flat_i, flat_s, self.cfg.k, dedupe=self.impl.dedupe_merge,
+                          n_docs_global=self.n_docs_global)
+
+    @torch.inference_mode()
+    def __call__(self, arrays, idmap, Q):
+        from ..dist.sharding import all_gather, axis_block
+
+        Q = torch.as_tensor(Q, dtype=torch.float32).to(self.device)
+        ret, local_idmap = self.local(arrays, idmap, Q.shape[1])
+        nq = Q.shape[0]
+        if self.query_axes:
+            Q = axis_block(Q, self.mesh, self.query_axes)
+        ids, scores = ret.plans.search(Q)
+        ids, scores = self.merge_local(ids, scores, local_idmap)
+        if self.query_axes:
+            ids = all_gather(ids, self.mesh, self.query_axes).reshape(nq, -1)
+            scores = all_gather(scores, self.mesh, self.query_axes).reshape(nq, -1)
+        return ids, scores
+
+
+def make_sharded_search(
+    mesh,
+    cfg: RetrieverConfig,
+    n_docs_local: int,
+    n_docs_global: int,
+    value_scale: float,
+    *,
+    index_axis: str = "model",
+    query_axes: tuple[str, ...] = ("data",),
+    k_local: int | None = None,
+    device=None,
+) -> ShardedSearch:
+    """ONE distributed search for every registered engine, over a
+    ``DeviceMesh`` of the initialised process group (``dist.sharding``).
+
+    The index is pre-partitioned into ``mesh`` size along ``index_axis``
+    self-contained sub-indexes (``build_shard_arrays``: a leading shard
+    axis; ``idmap`` maps local → global doc ids, sentinel →
+    ``n_docs_global``). Queries split over ``query_axes`` and replicate
+    across index shards; every rank searches its shard with the engine's
+    ``search_batch`` and the ranks all-gather ``[nq, k]`` ids and scores
+    over ``index_axis`` and merge — deduping by doc id first iff the
+    engine declares ``dedupe_merge`` (``ShardedSearch``).
+
+    ``k_local`` caps the per-shard candidate count below the merge's
+    ``cfg.k`` — shards smaller than k serve their whole doc range and
+    engines whose score vector is shard-sized (flat) cannot top-k past
+    it; the merge sentinel-pads back up to ``cfg.k`` when needed.
+    ``device`` is each rank's (``cuda`` unless given)."""
+    return ShardedSearch(mesh, cfg, n_docs_local, n_docs_global, value_scale,
+                         index_axis=index_axis, query_axes=tuple(query_axes or ()),
+                         k_local=k_local, device=device)
 
 
 class Retriever:

@@ -8,11 +8,13 @@ set (all rows), so ``search_batch`` decodes each row once and scores
 the whole query batch against it (``score_candidate_rows_batch``; the
 CUDA rows kernel with ``nd = 1`` under ``backend="cuda"``). A shard of a
 sharded tree packs its rows straight from the doc range
-(``build_shard``).
+(``build_shard``); the mesh's stacked shards (``shard_build``) are
+contiguous ranges padded to one local size.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ...core import layout
@@ -44,3 +46,18 @@ class FlatEngine(EngineImpl):
         scores = scores.masked_fill(docs.unsqueeze(0) >= n_docs, float("-inf"))
         top_s, idx = top_k(scores, cfg.k)
         return docs[idx], top_s
+
+    def shard_build(self, fwd: ForwardIndex, cfg: RetrieverConfig, n_shards: int):
+        """Contiguous doc ranges of ``⌈n / n_shards⌉``, each padded with
+        empty documents to that local size."""
+        n = fwd.n_docs
+        docs_local = (n + n_shards - 1) // n_shards
+        dicts, idmaps = [], []
+        for s in range(n_shards):
+            lo, hi = s * docs_local, min((s + 1) * docs_local, n)
+            sub = fwd.slice(lo, hi).padded(docs_local)
+            dicts.append(layout.pack_rows(sub, codec=cfg.codec, vq=cfg.vq).arrays())
+            idmap = np.full(docs_local + 1, n, dtype=np.int32)
+            idmap[: hi - lo] = np.arange(lo, hi, dtype=np.int32)
+            idmaps.append(idmap)
+        return dicts, idmaps, docs_local, {}

@@ -29,6 +29,7 @@ CUDA graph (``serve/pipeline.py``).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ...core import layout
@@ -131,3 +132,30 @@ class HNSWEngine(EngineImpl):
             scores = top_s
         top_s, idx = top_k(scores, cfg.k)
         return torch.gather(ids, 1, idx).int(), top_s
+
+    # -- sharded build (the mesh's stacked shards) ------------------------
+    def shard_build(self, fwd, cfg: RetrieverConfig, n_shards: int):
+        """Contiguous doc ranges, one self-contained sub-graph each with
+        range-local ids, embedded in the padded local id space (rows past
+        a range's documents all-sentinel, unreachable by search)."""
+        p = self.params(cfg)
+        hp = self.host_params(cfg)
+        n = fwd.n_docs
+        docs_local = (n + n_shards - 1) // n_shards
+        dicts, idmaps = [], []
+        for s in range(n_shards):
+            lo, hi = s * docs_local, min((s + 1) * docs_local, n)
+            sub = fwd.slice(lo, hi)
+            n_real = sub.n_docs
+            index = HNSWIndex.build(sub, hp)
+            adj = np.full((docs_local + 1, hp.degree(0)), docs_local, dtype=np.int32)
+            adj[:n_real] = index.adjacency(0, sentinel=docs_local)[:n_real]
+            dicts.append({
+                "adj": adj,
+                "seeds": index.seed_nodes(p["n_seeds"], sentinel=docs_local),
+                **layout.pack_rows(sub.padded(docs_local), codec=cfg.codec, vq=cfg.vq).arrays(),
+            })
+            idmap = np.full(docs_local + 1, n, dtype=np.int32)
+            idmap[:n_real] = np.arange(lo, hi, dtype=np.int32)
+            idmaps.append(idmap)
+        return dicts, idmaps, docs_local, {"adj": docs_local, "seeds": docs_local}

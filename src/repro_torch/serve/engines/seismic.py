@@ -172,3 +172,53 @@ class SeismicEngine(EngineImpl):
         scores = torch.where(docs < n_docs, scores, float("-inf"))
         top_s, idx = top_k(scores, cfg.k)
         return torch.gather(docs, 1, idx), top_s
+
+    # -- sharded build (the mesh's stacked shards) ------------------------
+    def shard_build(self, fwd, cfg: RetrieverConfig, n_shards: int):
+        return self.shard_from_index(self.host_index(fwd, cfg), cfg, n_shards)
+
+    def shard_from_index(self, index: SeismicIndex, cfg: RetrieverConfig, n_shards: int):
+        """Partition a SeismicIndex into ``n_shards`` self-contained
+        sub-indexes: blocks round-robin, documents by ownership (a doc
+        goes to every shard holding one of its blocks — hence
+        ``dedupe_merge``); the PQ codebook is copied into every shard.
+        Byte-identical to the reference's."""
+        A = self.arrays_from_index(index, cfg)
+        n_docs = index.fwd.n_docs
+        n_blocks = int(A["block_docs"].shape[0])
+
+        shard_docs: list[np.ndarray] = []
+        for s in range(n_shards):
+            docs = np.unique(A["block_docs"][np.arange(s, n_blocks, n_shards)])
+            shard_docs.append(docs[docs < n_docs])
+        docs_local_max = max(len(d) for d in shard_docs)
+
+        row_keys = [k for k in A if k.endswith("_rows")]
+        shared_vq = {k: A[k] for k in A if k.startswith("vq_") and not k.endswith("_rows")}
+        cbs, cbl = A["cbs"], A["cbl"]
+        dicts, idmaps = [], []
+        for s in range(n_shards):
+            blocks = np.arange(s, n_blocks, n_shards)
+            docs = shard_docs[s]
+            g2l = np.full(n_docs + 1, docs_local_max, dtype=np.int32)
+            g2l[docs] = np.arange(len(docs), dtype=np.int32)
+            # a component's blocks in this shard are contiguous in the
+            # round-robin order
+            lcbs = (cbs - s + n_shards - 1) // n_shards
+            lcbl = (cbs + cbl - s + n_shards - 1) // n_shards - lcbs
+            sub = {
+                "cbs": lcbs.astype(np.int32),
+                "cbl": np.maximum(lcbl, 0).astype(np.int32),
+                "sum_comps": A["sum_comps"][blocks],
+                "sum_vals": A["sum_vals"][blocks],
+                "block_docs": g2l[A["block_docs"][blocks]],
+            }
+            pad_rows = np.concatenate([docs, np.full(docs_local_max - len(docs) + 1, n_docs)])
+            for k in row_keys:
+                sub[k] = A[k][pad_rows]
+            sub.update(shared_vq)
+            dicts.append(sub)
+            idmap = np.full(docs_local_max + 1, n_docs, dtype=np.int32)
+            idmap[: len(docs)] = docs
+            idmaps.append(idmap)
+        return dicts, idmaps, docs_local_max, {"block_docs": docs_local_max}

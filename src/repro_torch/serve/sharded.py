@@ -41,12 +41,24 @@ device allocation and copy, the wait for the copy), which every capture
 holds, because a capture in the default mode forbids those calls on
 every thread. A staging failure re-raises on the serving thread when
 the staged shard is consumed or retired; nothing is rebuilt in its
-place. The mesh fan-out over several devices (``use_mesh=True``) is
-not ported (ROADMAP A6b).
+place.
+
+The mesh fan-out (``use_mesh``): where a process group of at least
+``n_shards`` ranks is initialised (one process per device; every rank
+builds or opens the same tree and runs the same searches), rank ``s``
+of ``dist.sharding.index_mesh`` keeps only shard ``s`` resident, runs
+its plan on the padded batch, and the ranks all-gather their ``[nq,
+k_local]`` results and merge them (``api.ShardedSearch.merge_local``),
+so every rank returns the global top-k. Tombstones ride in the shard's
+id map (a dead slot maps to the out-of-corpus sentinel ``n_docs``) and
+``k_local`` is the uniform ``tombstone_budget``; a shard whose own
+budget is smaller sentinel-pads up to it, so the mesh answers the
+sequential rotation's bits.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import pathlib
@@ -60,11 +72,13 @@ from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import resolve_device
 from ..core import layout
 from ..core import values as value_codecs
 from ..core.forward_index import ForwardIndex
+from ..dist.sharding import axis_index, index_mesh, tombstone_budget
 from ..kernels import modes
 from . import api
 from . import pipeline as serve_pipeline
@@ -112,20 +126,6 @@ def shard_ranges(n_docs: int, n_shards: int) -> list[tuple[int, int]]:
     base, rem = divmod(n_docs, n_shards)
     bounds = np.cumsum([0] + [base + (1 if s < rem else 0) for s in range(n_shards)])
     return [(int(bounds[s]), int(bounds[s + 1])) for s in range(n_shards)]
-
-
-def tombstone_budget(k: int, n_local: int, n_tombstones: int) -> int:
-    """Per-shard candidate budget under live tombstones, the reference's
-    ``dist/sharding.py::tombstone_budget``: every shard surfaces ``k +
-    n_tombstones`` candidates (capped at its size), so ``k`` live docs
-    survive the merge's dead-doc mask even when every tombstoned doc
-    outranks them. Uniform across shards: it depends on the tombstone
-    count, never on which shard holds them."""
-    if k < 1 or n_local < 1 or n_tombstones < 0:
-        raise ValueError(
-            f"invalid budget inputs: k={k}, n_local={n_local}, n_tombstones={n_tombstones}"
-        )
-    return min(n_local, k + n_tombstones)
 
 
 def mmap_npz(path) -> Dict[str, np.ndarray]:
@@ -284,8 +284,12 @@ class ShardedRetriever:
     ``open_retriever(path)`` on a saved tree. ``max_resident`` bounds the
     shards resident at once (default: all; 1 is strict out-of-core
     round-robin); ``prefetch`` stages the next shard on the worker;
-    ``use_mesh`` keeps the reference's three values — None and False
-    serve sequentially, True raises (ROADMAP A6b)."""
+    ``use_mesh`` keeps the reference's three values: None serves over
+    the mesh when a process group of at least ``n_shards`` ranks is
+    initialised, else sequentially (so a plain single process serves as
+    the rotation); False always sequentially; True over the mesh, and
+    raises ``ValueError`` where there is no such group. A rank past
+    ``n_shards`` holds no shard: its mesh search raises."""
 
     def __init__(
         self,
@@ -307,6 +311,10 @@ class ShardedRetriever:
         self.impl.params(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            # named: the staging worker is another thread, whose current
+            # device starts at 0 (a rank of a mesh serves on its own card)
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self.shards = list(shards)
         self.n_docs = self.shards[-1].doc_hi
         self.dim = int(dim)
@@ -314,6 +322,10 @@ class ShardedRetriever:
         self.value_format = value_format
         self.max_resident = cfg.n_shards if max_resident is None else max(1, int(max_resident))
         self.use_mesh: bool | None = None
+        self._index_mesh = None  # the DeviceMesh, made once (collectively)
+        #: (ShardedSearch, this rank's shard, its id map on the device),
+        #: rebuilt when the tombstone set changes
+        self._mesh_state: Optional[tuple] = None
         self._resident: "OrderedDict[int, Retriever]" = OrderedDict()
         self._evicted_compiles = 0
         self.evictions = 0
@@ -390,6 +402,7 @@ class ShardedRetriever:
             self._shard_k = new_k
             self._shard_cfg = [self.cfg.replace(n_shards=1, k=b) for b in new_k]
             self._tombstones = ids
+            self._mesh_state = None  # the id map and k_local follow the set
             if ids.size:
                 # one slot past the corpus: the sentinel id n_docs reads False
                 mask = torch.zeros(self.n_docs + 1, dtype=torch.bool)
@@ -462,7 +475,10 @@ class ShardedRetriever:
                 self._evicted_compiles += st[1].result().plans.compiles
 
             def task() -> Retriever:
-                with torch.inference_mode():  # thread-local: the worker enters it itself
+                # thread-local, so the worker enters them itself
+                on_card = torch.cuda.device(self.device) if self.device.type == "cuda" else \
+                    contextlib.nullcontext()
+                with torch.inference_mode(), on_card:
                     return self._build_shard(s)
 
             self._staged = (s, _prefetch_pool().submit(task))
@@ -558,11 +574,9 @@ class ShardedRetriever:
         primes the next batch's first shard) while shard ``s`` is
         admitted and scored. Nothing of a shard is held past its turn, so
         an eviction frees the evicted shard's device memory at once."""
-        if self.use_mesh:
-            raise NotImplementedError(
-                "the mesh fan-out of shards over several devices is not ported "
-                "(ROADMAP A6b); use_mesh=None or False serves them in turn on one device"
-            )
+        state = self._mesh()
+        if state is not None:
+            return self._dispatch_mesh(Q, *state)
         S = self.cfg.n_shards
         Q = Q.to(self.device)
         do_prefetch = self.prefetch and S > 1
@@ -595,6 +609,56 @@ class ShardedRetriever:
             flat_s = torch.cat([flat_s, flat_s.new_full((bucket, pad), float("-inf"))], dim=1)
         ids, scores = api.merge_topk(flat_i, flat_s, self.cfg.k, dedupe=self.impl.dedupe_merge,
                                      n_docs_global=self.n_docs)
+        return ids, scores, ran
+
+    # -- the mesh fan-out ---------------------------------------------------
+    def _mesh(self) -> Optional[tuple]:
+        """The mesh path's state, built at first use and again after a
+        tombstone change — or None where the rotation serves (``use_mesh``
+        False, one shard, or None without a large enough process group)."""
+        if self.use_mesh is False or self.cfg.n_shards == 1:
+            return None
+        if self._mesh_state is not None:
+            return self._mesh_state
+        S = self.cfg.n_shards
+        if self._index_mesh is None:
+            self._index_mesh = index_mesh(S)
+        mesh = self._index_mesh
+        if mesh is None:
+            if self.use_mesh:
+                have = dist.get_world_size() if dist.is_initialized() else 0
+                raise ValueError(f"use_mesh=True but the process group has {have} rank(s) "
+                                 f"for {S} shards (none is initialised where 0)")
+            return None
+        s = axis_index(mesh, "model")
+        sh = self.shards[s]
+        n_local = max(x.n_docs for x in self.shards)
+        idmap = np.full(sh.n_docs + 1, self.n_docs, dtype=np.int32)
+        idmap[: sh.n_docs] = np.arange(sh.doc_lo, sh.doc_hi, dtype=np.int32)
+        dead = self._tombstones[(self._tombstones >= sh.doc_lo) & (self._tombstones < sh.doc_hi)]
+        idmap[dead - sh.doc_lo] = self.n_docs
+        search = api.make_sharded_search(
+            mesh, self.cfg, n_local, self.n_docs, self.value_scale, index_axis="model",
+            query_axes=(), k_local=tombstone_budget(self.cfg.k, n_local,
+                                                    int(self._tombstones.size)),
+            device=self.device)
+        self._mesh_state = (search, s, torch.from_numpy(idmap).to(self.device))
+        return self._mesh_state
+
+    def _dispatch_mesh(self, Q: torch.Tensor, search, s: int, idmap: torch.Tensor):
+        """One padded batch on this rank's shard ``s``: its plan (the
+        sequential rotation's, at the shard's own budget), then the
+        all-gather and merge over the mesh → the ``FacadePlan`` triple."""
+        Q = Q.to(self.device)
+        r = self._shard_retriever(s)
+        plan = r.plans.get(r.plans.bucket_for(int(Q.shape[0])))
+        t0 = time.perf_counter()
+        if plan.warm(self.dim):
+            self._add_seconds(capture=time.perf_counter() - t0)
+        ids, scores = plan(Q)
+        ran = [(f"{s}/{self.cfg.n_shards}", plan.launches, plan.stages)]
+        del r, plan
+        ids, scores = search.merge_local(ids, scores, idmap)
         return ids, scores, ran
 
     # -- serving (the Retriever surface) ----------------------------------

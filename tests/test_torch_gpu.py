@@ -1669,3 +1669,152 @@ def test_train_sparse_encoder_cli_on_the_card(cuda, capsys):
     assert flat and float(flat.group(1)) == 1.0, out
     assert re.search(r"Retriever seismic \(dotvbyte, backend=cuda\) recall@10: [\d.]+", out), out
     assert rows_dot.launches > before  # the encoded corpus went through the rows kernel
+
+
+# ---------------------------------------------------------------------------
+# the mesh fan-out on the card: spawned ranks, NCCL at world 1 and gloo
+# with every rank on cuda:0 (tests/torch_mesh_cases.py)
+# ---------------------------------------------------------------------------
+
+MESH_SEISMIC = dict(cut=8, block_budget=256, n_probe=48, n_postings=300, block_size=16)
+MESH_EXHAUSTIVE = dict(cut=16, block_budget=512, n_probe=512, n_postings=10000, block_size=8)
+
+
+@pytest.fixture(scope="module")
+def mesh_corpus():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    from repro_torch.data.synthetic import SyntheticConfig, generate_collection
+
+    col = generate_collection(SyntheticConfig(name="t", dim=2048, n_docs=600, n_queries=8,
+                                              doc_nnz_mean=60.0, query_nnz_mean=16.0, seed=0),
+                              value_format="f16")
+    small = generate_collection(SyntheticConfig(name="mesh", dim=256, n_docs=48, n_queries=4,
+                                                doc_nnz_mean=24.0, query_nnz_mean=8.0, seed=3),
+                                value_format="f16")
+    return (col.fwd, np.stack([col.query_dense(i) for i in range(8)]),
+            small.fwd, np.stack([small.query_dense(i) for i in range(4)]))
+
+
+def _mesh_cfg(engine, codec="dotvbyte", params=None):
+    from repro_torch.serve.api import RetrieverConfig
+
+    params = {"seismic": MESH_SEISMIC, "flat": {},
+              "hnsw": dict(beam=48, iters=48, n_seeds=4, m=8, ef_construction=32)}[engine] \
+        if params is None else params
+    return RetrieverConfig(engine=engine, codec=codec, backend="cuda", k=10, params=params)
+
+
+def _shard_oracle(cfg, arrays, idmap, n_local, n_docs, Q):
+    """Each shard's ``search_batch`` on the card in turn, then the merge."""
+    from repro_torch.serve.api import get_engine, map_local_ids, merge_topk
+
+    impl = get_engine(cfg.engine)
+    dev = torch.device("cuda")
+    ids, scores = [], []
+    for s in range(idmap.shape[0]):
+        shard = {k: torch.from_numpy(np.ascontiguousarray(v[s])).to(dev) for k, v in arrays.items()}
+        i, sc = impl.search_batch(cfg, n_local, 1.0, shard, Q)
+        ids.append(map_local_ids(torch.from_numpy(idmap[s]).to(dev), i, n_docs))
+        scores.append(sc)
+    gi, gs = merge_topk(torch.cat(ids, 1), torch.cat(scores, 1), cfg.k,
+                        dedupe=impl.dedupe_merge, n_docs_global=n_docs)
+    return gi.cpu().numpy(), gs.cpu().numpy()
+
+
+def test_sharded_search_nccl_world_1_equals_monolithic(mesh_corpus, tmp_path):
+    """(a) ``make_sharded_search`` over ``build_shard_arrays(n_shards=1,
+    host_index=)`` on one NCCL rank: the monolithic Seismic answer bit for
+    bit, through the rows kernel."""
+    from torch_mesh_cases import load, serving_ranks
+
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.serve.api import Retriever, build_shard_arrays, get_engine
+
+    fwd, Q, small, Qs = mesh_corpus
+    cfg = _mesh_cfg("seismic")
+    index = get_engine("seismic").host_index(fwd, cfg)
+    mono = Retriever.from_host_index(index, cfg, device="cuda").search(Q)
+    arrays, idmap, n_local = build_shard_arrays(fwd, cfg, 1, host_index=index)
+    case = {"a": dict(mesh=(1, 1), cfg=cfg, arrays=arrays, idmap=idmap, n_local=n_local,
+                      n_docs=fwd.n_docs)}
+    spawn_ranks(serving_ranks, 1, str(tmp_path), case, torch.from_numpy(Q), small,
+                torch.from_numpy(Qs), [], [], "cuda", backend="nccl",
+                init_file=tmp_path / "init", timeout_s=300)
+    got = load(str(tmp_path), 1)[0]
+    assert np.array_equal(got["a/ids"], mono[0].cpu().numpy())
+    assert np.array_equal(got["a/scores"].view(np.int32), mono[1].cpu().numpy().view(np.int32))
+    assert int(got["rows_launches"]) > 0
+
+
+@pytest.fixture(scope="module")
+def mesh_served_on_the_card(mesh_corpus, tmp_path_factory):
+    """(b) four gloo ranks on cuda:0: ``make_sharded_search`` at S = 4 for
+    three engines and ``ShardedRetriever(use_mesh=)`` over the 48-doc
+    fixture with tombstones, backend cuda."""
+    from torch_mesh_cases import load, serving_ranks
+
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.serve.api import build_shard_arrays
+
+    fwd, Q, small, Qs = mesh_corpus
+    cases, stacks = {}, {}
+    for engine in ("flat", "seismic", "hnsw"):
+        sub = fwd if engine != "hnsw" else fwd.slice(0, 200)
+        cfg = _mesh_cfg(engine)
+        arrays, idmap, n_local = build_shard_arrays(sub, cfg, 4)
+        stacks[engine] = (cfg, arrays, idmap, n_local, sub.n_docs)
+        cases[engine] = dict(mesh=(1, 4), cfg=cfg, arrays=arrays, idmap=idmap, n_local=n_local,
+                             n_docs=sub.n_docs)
+    out = tmp_path_factory.mktemp("mesh_cuda")
+    spawn_ranks(serving_ranks, 4, str(out), cases, torch.from_numpy(Q), small,
+                torch.from_numpy(Qs), [("flat", {}), ("seismic", MESH_EXHAUSTIVE)],
+                [[0, 11, 12, 30, 47], [1, 13, 14, 31, 46]], "cuda", "cuda", backend="gloo",
+                init_file=out / "init", timeout_s=300)
+    return load(str(out), 4), stacks, Q
+
+
+@pytest.mark.parametrize("engine", ["flat", "seismic", "hnsw"])
+def test_sharded_search_on_the_card_equals_the_oracle(mesh_served_on_the_card, engine):
+    ranks, stacks, Q = mesh_served_on_the_card
+    cfg, arrays, idmap, n_local, n_docs = stacks[engine]
+    want_i, want_s = _shard_oracle(cfg, arrays, idmap, n_local, n_docs,
+                                   torch.from_numpy(Q).cuda())
+    for r in ranks:
+        assert np.array_equal(r[f"{engine}/ids"], want_i)
+        assert np.array_equal(r[f"{engine}/scores"].view(np.int32), want_s.view(np.int32))
+    assert sum(int(r["rows_launches"]) for r in ranks) > 0
+
+
+@pytest.mark.parametrize("tag", ["none", "v0", "v1"])
+@pytest.mark.parametrize("engine", ["flat", "seismic"])
+def test_mesh_retriever_on_the_card_equals_the_rotation(mesh_served_on_the_card, engine, tag):
+    for r in mesh_served_on_the_card[0]:
+        for mode in ("True", "None"):
+            assert np.array_equal(r[f"{engine}/{tag}/{mode}/ids"], r[f"{engine}/{tag}/False/ids"])
+            assert np.array_equal(r[f"{engine}/{tag}/{mode}/scores"].view(np.int32),
+                                  r[f"{engine}/{tag}/False/scores"].view(np.int32))
+
+
+@pytest.mark.parametrize("codec", ["dotvbyte", "streamvbyte", "bitpack"])
+def test_doc_aligned_scan_on_the_card(mesh_corpus, tmp_path, codec):
+    """(c) the doc-aligned scan through the block-scan kernel on four gloo
+    ranks (cuda:0): the ranks' slices in order against ``exact_scores``
+    (f16 values: 2e-3) at nq 8 and 1."""
+    from torch_mesh_cases import load, scan_ranks
+
+    from repro_torch.core.layout import pack_blocks_sharded
+    from repro_torch.launch.mesh import spawn_ranks
+
+    fwd, Q, _, _ = mesh_corpus
+    packs, docs_local = pack_blocks_sharded(fwd, 4, codec=codec, block_size=128)
+    spawn_ranks(scan_ranks, 4, str(tmp_path), {codec: packs}, docs_local, torch.from_numpy(Q),
+                (1, 4), "cuda", backend="gloo", init_file=tmp_path / "init", timeout_s=300)
+    ranks = load(str(tmp_path), 4)
+    for form, q in (("batch", Q), ("single", Q[:1])):
+        got = np.concatenate([r[f"{codec}/{form}"] for r in ranks], axis=1)[:, : fwd.n_docs]
+        want = np.stack([fwd.exact_scores(x) for x in q])
+        assert np.abs(got - want).max() < 2e-3
+    launched = {k: sum(int(r[f"launches/{k}"]) for r in ranks)
+                for k in (f"block_scan_{codec}", f"block_scan_{codec}_batch")}
+    assert all(v >= 4 for v in launched.values()), launched

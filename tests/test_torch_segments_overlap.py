@@ -1,7 +1,8 @@
 """The port's background merge and the serving surfaces under threads
 (``repro_torch/serve/segments.py``, ``serve/pipeline.py``) on the CPU,
 held to the reference's invariants of ``tests/test_overlap.py`` (its
-mutable and thread-safety half; the mesh case waits for ROADMAP A6b) on
+mutable and thread-safety half; its mesh case is in
+``tests/test_torch_mesh.py``) on
 its fixture: 60 docs at dim 128, seed 3, 6 queries.
 
 The bar everywhere: overlap is a latency mechanism, never an answer

@@ -268,8 +268,8 @@ def test_mesh_path_raises_and_names_its_roadmap_item(collection, queries):
     for use_mesh in (None, False):
         r.use_mesh = use_mesh
         r.search(queries)
-    r.use_mesh = True
-    with pytest.raises(NotImplementedError, match="A6b"):
+    r.use_mesh = True  # over the mesh, which needs a process group of ≥ 2 ranks
+    with pytest.raises(ValueError, match=r"has 0 rank\(s\) for 2 shards"):
         r.search(queries)
 
 

@@ -13,7 +13,10 @@ row codec × value codec variants, and 64 queries of 43 entries score:
   mapped to the sentinel row), in row warps and entry lanes;
 * flat's shape: one set of every row shared by the batch, query lanes,
   at nq 64, 97 and 128 (the pipeline's largest bucket; 97 leaves the
-  second 64-query pass of a tile part empty);
+  second 64-query pass of a tile part empty), each beside its bound
+  (``chip_smoke.rows_bound``) and the library call that computes the
+  same scores, ``torch.sparse.mm`` of the collection's CSR (f32) by
+  ``Qᵀ``;
 * the hnsw engine's shapes: one set of 8 and of 32 rows per query, in
   entry lanes and row warps;
 * the stage sweep at flat's shape, dotvbyte/f16, nq 1, 2, 4, 6 and 8 in
@@ -33,6 +36,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import pathlib
 import re
 import subprocess
 import sys
@@ -111,6 +115,22 @@ def device_ms(calls: dict, reps: int = 20) -> dict:
                 if (*k[0], k[1]) in sums else None) for k in calls}
 
 
+def sparse_mm_ms(fwd, Q_by_n: dict, dev) -> dict:
+    """``torch.sparse.mm`` of the collection's f32 CSR by ``Qᵀ`` for each
+    batch of ``Q_by_n`` → ms, CUDA events."""
+    import warnings
+
+    with warnings.catch_warnings():  # "sparse CSR support is in beta"
+        warnings.simplefilter("ignore", UserWarning)
+        csr = torch.sparse_csr_tensor(
+            torch.from_numpy(fwd.offsets.astype(np.int64)),
+            torch.from_numpy(fwd.components.astype(np.int64)),
+            torch.from_numpy(fwd.value_format.dequantise(fwd.values)),
+            size=(fwd.n_docs, fwd.dim), check_invariants=True).to(dev)
+        return {n: cuda_ms(lambda Qt=Qn.t().contiguous(): torch.sparse.mm(csr, Qt), 10)
+                for n, Qn in Q_by_n.items()}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n-docs", type=int, default=100_000)
@@ -156,6 +176,11 @@ def main(argv=None) -> int:
     payload = {c: {k: torch.from_numpy(v).to(dev) for k, v in pack_rows(
         fwd, codec=c).arrays().items() if not is_value(k)} for c in dict.fromkeys(
         c for c, _ in variants)}
+    if "flat" in shapes:
+        sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+        from chip_smoke import rows_bound
+
+        library = sparse_mm_ms(fwd, {n: Qf[:n] for n in FLAT_NQ}, dev)
     for codec, vq in variants:
         arrays = {**payload[codec], **values[vq]}
 
@@ -168,7 +193,9 @@ def main(argv=None) -> int:
                               for st in ("row_warps", "entry_lanes")}
         if "flat" in shapes:
             rec["flat"] = {"query_lanes": {n: cuda_ms(lambda n=n: run(
-                flat, "query_lanes", Qf[:n].contiguous()), 10) for n in FLAT_NQ}}
+                flat, "query_lanes", Qf[:n].contiguous()), 10) for n in FLAT_NQ},
+                "bound": {n: rows_bound(codec, Qf[:n], flat, arrays) for n in FLAT_NQ},
+                "library_ms": library}
         if (codec, vq) == ("dotvbyte", "f16") and "sweep" in shapes:
             rec["sweep"] = {st: {n: cuda_ms(lambda n=n, st=st: run(
                 flat, st, Q[:n].contiguous()), 10) for n in SWEEP_NQ}
