@@ -262,7 +262,34 @@ no result:
    step ms: four ranks share one card, so these show overheads, not
    scaling. The ranks' rows and block-scan launches go to
    ``launches_by_path["mesh"]``;
-13. one JSON line of kernels, the card line, and as the last line
+13. the paper's retrieval configs (``repro_torch.configs``), in one
+   spawned NCCL rank on a ``(1, 1)`` mesh. (a) The cells of
+   ``get_arch("msmarco-splade")`` at phase 3's collection (its
+   ``n_docs`` replaced by the collection's): ``scan_100q`` at opt 0
+   (global scatter, the fused batch entry) and opt 2 (the doc-aligned
+   scan, int8 seg) over the first 100 queries, scores held to
+   ``torch.sparse.mm`` (1e-4) and top-10 to ``exact_top_k``;
+   ``serve_4096q`` over ``build_shard_arrays(n_shards=1, host_index=phase
+   3's index)`` and ``graph_4096q`` over phase 6's graph (its arrays with a
+   shard axis of 1 and the identity id map, what ``build_shard_arrays``
+   stacks for one shard) with all 4,096 queries of phase 3's draw, ids
+   and scores bit for bit equal to phase 3's Seismic and phase 6's hnsw
+   retrievers' own searches (in batches of 64, the plans they captured).
+   Each cell's ms (host clock + synchronise,
+   median of 10), launches and ``max_memory_allocated`` beside the dry
+   run's bytes for a one-device mesh. (b) Table 1's scan at the full
+   corpus, ``scan_100q`` of both configs at their own ``n_docs``
+   (8,842,240): the index made on the card from copies of phase 5's
+   100,000-doc block pack (SPLADE) or of phase 11's 5,000 LiLSR docs,
+   ``doc_ids`` offset a copy (``replicate_pack``), at opt 0 (int32 seg)
+   and opt 2 (int8 seg), every copy's scores held to ``sparse.mm`` of the
+   base CSR (1e-4); ms (CUDA events, median of 10), resident GB, bits per
+   component, the bound; ``sparse.mm`` over the full CSR where int32
+   indices hold it (SPLADE; LiLSR's 3.4 billion nonzeros do not, and an
+   int64 CSR does not fit beside the pack). (c) Each config's
+   ``smoke()`` on the card. Launches go to
+   ``launches_by_path["configs"]``;
+14. one JSON line of kernels, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -2646,8 +2673,11 @@ def rgb_lilsr_phase(fwd, Q_np, Q, card: str, n_rgb: int, n_cli: int, n_flat: int
         + f"; rows launches (eager and captured) by stage {cli_stages} ({card})")
     # flat over a larger LiLSR collection
     t0 = time.perf_counter()
-    col = generate_collection(lilsr_config(n_flat, nq, 1), value_format="f16")
-    Ql_np = np.stack([col.query_dense(i) for i in range(col.n_queries)])
+    # drawn with phase 13's 100 scan queries; this phase serves the first nq
+    col = generate_collection(lilsr_config(n_flat, max(nq, SCAN_NQ), 1), value_format="f16")
+    Ql_all = np.stack([col.query_dense(i) for i in range(col.n_queries)])
+    Ql_np = Ql_all[:nq]
+    out["_lilsr"] = (col.fwd, Ql_all)
     Ql = torch.from_numpy(Ql_np).to(dev)
     truth_l = [exact_top_k(col.fwd, Ql_np[i], 10) for i in range(nq)]
     gen_s = time.perf_counter() - t0
@@ -2701,15 +2731,15 @@ MESH_DIR = ROOT / "build" / "chip_smoke_mesh"
 TREES_DIR = ROOT / "build" / "chip_smoke_trees"
 
 
-def _wait_for(d: pathlib.Path, *names: str) -> None:
+def _wait_for(d: pathlib.Path, *names: str, phase: int = 12) -> None:
     """Wait until the parent has written ``names`` in ``d``; raise where it
     wrote ``abort`` or the deadline passes."""
     t0 = time.monotonic()
     while not all((d / n).exists() for n in names):
         if (d / "abort").exists():
-            raise SystemExit("phase 12: the parent aborted")
+            raise SystemExit(f"phase {phase}: the parent aborted")
         if time.monotonic() - t0 > MESH_DEADLINE_S:
-            raise TimeoutError(f"phase 12: {names} not written within {MESH_DEADLINE_S}s")
+            raise TimeoutError(f"phase {phase}: {names} not written within {MESH_DEADLINE_S}s")
         time.sleep(0.05)
 
 
@@ -3140,6 +3170,487 @@ def mesh_phase(fwd, Q_np, Q, index, cfg_s, mono, trees: dict, card: str, csr, tr
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the paper's retrieval configs
+# ---------------------------------------------------------------------------
+
+#: phase 13: the rank's inputs and outputs; timed calls a cell; the scan's
+#: batch; the configs' full corpus (MsMarco's passages padded to /512)
+CELLS_DIR = ROOT / "build" / "chip_smoke_cells"
+CELL_REPS = 10
+SCAN_NQ = 100
+SEARCH_NQ = 4096
+FULL_DOCS = 8_842_240
+#: the replicated scans against sparse.mm of the base collection
+FULL_RTOL = FULL_ATOL = 1e-4
+
+
+def replicate_pack(base: dict, n_base: int, n_docs: int) -> dict:
+    """A block pack of ``n_docs`` documents made of copies of ``base``
+    (the streams of a pack of ``n_base`` documents, tensors, blocks in
+    doc order): ⌈n_docs / n_base⌉ copies, copy r's ``doc_ids`` offset by
+    r · n_base (unused slots stay -1), cut after the last block whose
+    first document is below ``n_docs``. Slots of that block past
+    ``n_docs`` hold ids the scan drops."""
+    reps = -(-n_docs // n_base)
+    tail = n_docs - (reps - 1) * n_base
+    first = base["doc_ids"][:, 0]  # slot 0 of every block is used
+    B0 = first.shape[0]
+    B = (reps - 1) * B0 + int((first < tail).sum())
+    out = {k: v.repeat(reps, *([1] * (v.dim() - 1)))[:B] for k, v in base.items()}
+    ids = out["doc_ids"]
+    off = (torch.arange(B, device=ids.device, dtype=torch.int32) // B0 * n_base).unsqueeze(1)
+    out["doc_ids"] = torch.where(ids >= 0, ids + off, ids)
+    return out
+
+
+def replicate_csr(offsets, comps, vals, n_base: int, n_docs: int, index_dtype=torch.int32):
+    """The CSR of ``replicate_pack``'s corpus (``offsets`` [n_base + 1],
+    ``comps``, ``vals`` of the base, tensors) → (crow, col, val) with
+    ``index_dtype`` indices."""
+    reps = -(-n_docs // n_base)
+    nnz0 = int(offsets[-1])
+    starts = offsets[:-1].to(torch.int64).repeat(reps)[:n_docs]
+    starts += torch.arange(n_docs, device=offsets.device) // n_base * nnz0
+    total = nnz0 * (n_docs // n_base) + int(offsets[n_docs % n_base])
+    crow = torch.cat([starts, starts.new_tensor([total])]).to(index_dtype)
+    return crow, comps.to(index_dtype).repeat(reps)[:total], vals.repeat(reps)[:total]
+
+
+def replicas_close(scores, base_scores, n_base: int, rtol=FULL_RTOL, atol=FULL_ATOL) -> list:
+    """Every copy's slice of ``scores`` (f32 [nq, n_docs], a transposed
+    doc-major result) against ``base_scores`` (f32 [nq, n_base]) → each
+    copy's max abs error; exits where one is outside the tolerance."""
+    acc, want = scores.t(), base_scores.t()
+    n = acc.shape[0]
+    errs = []
+    for lo in range(0, n, n_base):
+        got = acc[lo:lo + n_base]
+        w = want[: got.shape[0]]
+        d = (got - w).abs()
+        if not bool((d <= atol + rtol * w.abs()).all()):
+            raise SystemExit(f"phase 13: copy {lo // n_base} differs from sparse.mm of the base "
+                             f"beyond rtol {rtol}, atol {atol} (max {float(d.max()):.3g})")
+        errs.append(float(d.max()))
+    return errs
+
+
+def cuda_ms_median(fn, reps: int, warmup: int = 1) -> float:
+    """Median device time of ``fn`` over ``reps`` calls, each between two
+    CUDA events."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def _to_dev(d: pathlib.Path, name: str, dev) -> dict:
+    return {k: torch.from_numpy(np.array(v)).to(dev) for k, v in _load_arrays(d, name).items()}
+
+
+def _padded(Q, width: int):
+    return torch.nn.functional.pad(Q, (0, width - Q.shape[1]))
+
+
+def _run_cell(fn, args, reps: int) -> dict:
+    """A cell's first call (placement, capture) and ``reps`` timed calls
+    (host clock + synchronise) → its last result and timings, with the
+    device's peak allocation over them."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = fn(*args)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    lat = host_ms(lambda: fn(*args), reps)
+    return dict(result=res, first_s=first_s, ms_median=statistics.median(lat), ms=lat,
+                max_memory_allocated=torch.cuda.max_memory_allocated())
+
+
+def _predicted(arch, shape: str) -> dict:
+    """The dry run's per-device bytes of ``arch``'s cell on a one-device mesh."""
+    from repro_torch.launch.mesh import MeshShape
+
+    m = arch.build_cell(shape, MeshShape((1, 1), ("data", "model"))).meta
+    return dict(argument_bytes=m["argument_bytes"], output_bytes=m["output_bytes"],
+                peak_device_bytes=m["argument_bytes"] + m["output_bytes"])
+
+
+def full_corpus_scan(config: str, base: dict, csr: tuple, Q, mesh, n_base: int,
+                     n_docs: int | None = None) -> dict:
+    """Phase 13 (b) for ``config``: its ``scan_100q`` over copies of
+    ``base`` at the config's own ``n_docs`` (unless given), at opt 0
+    (global scatter, int32 seg) and opt 2 (one doc-aligned shard, int8
+    seg), each held copy by copy against ``sparse.mm`` of the base CSR;
+    then ``sparse.mm`` over the full CSR where its indices fit int32 →
+    the record."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import block_scan
+
+    arch = get_arch(config)
+    n_docs = n_docs or arch.n_docs
+    dim = arch.dim
+    Qd = Q[:, :dim].contiguous()
+    offsets, comps, vals = csr
+    csr_base = torch.sparse_csr_tensor(offsets, comps, vals, size=(n_base, dim))
+    base_scores = torch.sparse.mm(csr_base, Qd.t().contiguous()).t()
+    rec = dict(config=config, n_docs=n_docs, n_base=n_base, copies=-(-n_docs // n_base),
+               nq=Q.shape[0])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    arrays = replicate_pack(base, n_base, n_docs)
+    torch.cuda.synchronize()
+    rec["replicate_s"] = time.perf_counter() - t0
+    nnz = _live_entries(arrays["seg"])
+    rec["n_blocks"], rec["nnz"] = int(arrays["seg"].shape[0]), nnz
+    comp_bytes = int(arrays["ctrl"].nbytes + arrays["data"].nbytes)
+    rec["bits_per_component"] = 8 * comp_bytes / nnz
+    last = None
+    for opt in (0, 2):
+        if opt == 2:
+            last = None
+            arrays["seg"] = arrays["seg"].to(torch.int8)
+        cell_arch = dataclasses.replace(get_arch(config + ("-opt2" if opt else "")),
+                                        n_docs=n_docs)
+        cell = cell_arch.build_cell("scan_100q", mesh)
+        feed = arrays if opt == 0 else {k: v.unsqueeze(0) for k, v in arrays.items()}
+        stream_bytes = sum(int(v.nbytes) for v in arrays.values())
+        block_scan.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        scores = cell.fn(feed, Q)
+        torch.cuda.synchronize()
+        errs = replicas_close(scores, base_scores, n_base)
+        ms = cuda_ms_median(lambda: cell.fn(feed, Q), CELL_REPS)
+        n_bytes = stream_bytes + 4 * Q.numel() + 4 * Q.shape[0] * n_docs
+        bound_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
+        bound_ops = 1e3 * 2 * Q.shape[0] * nnz / F32_FLOP_PER_S
+        rec[f"opt{opt}"] = dict(
+            ms=ms, copies_max_abs_err=max(errs), resident_bytes=stream_bytes,
+            scores_bytes=4 * Q.shape[0] * n_docs,
+            max_memory_allocated=torch.cuda.max_memory_allocated(),
+            bound_ms=max(bound_bytes, bound_ops),
+            bound_by="bytes" if bound_bytes >= bound_ops else "operations",
+            launches=dict(block_scan.variant_launches),
+            predicted=_predicted(cell_arch, "scan_100q"), seg=str(arrays["seg"].dtype))
+        if opt == 0:  # the single-query entry over the same pack (the table's row 2)
+            rec["single"] = _single_query_scan(arrays, csr_base, Qd, n_base, n_docs, dim,
+                                               stream_bytes, nnz)
+        last = scores
+        del cell, scores
+        torch.cuda.empty_cache()
+    # sparse.mm over the whole replicated CSR, where int32 indices hold it
+    total_nnz = int(offsets[-1]) * (n_docs // n_base) + int(offsets[n_docs % n_base])
+    rec["nnz_csr"] = total_nnz
+    csr_bytes = total_nnz * 8 + 4 * (n_docs + 1)
+    if total_nnz < 2**31:
+        crow, col, val = replicate_csr(offsets, comps, vals, n_base, n_docs)
+        full = torch.sparse_csr_tensor(crow, col, val, size=(n_docs, dim))
+        Qt = Qd.t().contiguous()
+        lib = torch.sparse.mm(full, Qt).t()
+        torch.testing.assert_close(last, lib, rtol=FULL_RTOL, atol=FULL_ATOL)
+        q_col = Qt[:, :1].contiguous()
+        rec["sparse_mm"] = dict(ms=cuda_ms_median(lambda: torch.sparse.mm(full, Qt), CELL_REPS),
+                                ms_nq1=cuda_ms_median(lambda: torch.sparse.mm(full, q_col),
+                                                      CELL_REPS),
+                                csr_bytes=csr_bytes, index_dtype="int32",
+                                max_abs_err_vs_opt2=float((last - lib).abs().max()))
+        del full, crow, col, val, lib
+    else:
+        rec["sparse_mm"] = dict(skipped=f"{total_nnz} nonzeros pass int32 indices; an int64 "
+                                        f"CSR ({total_nnz * 12 / 1e9:.1f} GB) does not fit beside "
+                                        f"the {rec['opt0']['resident_bytes'] / 1e9:.1f} GB pack",
+                                csr_bytes_int64=total_nnz * 12 + 8 * (n_docs + 1))
+    del arrays, last
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _live_entries(seg) -> int:
+    """Entries of ``seg`` that hold a document (≥ 0), counted in row chunks:
+    a sum over the whole mask widens it to int64 (27 GB for LiLSR's 3.6
+    billion entries)."""
+    return sum(int((part >= 0).sum()) for part in seg.split(1 << 18))
+
+
+def _single_query_scan(arrays: dict, csr_base, Qd, n_base: int, n_docs: int, dim: int,
+                       stream_bytes: int, nnz: int) -> dict:
+    """The full corpus's single-query scan (``ops.score_dotvbyte``, the
+    resident-query stage where the query fits) over ``arrays``, held copy by
+    copy to ``sparse.mm`` of the base → its record."""
+    from repro_torch.core.forward_index import PackedBlocks, ValueFormat
+    from repro_torch.kernels import block_scan, ops
+
+    packed = PackedBlocks(codec="dotvbyte", block_size=int(arrays["seg"].shape[1]),
+                          n_docs=n_docs, dim=dim,
+                          value_format=ValueFormat("scaled", np.float16, 1.0), **arrays)
+    q = Qd[0]
+    block_scan.reset_launches()
+    got = ops.score_dotvbyte(q, packed)
+    torch.cuda.synchronize()
+    want = torch.sparse.mm(csr_base, q.unsqueeze(1).contiguous()).t()
+    errs = replicas_close(got.unsqueeze(0), want, n_base)
+    ms = cuda_ms_median(lambda: ops.score_dotvbyte(q, packed), CELL_REPS)
+    bound_bytes = 1e3 * (stream_bytes + 4 * dim + 4 * n_docs) / HBM_BYTES_PER_S
+    bound_ops = 1e3 * 2 * nnz / F32_FLOP_PER_S
+    return dict(ms=ms, copies_max_abs_err=max(errs), bound_ms=max(bound_bytes, bound_ops),
+                bound_by="bytes" if bound_bytes >= bound_ops else "operations",
+                launches=dict(block_scan.variant_launches),
+                stages={k: v for k, v in block_scan.stage_launches.items() if v})
+
+
+def cells_rank(rank: int, world: int, d: str) -> None:
+    """Phase 13's NCCL rank (world 1, mesh ``(1, 1)``): (a) the configs'
+    cells over phase 3's collection; (b) Table 1's scan at the full
+    corpus, for both configs."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import block_scan, rows_dot
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    d = pathlib.Path(d)
+    _wait_for(d, "ready", phase=13)
+    spec = json.loads((d / "spec.json").read_text())
+    dev = torch.device("cuda")
+    mesh = make_debug_mesh((1, 1), ("data", "model"))
+    n = spec["n_docs"]
+    Q = torch.from_numpy(np.load(d / "Q.npy")).to(dev)
+    out = dict(backend=dist.get_backend(), cells={})
+    splade = get_arch("msmarco-splade")
+    dim_pad = splade.build_cell("scan_100q", mesh).input_structs[1].shape[1]
+    Qs = _padded(Q[:SCAN_NQ], dim_pad)
+    rows_dot.reset_launches()
+    block_scan.reset_launches()
+    # (a) scan_100q at opt 0 and 2 over phase 3's collection
+    for opt in (0, 2):
+        arch = dataclasses.replace(get_arch("msmarco-splade" + ("-opt2" if opt else "")),
+                                   n_docs=n)
+        cell = arch.build_cell("scan_100q", mesh)
+        arrays = _to_dev(d, f"scan{opt}", dev)
+        before = dict(block_scan.variant_launches)
+        rec = _run_cell(cell.fn, (arrays, Qs), CELL_REPS)
+        np.save(d / f"out_scan{opt}.npy", rec.pop("result").cpu().numpy())
+        rec["launches"] = {k: v - before.get(k, 0)
+                           for k, v in block_scan.variant_launches.items() if v - before.get(k, 0)}
+        rec["predicted"] = _predicted(arch, "scan_100q")
+        out["cells"][f"scan_100q/opt{opt}"] = rec
+        del cell, arrays
+    # serve_4096q and graph_4096q through make_sharded_search
+    for shape, name, n_docs in (("serve_4096q", "serve", n), ("graph_4096q", "graph",
+                                                               spec["hnsw_docs"])):
+        arch = dataclasses.replace(splade, n_docs=n_docs)
+        cell = arch.build_cell(shape, mesh)
+        stacked, idmap = _load_arrays(d, name), np.load(d / f"{name}_idmap.npy")
+        before = dict(rows_dot.variant_launches)
+        rec = _run_cell(cell.fn, (stacked, idmap, Q), CELL_REPS)
+        ids, scores = rec.pop("result")
+        np.savez(d / f"out_{name}.npz", ids=ids.cpu().numpy(), scores=scores.cpu().numpy())
+        eager = {k: v - before.get(k, 0) for k, v in rows_dot.variant_launches.items()}
+        launches = _replayed([cell.fn.fn._placed[2]])
+        _add(launches, eager)
+        rec["launches"] = {k: v for k, v in launches.items() if v}
+        rec["stages"] = sorted({st for p in cell.fn.fn._placed[2].plans.created().values()
+                                for st in p.stages})
+        rec["predicted"] = _predicted(arch, shape)
+        out["cells"][shape] = rec
+        del cell, stacked
+    torch.cuda.empty_cache()
+    # (b) Table 1's scan over the full corpus, each config from its base collection
+    out["full"] = {}
+    for config, name in (("msmarco-splade", "splade"), ("msmarco-lilsr", "lilsr")):
+        base = _to_dev(d, f"base_{name}", dev)
+        csr = tuple(torch.from_numpy(np.load(d / f"csr_{name}_{k}.npy")).to(dev)
+                    for k in ("offsets", "comps", "vals"))
+        Qb = Qs if name == "splade" else _padded(
+            torch.from_numpy(np.load(d / "Q_lilsr.npy")).to(dev)[:SCAN_NQ], dim_pad)
+        out["full"][config] = full_corpus_scan(config, base, csr, Qb, mesh,
+                                               spec[f"{name}_base_docs"])
+        del base, csr
+        torch.cuda.empty_cache()
+    (d / "out.json").write_text(json.dumps(out))
+
+
+def _searched_in_batches(ret, Q, batch: int) -> tuple:
+    """``ret.search`` over ``Q`` in batches of ``batch`` → host (ids, scores)."""
+    parts = [ret.search(Q[i:i + batch]) for i in range(0, Q.shape[0], batch)]
+    return tuple(torch.cat(x).cpu().numpy() for x in zip(*parts))
+
+
+def _csr_parts(fwd) -> dict:
+    return dict(offsets=fwd.offsets.astype(np.int64), comps=fwd.components.astype(np.int64),
+                vals=fwd.value_format.dequantise(fwd.values).astype(np.float32))
+
+
+def cells_phase(fwd, Q_all, index, seismic_ret, hnsw_ret, truth, csr, lilsr, card: str) -> dict:
+    """Phase 13: the paper's retrieval configs (see the module docstring) →
+    its records, and under ``"_path"`` the rows and block-scan launches of
+    the rank and of (c). ``Q_all`` holds phase 3's 4,096 queries (host),
+    ``truth`` the exact top-10 of its first queries, ``lilsr`` phase 11's
+    (collection, queries)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.configs import RETRIEVAL_IDS, get_arch
+    from repro_torch.core.layout import pack_blocks, pack_blocks_sharded
+    from repro_torch.core.seismic import exact_top_k
+    from repro_torch.kernels import block_scan
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.serve.api import build_shard_arrays, top_k
+
+    d = CELLS_DIR
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    dev = csr.device
+    n = fwd.n_docs
+    splade = get_arch("msmarco-splade")
+    graph_p = splade._graph_cfg().params
+    if any(hnsw_ret.cfg.params[k] != v for k, v in graph_p.items()) or hnsw_ret.cfg.codec != \
+            splade.codec:
+        raise SystemExit(f"phase 13: phase 6's graph serves {hnsw_ret.cfg}, the cell {graph_p}")
+    prep = {}
+    pool = ThreadPoolExecutor(1)
+    try:
+        # the rank starts (Python, torch, the card) while its inputs and the oracles are made
+        fut = pool.submit(spawn_ranks, cells_rank, 1, str(d), backend="nccl",
+                          init_file=d / "init", timeout_s=MESH_DEADLINE_S + 600)
+        t0 = time.perf_counter()
+        np.save(d / "Q.npy", Q_all)
+        scan_pack = pack_blocks(fwd, codec="dotvbyte", block_size=512).as_dict()  # phase 5's
+        _save_arrays(d, "scan0", scan_pack)
+        _save_arrays(d, "base_splade", scan_pack)
+        packs, _ = pack_blocks_sharded(fwd, 1, codec="dotvbyte", block_size=512,
+                                       seg_dtype=np.int8)
+        _save_arrays(d, "scan2", packs)
+        stacked, idmap, _ = build_shard_arrays(fwd, splade._engine_cfg(), 1, host_index=index)
+        _save_arrays(d, "serve", stacked)
+        np.save(d / "serve_idmap.npy", idmap)
+        # phase 6's graph as one shard: build_shard_arrays(n_shards=1) stacks a graph so
+        # built with an identity id map (tests/test_torch_configs.py holds that on the CPU)
+        n_h = hnsw_ret.n_docs
+        _save_arrays(d, "graph", {k: v.unsqueeze(0).cpu().numpy()
+                                  for k, v in hnsw_ret.arrays.items()})
+        np.save(d / "graph_idmap.npy", np.arange(n_h + 1, dtype=np.int32)[None])
+        fwd_l, Ql_np = lilsr
+        pack_l = pack_blocks(fwd_l, codec="dotvbyte", block_size=512)
+        _save_arrays(d, "base_lilsr", pack_l.as_dict())
+        np.save(d / "Q_lilsr.npy", Ql_np)
+        for name, f in (("splade", fwd), ("lilsr", fwd_l)):
+            for k, v in _csr_parts(f).items():
+                np.save(d / f"csr_{name}_{k}.npy", v)
+        (d / "spec.json").write_text(json.dumps(dict(
+            n_docs=n, hnsw_docs=n_h, splade_base_docs=n, lilsr_base_docs=fwd_l.n_docs)))
+        prep["inputs_s"] = time.perf_counter() - t0
+        # the oracles, before the rank touches the card
+        t0 = time.perf_counter()
+        # the retrievers' own searches, in the batches of 64 their plans were
+        # captured at (an answer does not depend on its batch, C2)
+        Q = torch.from_numpy(Q_all).to(dev)
+        want_serve = _searched_in_batches(seismic_ret, Q, N_QUERIES)
+        want_graph = _searched_in_batches(hnsw_ret, Q, N_QUERIES)
+        Q100 = Q[:SCAN_NQ]
+        lib = torch.sparse.mm(csr, Q100.t().contiguous()).t()
+        truth = list(truth) + [exact_top_k(fwd, Q_all[i], 10)
+                               for i in range(len(truth), SCAN_NQ)]
+        prep["oracles_s"] = time.perf_counter() - t0
+        del Q
+        torch.cuda.empty_cache()
+        prep["parent_reserved_gib"] = torch.cuda.memory_reserved() / 2**30
+        (d / "ready").touch()
+        spawn_s = fut.result()
+    except BaseException:
+        (d / "abort").touch()
+        raise
+    finally:
+        pool.shutdown(wait=True)
+    res = json.loads((d / "out.json").read_text())
+    cells = res["cells"]
+    # (a): the scans against sparse.mm and exact_top_k; the searches bit for bit
+    for opt in (0, 2):
+        got = torch.from_numpy(np.load(d / f"out_scan{opt}.npy")).to(dev)
+        torch.testing.assert_close(got, lib, rtol=1e-4, atol=1e-4)
+        sc, ids = top_k(got, 10)
+        swaps = sum(tie_aware_topk(f"phase 13 scan_100q opt {opt} query {i}",
+                                   ids[i].cpu().numpy(), sc[i].cpu().numpy(), *truth[i])
+                    for i in range(SCAN_NQ))
+        cells[f"scan_100q/opt{opt}"].update(max_abs_err=float((got - lib).abs().max()),
+                                            tied_swaps=swaps)
+    for shape, name, want, what in (("serve_4096q", "serve", want_serve, "phase 3's Seismic"),
+                                    ("graph_4096q", "graph", want_graph, "phase 6's hnsw")):
+        with np.load(d / f"out_{name}.npz") as z:
+            bitwise(f"phase 13 (a): {shape} at nq {SEARCH_NQ} vs {what} retriever in batches "
+                    f"of {N_QUERIES}",
+                    (z["ids"], z["scores"]), want)
+    # (c): each config's smoke on the card
+    block_scan.reset_launches()
+    smoke = {a: get_arch(a).smoke(seed=0) for a in RETRIEVAL_IDS}
+    torch.cuda.synchronize()
+    smoke_launches = {k: v for k, v in block_scan.variant_launches.items() if v}
+    rows, blocks = {}, dict(smoke_launches)
+    for key, rec in cells.items():
+        _add(rows if key.endswith("4096q") else blocks, rec["launches"])
+    for rec in res["full"].values():
+        for opt in ("opt0", "opt2", "single"):
+            _add(blocks, rec[opt]["launches"])
+    if (rows.get("rows_dot_dotvbyte_f16", 0) <= 0
+            or blocks.get("block_scan_dotvbyte_batch", 0) <= 0
+            or blocks.get("block_scan_dotvbyte", 0) <= 0):
+        raise SystemExit(f"phase 13 launched rows {rows}, block scans {blocks}")
+    out = dict(backend=res["backend"], prep_s=prep, spawn_s=spawn_s, cells=cells,
+               full=res["full"], smoke=smoke, _path=dict(rows_launches=rows,
+                                                         block_launches=blocks))
+    gib = 2**30
+    docs_of = {"serve_4096q": n, "graph_4096q": n_h}
+    log(f"[13] the retrieval configs ({card}): one {res['backend']} rank, mesh (1, 1); inputs "
+        f"{prep['inputs_s']:.1f}s, oracles {prep['oracles_s']:.1f}s, spawn {spawn_s:.1f}s; the "
+        f"parent held {prep['parent_reserved_gib']:.2f} GiB of the card meanwhile")
+    for key, rec in cells.items():
+        p = rec["predicted"]
+        extra = (f"== sparse.mm (max {rec['max_abs_err']:.2e}), top-10 == exact_top_k "
+                 f"({rec['tied_swaps']} tied swaps)" if key.startswith("scan") else
+                 f"== the retriever's own search (batches of {N_QUERIES}) bit for bit, stages "
+                 f"{rec['stages']}")
+        log(f"    (a) {key} over {docs_of.get(key, n)} docs: {extra}; "
+            f"{rec['ms_median']:.3f} ms median of {CELL_REPS} (first {rec['first_s']:.2f}s), "
+            f"launches {rec['launches']}, max_memory_allocated "
+            f"{rec['max_memory_allocated'] / gib:.2f} "
+            f"GiB; dry run (1, 1): {p['peak_device_bytes'] / gib:.3f} GiB ({card})")
+    for config, rec in res["full"].items():
+        for opt in ("opt0", "opt2"):
+            r = rec[opt]
+            log(f"    (b) {config} scan_100q {opt} ({r['seg']} seg) over {rec['n_docs']:,} docs "
+                f"({rec['copies']} copies of {rec['n_base']:,}; B={rec['n_blocks']:,}, "
+                f"{rec['nnz']:,} nnz): == sparse.mm of the base copy by copy (max "
+                f"{r['copies_max_abs_err']:.2e}); {r['ms']:.3f} ms (CUDA events, median of "
+                f"{CELL_REPS}), bound {r['bound_ms']:.3f} ms by {r['bound_by']}; pack "
+                f"{r['resident_bytes'] / 1e9:.2f} GB + scores {r['scores_bytes'] / 1e9:.2f} GB, "
+                f"max_memory_allocated {r['max_memory_allocated'] / 1e9:.2f} GB; dry run (1, 1): "
+                f"{r['predicted']['peak_device_bytes'] / 1e9:.2f} GB ({card})")
+        sm, one = rec["sparse_mm"], rec["single"]
+        log(f"    (b) {config} single query (block_scan_dotvbyte, {one['stages']}): == "
+            f"sparse.mm of the base copy by copy (max {one['copies_max_abs_err']:.2e}); "
+            f"{one['ms']:.3f} ms, bound {one['bound_ms']:.3f} ms by {one['bound_by']} ({card})")
+        log(f"    (b) {config}: {rec['bits_per_component']:.2f} bits/comp (ctrl + data); "
+            + (f"sparse.mm over the full CSR ({sm['csr_bytes'] / 1e9:.2f} GB, int32) "
+               f"{sm['ms']:.3f} ms (nq 1: {sm['ms_nq1']:.3f}), == opt 2 within 1e-4 (max "
+               f"{sm['max_abs_err_vs_opt2']:.2e})"
+               if "ms" in sm else f"sparse.mm skipped: {sm['skipped']}") + f" ({card})")
+    log("    (c) smoke: " + ", ".join(f"{a} max_err {v['max_err']:.2e} on {v['device']}"
+                                      for a, v in smoke.items())
+        + f"; launches {smoke_launches}")
+    shutil.rmtree(d, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="smoke run of the port on one GPU")
     ap.add_argument("--n-docs", type=int, default=100_000,
@@ -3341,11 +3852,15 @@ def main() -> int:
 
     # -- 3. the main path -----------------------------------------------------
     t0 = time.perf_counter()
-    col = generate_collection(splade_config(args.n_docs, nq, 0), value_format="f16")
+    # drawn once with phase 13's 4,096 queries: the documents do not depend on
+    # the query count, the first 64 queries (every earlier phase's) do
+    col = generate_collection(splade_config(args.n_docs, SEARCH_NQ, 0), value_format="f16")
     fwd = col.fwd
-    Q_np = np.stack([col.query_dense(i) for i in range(col.n_queries)])
+    Q_all = np.stack([col.query_dense(i) for i in range(col.n_queries)])
+    Q_np = Q_all[:nq]
     log(f"[3] generated {fwd.n_docs} docs (nnz/doc={fwd.total_nnz / fwd.n_docs:.1f}, "
-        f"dim={fwd.dim}) + {nq} queries in {time.perf_counter() - t0:.1f}s")
+        f"dim={fwd.dim}) + {col.n_queries} queries ({nq} a batch up to phase 12) in "
+        f"{time.perf_counter() - t0:.1f}s")
     phase_s["3 generate"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     impl = get_engine("seismic")
@@ -3636,6 +4151,7 @@ def main() -> int:
             rec["name"], 0)
         rec.setdefault("launches_by_path", {})["rgb_lilsr"] = n
         rec["launches"] += n
+    lilsr = extra.pop("_lilsr")  # kept for phase 13
     dv["rgb_lilsr_phase"] = extra
     phase_s["11 rgb + lilsr"] = time.perf_counter() - t0
     log(f"[11] {phase_s['11 rgb + lilsr']:.1f}s")
@@ -3656,7 +4172,24 @@ def main() -> int:
     phase_s["12 mesh"] = time.perf_counter() - t0
     log(f"[12] {phase_s['12 mesh']:.1f}s")
 
-    # -- 13. summary ------------------------------------------------------------
+    # -- 13. the paper's retrieval configs ----------------------------------------
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cells = cells_phase(fwd, Q_all, index, seismic["dotvbyte", "f16"],
+                        hnsw_served["dotvbyte", "f16"], truth, csr, lilsr, card)
+    for rec in kernels:
+        n = (cells["_path"]["rows_launches"].get(rec["name"], 0)
+             + cells["_path"]["block_launches"].get(rec["name"], 0))
+        rec.setdefault("launches_by_path", {})["configs"] = n
+        rec["launches"] += n
+    dv["configs_phase"] = {k: v for k, v in cells.items() if k != "full"}
+    kernels[[k["name"] for k in kernels].index("block_scan_dotvbyte_batch")]["full_corpus"] = \
+        cells["full"]
+    phase_s["13 configs"] = time.perf_counter() - t0
+    log(f"[13] {phase_s['13 configs']:.1f}s")
+
+    # -- 14. summary ------------------------------------------------------------
     log("phases: " + ", ".join(f"{k} {v:.1f}s" for k, v in phase_s.items()))
     log(f"ported kernels: {n_rows} rows_dot variants and {len(kernels) - n_rows} block-scan "
         f"entries ok; total {time.perf_counter() - t_start:.0f}s")

@@ -1,0 +1,67 @@
+"""Config registry: ``--arch <id>`` resolution — the port of
+``repro/configs/__init__.py``.
+
+The reference's ten assigned architectures (LM, GNN, RecSys) plus the
+paper's own retrieval configs. Only the retrieval configs are ported
+yet: the other ids stay in ``ARCH_IDS`` (they are the reference's
+registry) and ``get_arch`` raises ``NotImplementedError`` for them
+(ROADMAP A11); ``all_cells`` leaves them out."""
+
+from __future__ import annotations
+
+import dataclasses
+from importlib import import_module
+
+__all__ = ["ARCH_IDS", "RETRIEVAL_IDS", "get_arch", "all_cells"]
+
+ARCH_IDS = (
+    # LM family
+    "olmoe-1b-7b",
+    "kimi-k2-1t-a32b",
+    "qwen3-8b",
+    "yi-6b",
+    "deepseek-coder-33b",
+    # GNN
+    "gat-cora",
+    # RecSys
+    "deepfm",
+    "sasrec",
+    "dcn-v2",
+    "din",
+)
+
+RETRIEVAL_IDS = ("msmarco-splade", "msmarco-lilsr")
+
+_MODULES = {
+    "msmarco-splade": "msmarco_splade",
+    "msmarco-lilsr": "msmarco_lilsr",
+}
+
+
+def get_arch(arch_id: str):
+    """Resolve an arch id. Retrieval configs accept a ``-optN`` suffix
+    selecting the scan's optimisation level (see configs/retrieval.py)."""
+    opt = 0
+    base = arch_id
+    if "-opt" in arch_id:
+        base, _, lvl = arch_id.rpartition("-opt")
+        opt = int(lvl)
+    if base in ARCH_IDS:
+        raise NotImplementedError(
+            f"arch {base!r} is not ported to repro_torch yet (ROADMAP A11: the LM, GNN and "
+            f"RecSys families); ported: {list(RETRIEVAL_IDS)}")
+    if base not in _MODULES:
+        raise KeyError(f"unknown arch {arch_id!r}; have {sorted(ARCH_IDS + RETRIEVAL_IDS)}")
+    arch = import_module(f"{__name__}.{_MODULES[base]}").ARCH
+    if opt:
+        arch = dataclasses.replace(arch, name=arch_id, opt=opt)
+    return arch
+
+
+def all_cells(include_retrieval: bool = True):
+    """Yield (arch_id, shape_name) for every dry-run cell of the ported
+    configs."""
+    for a in RETRIEVAL_IDS if include_retrieval else ():
+        arch = get_arch(a)
+        for s in arch.shape_names:
+            yield a, s

@@ -331,7 +331,8 @@ def make_doc_aligned_scan(mesh, axes, docs_local: int, scale: float, codec: str 
     """The doc-aligned sharded scan: ``fn(arrays, Q [nq, dim]) → f32 [nq,
     docs_local]``, this rank's documents' scores.
 
-    ``arrays`` are the stacked ``layout.pack_blocks_sharded`` arrays;
+    ``arrays`` are the stacked ``layout.pack_blocks_sharded`` arrays
+    (numpy, or tensors on any device);
     the rank takes its range (its row-major index over ``axes``, the
     reference's ``P(axes)`` order) and keeps it resident on ``device``
     (``cuda`` unless given) while the same ``arrays`` come back. Its
@@ -351,6 +352,8 @@ def make_doc_aligned_scan(mesh, axes, docs_local: int, scale: float, codec: str 
     placed: list = [None, None, None]  # arrays, dim, the rank's pack on the device
 
     def tensor(a) -> torch.Tensor:
+        if isinstance(a, torch.Tensor):
+            return a.to(device)
         a = np.ascontiguousarray(a)
         return torch.from_numpy(a if a.flags.writeable else a.copy()).to(device)
 

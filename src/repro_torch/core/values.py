@@ -43,6 +43,7 @@ __all__ = [
     "VALUE_CODECS",
     "PQ_K",
     "PQ_M",
+    "sq_keys",
     "check_vq",
     "code_factor",
     "n_vq_streams",
@@ -77,6 +78,11 @@ _MAXCODE = {"u8_sq": 255, "u4_sq": 15}
 #: sub-vectors per nearest-centroid chunk: bounds the [S, PQ_K] f32
 #: distance matrix of :func:`_pq_codes` to 32 MiB
 _PQ_CHUNK = 1 << 15
+
+
+def sq_keys(vq: str) -> tuple[str, str]:
+    """The (lo, scale) payload key names of a scalar-quant vq."""
+    return _SQ_KEYS[vq]
 
 
 def check_vq(vq: str) -> str:

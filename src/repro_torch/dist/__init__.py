@@ -8,8 +8,10 @@ of what jax shards, and calls the collective of a mesh axis where jax
 calls ``all_gather`` or ``pmean`` over it:
 
 * ``sharding``    — the serving mesh (``index_mesh``), the data axes,
-  the tombstone budget, and the axis helpers every mesh path shares
-  (``axis_index``, ``axis_size``, ``axes_group``, ``all_gather``);
+  the tombstone budget, the axis helpers every mesh path shares
+  (``axis_index``, ``axis_size``, ``axes_group``, ``all_gather``) and
+  the placements the configs' cells carry (``P``, ``to_shardings``,
+  ``replicate``, ``shard_shape``);
 * ``compression`` — the int8 error-feedback gradient mean of the
   compressed data-parallel step.
 

@@ -2,24 +2,39 @@
 counterpart of ``repro/dist/sharding.py``'s serving half.
 
 A mesh is a ``DeviceMesh`` over the initialised process group, one rank
-per device. Its device type is where the collectives run: ``"cuda"``
-under NCCL (a GPU a rank), ``"cpu"`` under gloo (on the CPU, or ranks
-that share one GPU: gloo carries only small host copies of the results
-and gradients, see ``all_gather``). A collective over several mesh
+per device, or a device-free ``launch.mesh.MeshShape`` (axis names and
+sizes) where only shapes are asked for: ``data_axes``, ``axis_size`` and
+``shard_shape`` read either one. A ``DeviceMesh``'s device type is where
+the collectives run: ``"cuda"`` under NCCL (a GPU a rank), ``"cpu"``
+under gloo (on the CPU, or ranks that share one GPU: gloo carries only
+small host copies of the results and gradients, see ``all_gather``). A collective over several mesh
 axes runs over each axis in turn, last axis first, so its result is in
 the row-major order of the flattened axes, as jax lays out an
 ``all_gather`` over a tuple of axes.
+
+A placement is the reference's ``NamedSharding``: a mesh and a
+``PartitionSpec`` (``P``, a tuple with one entry per leading dimension:
+``None``, an axis name, or a tuple of axis names split row-major).
+``to_shardings`` and ``replicate`` build them over a tree of specs as the
+reference's do; ``Placement.shard_shape`` is the per-device shape.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import torch
 import torch.distributed as dist
 
 __all__ = [
+    "P",
+    "PartitionSpec",
+    "Placement",
+    "to_shardings",
+    "replicate",
+    "shard_shape",
+    "mesh_size",
     "data_axes",
     "index_mesh",
     "tombstone_budget",
@@ -31,6 +46,75 @@ __all__ = [
     "group_all_gather",
     "all_gather",
 ]
+
+
+class PartitionSpec(tuple):
+    """The reference's ``PartitionSpec``: one entry a leading dimension —
+    ``None`` (not split), an axis name, or a tuple of axis names. A spec
+    is a leaf of a spec tree (a plain tuple is a node)."""
+
+    def __new__(cls, *entries):
+        return super().__new__(cls, entries)
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+
+P = PartitionSpec
+
+
+class Placement(NamedTuple):
+    """The reference's ``NamedSharding(mesh, spec)``."""
+
+    mesh: object
+    spec: PartitionSpec
+
+    def shard_shape(self, shape) -> tuple[int, ...]:
+        return shard_shape(shape, self.spec, self.mesh)
+
+
+def _tree_map(fn, tree):
+    """``fn`` over the leaves of a tree of dicts, lists and tuples (a
+    ``PartitionSpec`` is a leaf)."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)) and not isinstance(tree, PartitionSpec):
+        return type(tree)(_tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def to_shardings(mesh, specs):
+    """A tree of ``PartitionSpec``s → the same tree of ``Placement``s."""
+    return _tree_map(lambda s: Placement(mesh, s), specs)
+
+
+def replicate(tree):
+    """A fully-replicated spec for every leaf of ``tree``."""
+    return _tree_map(lambda _: P(), tree)
+
+
+def mesh_size(mesh) -> int:
+    """The number of devices of a ``DeviceMesh`` or a ``MeshShape``."""
+    return math.prod(mesh.size(d) for d in range(len(mesh.mesh_dim_names)))
+
+
+def shard_shape(shape, spec, mesh) -> tuple[int, ...]:
+    """The per-device shape of an array of ``shape`` placed by ``spec``
+    on ``mesh`` — the reference's ``NamedSharding(mesh,
+    spec).shard_shape(shape)``, with its error on a dimension the axes'
+    size does not divide."""
+    shape = tuple(int(d) for d in shape)
+    if len(spec) > len(shape):
+        raise ValueError(f"spec {spec!r} has {len(spec)} entries for a {len(shape)}-D array")
+    factors = [1 if e is None else axis_size(mesh, e) for e in spec]
+    factors += [1] * (len(shape) - len(factors))
+    for i, (d, f) in enumerate(zip(shape, factors)):
+        if d % f:
+            raise ValueError(
+                f"Sharding {Placement(mesh, P(*spec))} implies that array axis {i} is "
+                f"partitioned {f} times, but the dimension size is {d} (full shape: {shape}, "
+                f"per-dimension tiling factors: {factors} should evenly divide the shape)")
+    return tuple(d // f for d, f in zip(shape, factors))
 
 
 def data_axes(mesh) -> tuple[str, ...]:

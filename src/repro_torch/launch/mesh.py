@@ -1,22 +1,27 @@
 """Meshes over the initialised process group, and the local launcher
-that runs one program on several ranks — the counterpart of
-``repro/launch/mesh.py``'s ``make_debug_mesh`` (the reference forces
-host devices with ``XLA_FLAGS``; here each rank is a process).
+that runs one program on several ranks — the port of
+``repro/launch/mesh.py`` (the reference forces host devices with
+``XLA_FLAGS``; here each rank is a process).
 
 ``make_debug_mesh(shape, axes)`` lays ranks ``0 … prod(shape) - 1`` out
 row-major on a ``DeviceMesh``: ``"cpu"`` under gloo, ``"cuda"`` under
-NCCL. ``spawn_ranks(fn, world, *args, backend=, init_file=,
-timeout_s=)`` starts ``world`` spawned processes, each of which joins
+NCCL. ``make_production_mesh(multi_pod=)`` is the reference's production
+mesh, ``(16, 16)`` over ``("data", "model")`` or ``(2, 16, 16)`` over
+``("pod", "data", "model")``, on as many ranks; with fewer it raises.
+``MeshShape`` is the same layout without devices (axis names and
+sizes): what ``configs`` build a cell against and the dry run sizes
+(``production_mesh_shape``). ``spawn_ranks(fn, world, *args, backend=,
+init_file=, timeout_s=)`` starts ``world`` spawned processes, each of which joins
 the process group (``file://`` rendezvous at ``init_file``; the
 backend's timeout is the deadline), runs ``fn(rank, world, *args)`` and
 leaves the group. The caller waits until every rank has exited 0; a
 rank that fails, or a deadline that passes (a hung collective), kills
-the rest and raises. ``make_production_mesh`` goes with the auxiliary
-workloads (ROADMAP A11).
+the rest and raises.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import datetime
 import math
 import multiprocessing as mp
@@ -27,7 +32,48 @@ import time
 import torch
 import torch.distributed as dist
 
-__all__ = ["make_debug_mesh", "spawn_ranks"]
+__all__ = ["MeshShape", "production_mesh_shape", "make_production_mesh", "make_debug_mesh",
+           "spawn_ranks"]
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshShape:
+    """A mesh's axis names and sizes, with no devices behind it. It
+    answers what ``dist.sharding`` asks of a ``DeviceMesh`` for shapes
+    (``mesh_dim_names``, ``shape``, ``size``); it holds no coordinate, so
+    a program that needs a rank raises on it."""
+
+    shape: tuple[int, ...]
+    mesh_dim_names: tuple[str, ...]
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.mesh_dim_names):
+            raise ValueError(f"{len(self.shape)} sizes for axes {self.mesh_dim_names}")
+
+    def size(self, mesh_dim: int | None = None) -> int:
+        return math.prod(self.shape) if mesh_dim is None else self.shape[mesh_dim]
+
+    def get_coordinate(self):
+        return None
+
+    def __str__(self) -> str:
+        return "MeshShape(" + ", ".join(
+            f"{a!r}: {n}" for a, n in zip(self.mesh_dim_names, self.shape)) + ")"
+
+
+def production_mesh_shape(*, multi_pod: bool = False) -> MeshShape:
+    """16 × 16 = 256 devices a pod ``("data", "model")``; × 2 pods
+    ``("pod", "data", "model")`` when ``multi_pod``."""
+    if multi_pod:
+        return MeshShape((2, 16, 16), ("pod", "data", "model"))
+    return MeshShape((16, 16), ("data", "model"))
+
+
+def make_production_mesh(*, multi_pod: bool = False):
+    """The production mesh (``production_mesh_shape``) as a ``DeviceMesh``
+    over the initialised process group; a group of fewer ranks raises."""
+    m = production_mesh_shape(multi_pod=multi_pod)
+    return make_debug_mesh(m.shape, m.mesh_dim_names)
 
 
 def make_debug_mesh(shape=(2, 4), axes=("data", "model")):

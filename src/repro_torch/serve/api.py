@@ -79,6 +79,7 @@ __all__ = [
     "build_shard_arrays",
     "make_sharded_search",
     "ShardedSearch",
+    "row_array_specs",
 ]
 
 #: artifact layout version; shared with the reference so artifacts cross
@@ -185,6 +186,11 @@ class EngineImpl:
         ids, scores = self.search_batch(cfg, n_docs, value_scale, arrays, q.unsqueeze(0))
         return ids[0], scores[0]
 
+    def array_specs(self, cfg: RetrieverConfig, **dims) -> Dict[str, torch.Tensor]:
+        """``meta`` tensors standing in for the engine arrays (the dry
+        run's sizing; nothing is allocated)."""
+        raise NotImplementedError
+
 
 _ENGINES: Dict[str, Callable[[], EngineImpl]] = {}
 
@@ -216,6 +222,51 @@ def get_engine(name: str) -> EngineImpl:
 def available_engines() -> list[str]:
     _ensure_builtin_engines()
     return sorted(_ENGINES)
+
+
+def _spec(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def row_array_specs(
+    codec: str,
+    *,
+    n_docs: int,
+    l_max: int,
+    d_max: int,
+    value_dtype=torch.float16,
+    bitpack_bits: int = 16,
+    vq: str = "f16",
+) -> Dict[str, torch.Tensor]:
+    """``meta`` tensors of the packed row form under ``codec`` — the
+    candidate-rescoring arrays every engine shares, with the reference's
+    names, shapes and dtypes. Under a quantized ``vq`` the value stream
+    is u8 codes at ``l_max // code_factor`` width plus the clip columns
+    or the codebook; ``l_max`` must already be factor-aligned the way
+    ``layout.pack_rows`` rounds it."""
+    value_codecs.check_vq(vq)
+    factor = value_codecs.code_factor(vq)
+    arrays = {
+        "vals_rows": (_spec((n_docs + 1, l_max), value_dtype) if vq == "f16"
+                      else _spec((n_docs + 1, l_max // factor), torch.uint8)),
+        "nnz_rows": _spec((n_docs + 1,), torch.int32),
+    }
+    if vq == "pq":
+        arrays["vq_codebook"] = _spec((value_codecs.PQ_K, value_codecs.PQ_M), torch.float32)
+    elif vq != "f16":
+        for key in value_codecs.sq_keys(vq):
+            arrays[key] = _spec((n_docs + 1, 1), torch.float32)
+    if codec == "uncompressed":
+        arrays["comps_rows"] = _spec((n_docs + 1, l_max), torch.int32)
+    elif codec == "bitpack":
+        arrays["words_rows"] = _spec((n_docs + 1, (l_max * bitpack_bits + 31) // 32),
+                                     torch.uint32)
+        arrays["widths_rows"] = _spec((n_docs + 1,), torch.int32)
+    else:  # (ctrl, data) byte-stream codecs
+        group = layout.get_layout(codec).block_multiple
+        arrays["ctrl_rows"] = _spec((n_docs + 1, l_max // group), torch.uint8)
+        arrays["data_rows"] = _spec((n_docs + 1, d_max), torch.uint8)
+    return arrays
 
 
 def _to_tensor(a) -> torch.Tensor:

@@ -20,7 +20,7 @@ import torch
 from ...core import layout
 from ...core.forward_index import ForwardIndex
 from ...core.scoring import score_candidate_rows_batch
-from ..api import EngineImpl, RetrieverConfig, register_engine, top_k
+from ..api import EngineImpl, RetrieverConfig, register_engine, row_array_specs, top_k
 
 __all__ = ["FlatEngine"]
 
@@ -46,6 +46,11 @@ class FlatEngine(EngineImpl):
         scores = scores.masked_fill(docs.unsqueeze(0) >= n_docs, float("-inf"))
         top_s, idx = top_k(scores, cfg.k)
         return docs[idx], top_s
+
+    def array_specs(self, cfg: RetrieverConfig, *, n_docs: int, l_max: int, d_max: int,
+                    value_dtype=torch.float16, **_ignored):
+        return row_array_specs(cfg.codec, n_docs=n_docs, l_max=l_max, d_max=d_max,
+                               value_dtype=value_dtype, vq=cfg.vq)
 
     def shard_build(self, fwd: ForwardIndex, cfg: RetrieverConfig, n_shards: int):
         """Contiguous doc ranges of ``⌈n / n_shards⌉``, each padded with

@@ -35,7 +35,7 @@ import torch
 from ...core import layout
 from ...core.hnsw import HNSWIndex, HNSWParams
 from ...core.scoring import candidate_rows_scorer
-from ..api import EngineImpl, RetrieverConfig, register_engine, top_k
+from ..api import EngineImpl, RetrieverConfig, register_engine, row_array_specs, top_k
 
 __all__ = ["HNSWEngine"]
 
@@ -132,6 +132,17 @@ class HNSWEngine(EngineImpl):
             scores = top_s
         top_s, idx = top_k(scores, cfg.k)
         return torch.gather(ids, 1, idx).int(), top_s
+
+    def array_specs(self, cfg: RetrieverConfig, *, n_docs: int, degree: int, l_max: int,
+                    d_max: int, value_dtype=torch.float16):
+        p = self.params(cfg)
+        arrays = {
+            "adj": torch.empty((n_docs + 1, degree), dtype=torch.int32, device="meta"),
+            "seeds": torch.empty((p["n_seeds"],), dtype=torch.int32, device="meta"),
+        }
+        arrays.update(row_array_specs(cfg.codec, n_docs=n_docs, l_max=l_max, d_max=d_max,
+                                      value_dtype=value_dtype, vq=cfg.vq))
+        return arrays
 
     # -- sharded build (the mesh's stacked shards) ------------------------
     def shard_build(self, fwd, cfg: RetrieverConfig, n_shards: int):

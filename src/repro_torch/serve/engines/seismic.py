@@ -26,9 +26,14 @@ import torch
 from ...core import layout
 from ...core.scoring import score_candidate_rows
 from ...core.seismic import SeismicIndex, SeismicParams
-from ..api import EngineImpl, RetrieverConfig, register_engine, top_k
+from ..api import EngineImpl, RetrieverConfig, register_engine, row_array_specs, top_k
 
 __all__ = ["SeismicEngine"]
+
+#: elements of phase 1's [queries, block_budget, s_max] gathers a chunk of
+#: queries may hold (at the CLI's parameters over 100,000 docs, s_max 1,268:
+#: 206 queries; 4,096 at once would gather ~60 GB)
+_PROBE_CHUNK_ELEMS = 1 << 27
 
 
 @register_engine("seismic")
@@ -140,15 +145,27 @@ class SeismicEngine(EngineImpl):
         valid = offs < lens.unsqueeze(-1)
         cand = torch.where(valid, cand, -1).reshape(nq, -1)  # [nq, budget]
 
-        # summary upper bounds
+        # summary upper bounds; above a chunk, in query chunks that bound the
+        # [chunk, budget, s_max] gathers (a query's bounds do not depend on its
+        # batch-mates)
         blk = cand.clamp_min(0).long()
-        sc = arrays["sum_comps"][blk]  # [nq, budget, s_max]
-        sv = arrays["sum_vals"][blk]
-        qs = torch.gather(Q, 1, sc.reshape(nq, -1).long()).reshape(sc.shape)
-        est = (qs * sv).sum(-1)
+        step = max(1, _PROBE_CHUNK_ELEMS // max(1, blk.shape[1] * arrays["sum_comps"].shape[1]))
+        if nq <= step:
+            est = self._bounds(arrays, Q, blk)
+        else:
+            est = torch.cat([self._bounds(arrays, Q[q0:q0 + step], blk[q0:q0 + step])
+                             for q0 in range(0, nq, step)])
         est = torch.where(cand >= 0, est, float("-inf"))
         _, probe = top_k(est, n_probe)
         return est, cand, torch.gather(cand, 1, probe)  # [nq, n_probe]
+
+    @staticmethod
+    def _bounds(arrays, Q, blk):
+        """Summary bounds of blocks ``blk`` i64 [nq, budget] → f32 [nq, budget]."""
+        sc = arrays["sum_comps"][blk]  # [nq, budget, s_max]
+        sv = arrays["sum_vals"][blk]
+        qs = torch.gather(Q, 1, sc.reshape(Q.shape[0], -1).long()).reshape(sc.shape)
+        return (qs * sv).sum(-1)
 
     def candidates(self, cfg: RetrieverConfig, n_docs: int, arrays, Q):
         """Phases 1 and the dedupe of phase 2: queries f32 [nq, dim] →
@@ -174,6 +191,23 @@ class SeismicEngine(EngineImpl):
         return torch.gather(docs, 1, idx), top_s
 
     # -- sharded build (the mesh's stacked shards) ------------------------
+    def array_specs(self, cfg: RetrieverConfig, *, dim: int, n_docs: int, n_blocks: int,
+                    s_max: int, bs_max: int, l_max: int, d_max: int,
+                    value_dtype=torch.float16):
+        def spec(shape, dtype):
+            return torch.empty(shape, dtype=dtype, device="meta")
+
+        arrays = {
+            "cbs": spec((dim,), torch.int32),
+            "cbl": spec((dim,), torch.int32),
+            "sum_comps": spec((n_blocks, s_max), torch.int32),
+            "sum_vals": spec((n_blocks, s_max), torch.float32),
+            "block_docs": spec((n_blocks, bs_max), torch.int32),
+        }
+        arrays.update(row_array_specs(cfg.codec, n_docs=n_docs, l_max=l_max, d_max=d_max,
+                                      value_dtype=value_dtype, vq=cfg.vq))
+        return arrays
+
     def shard_build(self, fwd, cfg: RetrieverConfig, n_shards: int):
         return self.shard_from_index(self.host_index(fwd, cfg), cfg, n_shards)
 

@@ -39,6 +39,7 @@ from repro_torch.core import layout, scoring, values
 from repro_torch.core.forward_index import ForwardIndex, PackedBlocks, pack_forward_index
 from repro_torch.kernels import block_scan, build, ops
 from torch_cases import CODECS, VQS, edge_docs, wide_docs
+from torch_cases import one_intra_op_thread  # noqa: F401  (autouse)
 
 RTOL = ATOL = 1e-5
 EXACT_ATOL = 2e-3

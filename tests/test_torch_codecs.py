@@ -21,6 +21,7 @@ from repro_torch.core import codecs, values
 from repro_torch.core.codecs import bitpack
 from repro_torch.core.forward_index import ForwardIndex
 from torch_cases import CODECS, VQS, edge_docs, wide_docs
+from torch_cases import one_intra_op_thread  # noqa: F401  (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -19,6 +19,7 @@ from repro_torch.data import synthetic
 from repro_torch.serve.api import RetrieverConfig
 from repro_torch.serve.engines.seismic import SeismicEngine
 from torch_cases import VARIANTS, edge_docs, wide_docs
+from torch_cases import one_intra_op_thread  # noqa: F401  (autouse)
 
 SIZES = [(2048, 400), (30522, 200)]
 

@@ -28,6 +28,7 @@ from repro_torch.launch.mesh import make_debug_mesh, spawn_ranks
 from repro_torch.dist.sharding import axis_block
 from repro_torch.train.train_step import (init_dp_residual, init_train_state,
                                           make_dp_compressed_train_step)
+from torch_cases import one_intra_op_thread  # noqa: F401  (autouse)
 
 SHAPES = {"a": (5, 3), "b": (7,), "c": (2, 3, 4), "zero": (4,)}
 

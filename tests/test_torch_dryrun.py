@@ -1,0 +1,128 @@
+"""The port's dry run (``python -m repro_torch.launch.dryrun``) on the
+CPU: the command line over both production meshes, its records against
+the reference's per-device shapes (one subprocess with 512 forced jax
+devices, ``tests/torch_configs_cases.py``), its ``OK`` and ``SKIP`` lines,
+and no jax in the process that ran it."""
+
+import json
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+from torch_configs_cases import ROOT, device_bytes, reference_cells
+
+from repro_torch.configs import ARCH_IDS, RETRIEVAL_IDS
+from repro_torch.launch.hlo_stats import HW, roofline_terms
+
+#: runs the dry run's ``main`` and fails if jax or the reference was imported
+_RUN = (
+    "import runpy, sys\n"
+    "sys.argv = ['dryrun'] + sys.argv[1:]\n"
+    "try:\n"
+    "    runpy.run_module('repro_torch.launch.dryrun', run_name='__main__')\n"
+    "finally:\n"
+    "    bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'repro'))\n"
+    "    assert not bad, bad\n"
+)
+
+
+def dryrun(*args, cwd):
+    return subprocess.run([sys.executable, "-c", _RUN, *args], cwd=cwd, capture_output=True,
+                          text=True, timeout=300,
+                          env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"})
+
+
+@pytest.fixture(scope="module")
+def reference():
+    return reference_cells()
+
+
+@pytest.fixture(scope="module")
+def full_run(tmp_path_factory):
+    out = tmp_path_factory.mktemp("dryrun")
+    res = dryrun("--out", str(out / "records"), cwd=out)
+    return res, out / "records"
+
+
+def test_cli_covers_every_ported_cell_and_names_the_rest(full_run):
+    res, _ = full_run
+    assert res.returncode == 0, res.stderr[-3000:]
+    lines = res.stdout.splitlines()
+    skips = [ln for ln in lines if ln.startswith("SKIP ")]
+    assert skips == [f"SKIP {a}: not ported to repro_torch yet (ROADMAP A11)"
+                     for a in ARCH_IDS]
+    oks = [ln for ln in lines if ln.startswith("OK  ")]
+    assert len(oks) == 2 * len(RETRIEVAL_IDS) * 3
+    assert all("GiB of 80 GB (H100)" in ln and "dominant=" in ln for ln in oks)
+    assert lines[-1] == "dry-run complete: 12 ok, 0 failed"
+
+
+@pytest.mark.parametrize("mesh_tag", ["pod256", "pod512x2"])
+@pytest.mark.parametrize("arch_id", RETRIEVAL_IDS)
+def test_records_equal_the_parity_numbers(full_run, reference, arch_id, mesh_tag):
+    _, records = full_run
+    for shape in ("scan_100q", "serve_4096q", "graph_4096q"):
+        rec = json.loads((records / mesh_tag / f"{arch_id}__{shape}.json").read_text())
+        want = reference[f"{arch_id}|{mesh_tag}|{shape}"]
+        assert (rec["arch"], rec["shape"], rec["kind"], rec["mesh"], rec["ok"]) == (
+            arch_id, shape, "serve", mesh_tag, True)
+        assert rec["n_chips"] == want["n_chips"]
+        mem = rec["memory"]
+        assert mem["argument_bytes"] == device_bytes(want["inputs"])
+        assert mem["output_bytes"] == device_bytes(want["outputs"])
+        assert mem["peak_device_bytes"] == mem["argument_bytes"] + mem["output_bytes"]
+        for k in ("temp_bytes", "alias_bytes"):
+            assert mem[k] is None
+        for k in ("lower_s", "compile_s"):
+            assert rec[k] is None
+        cost = rec["cost"]
+        assert cost["device_flops"] == want["model_flops"] / want["n_chips"]
+        assert cost["device_bytes"] == mem["peak_device_bytes"]
+        assert cost["xla_cost_analysis_flops_unscaled"] is None
+        assert cost["xla_cost_analysis_bytes_unscaled"] is None
+        coll = rec["collectives"]
+        if shape == "scan_100q":
+            assert coll["by_op"] == {"reduce-scatter": 4.0 * 100 * 8_842_240 / want["n_chips"]}
+        else:  # [nq / |data|, 10] ids and scores from each of the 16 index shards
+            nq_local = 4096 // (want["n_chips"] // 16)
+            assert coll["by_op"] == {"all-gather": float(16 * nq_local * 10 * 8)}
+        assert coll["total_bytes_per_device"] == sum(coll["by_op"].values())
+        assert rec["roofline"] == roofline_terms(
+            global_flops=cost["device_flops"] * rec["n_chips"],
+            device_flops=cost["device_flops"], device_bytes=cost["device_bytes"],
+            collective_bytes=coll["total_bytes_per_device"], n_chips=rec["n_chips"],
+            model_flops=want["model_flops"], hw=HW())
+
+
+@pytest.mark.parametrize("opt", [1, 2, 3])
+def test_one_cell_at_an_opt_level(tmp_path, reference, opt):
+    name = f"msmarco-lilsr-opt{opt}"
+    res = dryrun("--arch", name, "--shape", "scan_100q", "--mesh", "multi", "--out",
+                 str(tmp_path), cwd=tmp_path)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.splitlines()[-1] == "dry-run complete: 1 ok, 0 failed"
+    assert [p.name for p in tmp_path.rglob("*.json")] == [f"{name}__scan_100q.json"]
+    rec = json.loads((tmp_path / "pod512x2" / f"{name}__scan_100q.json").read_text())
+    want = reference[f"{name}|pod512x2|scan_100q"]
+    assert rec["memory"]["argument_bytes"] == device_bytes(want["inputs"])
+    assert rec["collectives"] == {"by_op": {}, "total_bytes_per_device": 0.0}
+    assert rec["meta"]["opt"] == opt
+
+
+def test_unported_and_unknown_ids_fail(tmp_path):
+    res = dryrun("--arch", "qwen3-8b", "--mesh", "single", "--out", str(tmp_path), cwd=tmp_path)
+    assert res.returncode == 1
+    assert "FAIL [pod256] qwen3-8b:" in res.stdout and "ROADMAP A11" in res.stdout
+    res = dryrun("--arch", "nope", "--out", str(tmp_path), cwd=tmp_path)
+    assert res.returncode != 0 and "unknown arch 'nope'" in res.stderr
+
+
+def test_per_device_bytes_fit_the_card(full_run):
+    """Every production cell fits one H100's 80 GB per device (the dry
+    run's point: the placement works at the real corpus)."""
+    _, records = full_run
+    peaks = [json.loads(p.read_text())["memory"]["peak_device_bytes"]
+             for p in records.rglob("*.json")]
+    assert len(peaks) == 12 and max(peaks) < 80e9
+    assert np.all(np.asarray(peaks) > 0)

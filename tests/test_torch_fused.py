@@ -26,7 +26,7 @@ from repro.kernels import ops as ref_ops
 from repro_torch.core import layout
 from repro_torch.core.forward_index import ForwardIndex
 from repro_torch.kernels import block_scan, build, ops, rows_dot
-from torch_cases import edge_docs
+from torch_cases import edge_docs, one_intra_op_thread  # noqa: F401  (one_intra_op_thread: autouse)
 
 RTOL = ATOL = 1e-5
 EXACT_ATOL = 2e-3

@@ -1818,3 +1818,89 @@ def test_doc_aligned_scan_on_the_card(mesh_corpus, tmp_path, codec):
     launched = {k: sum(int(r[f"launches/{k}"]) for r in ranks)
                 for k in (f"block_scan_{codec}", f"block_scan_{codec}_batch")}
     assert all(v >= 4 for v in launched.values()), launched
+
+
+# ---------------------------------------------------------------------------
+# the retrieval configs' cells (repro_torch.configs) and phase 13's
+# full-corpus replication, on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def config_cells_on_the_card(mesh_corpus, tmp_path_factory):
+    """Every cell of both configs at 600 docs (dim 2,048; the graph over
+    200), 8 queries, from one gloo rank on ``cuda:0``: the CPU run and the
+    card's."""
+    from torch_mesh_cases import config_cells_ranks, load
+
+    from repro_torch.launch.mesh import spawn_ranks
+
+    fwd, Q, _, _ = mesh_corpus
+    out = tmp_path_factory.mktemp("config_cells")
+    spawn_ranks(config_cells_ranks, 1, str(out), fwd, torch.from_numpy(Q), 200,
+                backend="gloo", init_file=out / "init", timeout_s=600)
+    return load(str(out), 1)[0], fwd, Q
+
+
+@pytest.mark.parametrize("opt", [0, 1, 2, 3])
+@pytest.mark.parametrize("arch_id", ["msmarco-splade", "msmarco-lilsr"])
+def test_config_scan_cell_on_the_card_matches_its_cpu_run(config_cells_on_the_card, arch_id,
+                                                          opt):
+    got, fwd, Q = config_cells_on_the_card
+    card, cpu = got[f"{arch_id}/scan{opt}/cuda"], got[f"{arch_id}/scan{opt}/cpu"]
+    assert card.shape == cpu.shape == (len(Q), fwd.n_docs)
+    np.testing.assert_allclose(card, cpu, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(card, np.stack([fwd.exact_scores(q) for q in Q]), rtol=1e-4,
+                               atol=2e-3)
+    assert int(got["launches/block_scan_dotvbyte_batch"]) >= 8
+
+
+@pytest.mark.parametrize("shape", ["serve_4096q", "graph_4096q"])
+@pytest.mark.parametrize("arch_id", ["msmarco-splade", "msmarco-lilsr"])
+def test_config_search_cell_on_the_card_matches_its_cpu_run(config_cells_on_the_card, arch_id,
+                                                            shape):
+    """The card (the rows kernel) against the CPU (plain torch): ids equal
+    but where two scores tie (rtol 1e-5), scores within rtol 1e-5."""
+    got = config_cells_on_the_card[0]
+    ci, cs = got[f"{arch_id}/{shape}/cuda/ids"], got[f"{arch_id}/{shape}/cuda/scores"]
+    pi, ps = got[f"{arch_id}/{shape}/cpu/ids"], got[f"{arch_id}/{shape}/cpu/scores"]
+    diff = ci != pi
+    assert np.allclose(cs[diff], ps[diff], rtol=1e-5, atol=0)
+    np.testing.assert_allclose(cs, ps, rtol=1e-5, atol=1e-6)
+    assert int(got[f"{arch_id}/{shape}/replayed"]) > 0
+
+
+@pytest.mark.parametrize("n_docs", [6_000, 5_500])
+def test_full_corpus_replication_on_the_card(cuda, mesh_corpus, n_docs):
+    """``chip_smoke.py``'s ``replicate_pack`` and ``replicate_csr`` on a
+    ten-fold copy of the 600-doc pack (whole, and cut inside the last
+    copy): the fused batch scan on the card equals ``sparse.mm`` of the
+    base copy by copy and ``sparse.mm`` of the replicated CSR (1e-4)."""
+    import sys
+
+    sys.path.insert(0, str(__import__("pathlib").Path(__file__).resolve().parents[1]))
+    import chip_smoke
+
+    from repro_torch.core.forward_index import PackedBlocks
+
+    fwd, Q, _, _ = mesh_corpus
+    n = fwd.n_docs
+    Qc = torch.from_numpy(Q).to(cuda)
+    base = {k: torch.from_numpy(v).to(cuda) for k, v in layout.pack_blocks(
+        fwd, codec="dotvbyte", block_size=512).as_dict().items()}
+    rep = chip_smoke.replicate_pack(base, n, n_docs)
+    packed = PackedBlocks(codec="dotvbyte", block_size=512, n_docs=n_docs, dim=fwd.dim,
+                          value_format=fwd.value_format, **rep)
+    before = block_scan.variant_launches["block_scan_dotvbyte_batch"]
+    got = ops.score_dotvbyte_batch(Qc, packed)
+    assert block_scan.variant_launches["block_scan_dotvbyte_batch"] == before + 1
+    parts = [torch.from_numpy(a).to(cuda) for a in (
+        fwd.offsets.astype(np.int64), fwd.components.astype(np.int64),
+        fwd.value_format.dequantise(fwd.values))]
+    base_scores = torch.sparse.mm(torch.sparse_csr_tensor(*parts, size=(n, fwd.dim)),
+                                  Qc.t().contiguous()).t()
+    assert len(chip_smoke.replicas_close(got, base_scores, n)) == -(-n_docs // n)
+    crow, col, val = chip_smoke.replicate_csr(*parts, n, n_docs)
+    full = torch.sparse_csr_tensor(crow, col, val, size=(n_docs, fwd.dim))
+    torch.testing.assert_close(got, torch.sparse.mm(full, Qc.t().contiguous()).t(),
+                               rtol=1e-4, atol=1e-4)

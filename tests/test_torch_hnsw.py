@@ -24,7 +24,7 @@ from repro_torch.core.forward_index import VALUE_FORMATS, ForwardIndex
 from repro_torch.core.hnsw import HNSWIndex, HNSWParams
 from repro_torch.kernels import rows_dot
 from repro_torch.serve import api
-from torch_cases import VARIANTS
+from torch_cases import one_intra_op_thread, VARIANTS  # noqa: F401  (one_intra_op_thread: autouse)
 
 RTOL, ATOL = 1e-5, 1e-4
 #: the reference CLI's hnsw build parameters

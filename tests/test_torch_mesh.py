@@ -40,6 +40,7 @@ from repro_torch.data.synthetic import SyntheticConfig, generate_collection
 from repro_torch.launch.mesh import spawn_ranks
 from repro_torch.serve import api
 from repro_torch.serve.api import Retriever, RetrieverConfig
+from torch_cases import one_intra_op_thread  # noqa: F401  (autouse)
 
 ROOT = __import__("pathlib").Path(__file__).resolve().parents[1]
 

@@ -31,6 +31,7 @@ from repro_torch.serve.pipeline import (
     quantized_query_key,
     synthetic_trace,
 )
+from torch_cases import one_intra_op_thread  # noqa: F401  (autouse)
 
 #: per-engine knobs sized for the tiny test collection (the reference's)
 ENGINE_PARAMS = {

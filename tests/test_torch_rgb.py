@@ -20,6 +20,7 @@ from repro_torch.core.forward_index import ForwardIndex
 from repro_torch.core.seismic import exact_top_k
 from repro_torch.data.synthetic import SyntheticConfig, generate_collection
 from repro_torch.serve.api import Retriever, RetrieverConfig
+from torch_cases import one_intra_op_thread  # noqa: F401  (autouse)
 
 
 def _clustered_docs(rng, dim=2048, n_docs=400):

@@ -21,6 +21,7 @@ from repro_torch.core import layout, scoring
 from repro_torch.core.forward_index import ForwardIndex
 from repro_torch.kernels import build, rows_dot
 from torch_cases import VARIANTS, candidates, edge_docs, wide_docs
+from torch_cases import one_intra_op_thread  # noqa: F401  (autouse)
 
 RTOL, ATOL = 1e-5, 1e-4
 

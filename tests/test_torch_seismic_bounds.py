@@ -17,6 +17,7 @@ from torch_seismic_cases import bound_tolerance, probe_disagreements, reference_
 from repro.serve.api import open_retriever as ref_open
 from repro_torch.data.synthetic import SyntheticConfig, generate_collection
 from repro_torch.serve.api import Retriever, RetrieverConfig
+from torch_cases import one_intra_op_thread  # noqa: F401  (autouse)
 
 TIGHT_SEISMIC = dict(cut=4, block_budget=64, n_probe=6, n_postings=60, block_size=8)
 
@@ -69,3 +70,18 @@ def test_top_k_ids_follow_the_probe(sides):
     for i, same in enumerate(same_probe):
         if same:
             assert np.array_equal(ids_p[i], ids_r[i]), i
+
+
+@pytest.mark.parametrize("chunk", [1, 7, 63])
+def test_bounds_in_query_chunks_equal_one_chunk(sides, monkeypatch, chunk):
+    """Phase 1 over query chunks (a large batch's path) gives the bits the
+    whole batch in one chunk gives."""
+    from repro_torch.serve.engines import seismic
+
+    port = sides["port"]
+    monkeypatch.setattr(seismic, "_PROBE_CHUNK_ELEMS",
+                        chunk * sides["cand_p"].shape[1] * port.arrays["sum_comps"].shape[1])
+    est, cand, probe = (t.numpy() for t in port.impl.probe(port.cfg, port.arrays,
+                                                           torch.from_numpy(sides["Q"])))
+    assert est.tobytes() == sides["est_p"].tobytes()
+    assert np.array_equal(cand, sides["cand_p"]) and np.array_equal(probe, sides["probe_p"])

@@ -20,6 +20,7 @@ from repro_torch.data import synthetic
 from repro_torch.kernels import rows_dot
 from repro_torch.launch import serve as serve_cli
 from repro_torch.serve import api
+from torch_cases import one_intra_op_thread  # noqa: F401  (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 # ids are compared exactly; scores sum the same f32 products in another order

@@ -49,6 +49,7 @@ from repro_torch.serve.api import (
     open_retriever,
 )
 from repro_torch.serve.sharded import ShardedRetriever, mmap_npz, shard_ranges, tombstone_budget
+from torch_cases import one_intra_op_thread  # noqa: F401  (autouse)
 
 SHARD_COUNTS = [1, 2, 4, 7]
 ENGINES = ["seismic", "hnsw", "flat"]

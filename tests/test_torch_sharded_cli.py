@@ -13,6 +13,7 @@ import pytest
 
 from repro.launch import serve as ref_cli
 from repro_torch.launch import serve as serve_cli
+from torch_cases import one_intra_op_thread  # noqa: F401  (autouse)
 
 
 def _recalls(out: str) -> list[str]:

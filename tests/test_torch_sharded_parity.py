@@ -20,6 +20,7 @@ from repro_torch.core.layout import available_layouts
 from repro_torch.data.synthetic import SyntheticConfig, generate_collection
 from repro_torch.serve.api import Retriever, RetrieverConfig, open_retriever
 from repro_torch.serve.sharded import ShardedRetriever
+from torch_cases import one_intra_op_thread  # noqa: F401  (autouse)
 
 ENGINE_PARAMS = {
     "seismic": dict(cut=16, block_budget=512, n_probe=512, n_postings=10000, block_size=8),

@@ -15,6 +15,7 @@ from repro.core.forward_index import ForwardIndex as RefForwardIndex
 from repro_torch.core import codecs
 from repro_torch.core.codecs.bitio import BitReader, BitWriter, bit_length
 from repro_torch.core.forward_index import ForwardIndex
+from torch_cases import one_intra_op_thread  # noqa: F401  (autouse)
 
 SURVEY = ["vbyte", "elias_gamma", "elias_delta", "zeta", "dotnibble"]
 ALL = sorted(ref_codecs.available_codecs())

@@ -17,7 +17,7 @@ from repro.data import synthetic as ref_synthetic
 from repro.serve import api as ref_api
 from repro.serve.engines.seismic import SeismicEngine as RefSeismicEngine
 from repro_torch.serve import api
-from torch_cases import VARIANTS
+from torch_cases import one_intra_op_thread, VARIANTS  # noqa: F401  (one_intra_op_thread: autouse)
 
 RTOL, ATOL = 1e-5, 1e-4
 SEISMIC = dict(cut=4, block_budget=64, n_probe=6, n_postings=60, block_size=8)

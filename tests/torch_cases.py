@@ -1,6 +1,21 @@
 """Shared inputs of the port's tests (``tests/test_torch_*.py``)."""
 
 import numpy as np
+import pytest
+import torch
+
+@pytest.fixture(scope="module", autouse=True)
+def one_intra_op_thread():
+    """One torch intra-op thread per test process for the module that
+    imports this fixture: a parallel run's workers share the cores, and
+    at the default count each worker's small torch ops spun on every
+    core (a 3 s hnsw test took 95 s in a 6-worker run). The previous
+    count is restored after."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 #: positions in :func:`edge_docs`' output
 EMPTY, FULL, ONE_BYTE, TWO_BYTE, EMPTY2 = range(5)

@@ -170,3 +170,56 @@ def dp_ranks(rank, world, out_dir, shapes):
     loss, w, b, losses = quadratic_run(mesh)
     out.update({"quad/loss": np.array(loss), "quad/w": w, "quad/b": b, "quad/losses": losses})
     save(out_dir, rank, out)
+
+
+def config_cells_ranks(rank, world, out_dir, fwd, Q, graph_docs):
+    """Every cell of both retrieval configs at ``fwd``'s size (its dim and
+    doc count; ``graph_4096q`` over its first ``graph_docs`` docs) on a
+    ``(1, 1)`` mesh, run on the CPU and on the card from one rank:
+    ``scan_100q`` at opt 0–3 over ``Q`` padded to the cell's width, the
+    searches over ``Q`` → ``<id>/<cell>/<device>/...`` and the card runs'
+    rows and block-scan launches."""
+    import dataclasses
+
+    from repro_torch.configs import RETRIEVAL_IDS, get_arch
+    from repro_torch.core import layout
+    from repro_torch.kernels import block_scan, rows_dot
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.serve.api import build_shard_arrays
+
+    one_thread()
+    mesh = make_debug_mesh((1, 1), ("data", "model"))
+    rows_dot.reset_launches()
+    block_scan.reset_launches()
+    out = {}
+    for arch_id in RETRIEVAL_IDS:
+        for opt in (0, 1, 2, 3):
+            arch = get_arch(arch_id + (f"-opt{opt}" if opt else ""))
+            arch = dataclasses.replace(arch, dim=fwd.dim, n_docs=fwd.n_docs)
+            if opt == 0:
+                arrays = layout.pack_blocks(fwd, codec=arch.codec,
+                                            block_size=arch.block_size).as_dict()
+            else:
+                arrays, _ = layout.pack_blocks_sharded(
+                    fwd, 1, codec=arch.codec, block_size=arch.block_size,
+                    seg_dtype=np.int8 if opt >= 2 else np.int32)
+            cell = arch.build_cell("scan_100q", mesh)
+            Qp = torch.nn.functional.pad(Q, (0, cell.input_structs[1].shape[1] - Q.shape[1]))
+            for dev in ("cpu", "cuda"):
+                out[f"{arch_id}/scan{opt}/{dev}"] = cell.fn(arrays, Qp.to(dev)).cpu().numpy()
+        for shape in ("serve_4096q", "graph_4096q"):
+            sub = fwd.slice(0, graph_docs) if shape == "graph_4096q" else fwd
+            arch = dataclasses.replace(get_arch(arch_id), dim=sub.dim, n_docs=sub.n_docs)
+            cfg = arch._graph_cfg() if shape == "graph_4096q" else arch._engine_cfg()
+            stacked, idmap, _ = build_shard_arrays(sub, cfg, 1)
+            cell = arch.build_cell(shape, mesh)
+            for dev in ("cpu", "cuda"):
+                ids, scores = cell.fn(stacked, idmap, Q.to(dev))
+                out[f"{arch_id}/{shape}/{dev}/ids"] = ids.cpu().numpy()
+                out[f"{arch_id}/{shape}/{dev}/scores"] = scores.cpu().numpy()
+            plans = cell.fn.fn._placed[2].plans.created().values()
+            out[f"{arch_id}/{shape}/replayed"] = np.array(sum(
+                c * p.replays for p in plans for c in p.launches["variants"].values()))
+    out["rows_launches"] = np.array(rows_dot.launches)
+    out.update({f"launches/{k}": np.array(v) for k, v in block_scan.variant_launches.items()})
+    save(out_dir, rank, out)
