@@ -42,7 +42,7 @@ no result:
    blocks that close on D = 5 slots, docs longer than T, empty docs, a
    one-doc corpus and, for StreamVByte and bitpack, dim 2**24 + 2**20;
 3. main path — a SPLADE-statistics collection (``--n-docs``, default
-   100,000 of MsMarco's 8,842,240, seed 0; 64 queries) and ONE Seismic
+   60,000 of MsMarco's 8,842,240, seed 0; 64 queries) and ONE Seismic
    host index. DotVByte/f16 is served as before: ``Retriever`` built,
    saved, reopened with ``open_retriever``; the other 15 variants swap
    only their packed rows (``pack_rows``) into a ``Retriever`` over the
@@ -145,7 +145,7 @@ no result:
    The kernels' counts are zeroed just before this phase and read just
    after; the flat tree is kept for phase 9;
 9. live mutation (``serve/segments.py``), dotvbyte/f16, the 64 queries:
-   phase 3's flat and Seismic retrievers (100,000 docs) and phase 6's
+   phase 3's flat and Seismic retrievers (all its docs) and phase 6's
    hnsw one, each wrapped by a ``MutableRetriever`` (stable ids
    ``arange``, nothing rebuilt), take three seeded rounds from an insert
    pool of 2,048 docs of a second collection (seed 1) — hnsw at beam 512,
@@ -236,11 +236,11 @@ no result:
    deadline that kills every rank and fails the phase) that load the
    kernels phase 1 built, and start while the parent makes their inputs.
    (a) one NCCL rank: ``make_sharded_search`` over
-   ``build_shard_arrays(n_shards=1, host_index=phase 3's index)`` (100,000
+   ``build_shard_arrays(n_shards=1, host_index=phase 3's index)`` (all its
    docs, dotvbyte/f16, the CLI's Seismic parameters) equals phase 3's
    Seismic ids and scores bit for bit. (b) four gloo ranks, all on
    ``cuda:0``, each holding one shard: ``ShardedRetriever(use_mesh=True)``
-   over phase 8's trees (flat over 100,000 docs, Seismic over 5,000, hnsw
+   over phase 8's trees (flat over all docs, Seismic over 5,000, hnsw
    over 2,000, kept in ``build/chip_smoke_trees``) equals phase 8's
    sequential answer bit for bit on every rank, and the sequential
    rotation's after ``set_tombstones`` with 5 victims; and
@@ -248,7 +248,7 @@ no result:
    equals an in-process oracle (each shard's ``search_batch`` on the card
    in turn, then the same merge) bit for bit. (c) the doc-aligned scan
    (``scoring.make_doc_aligned_scan``) of ``pack_blocks_sharded`` of the
-   100,000 docs at S = 4, T = 512, D = 64 for dotvbyte, streamvbyte and
+   collection at S = 4, T = 512, D = 64 for dotvbyte, streamvbyte and
    bitpack at nq 64 and 1, the ranks' slices held to ``torch.sparse.mm``
    (rtol = atol = 1e-4) and, top-10, to ``exact_top_k``. (d) the
    compressed data-parallel step: the reference test's quadratic problem
@@ -280,7 +280,7 @@ no result:
    run's bytes for a one-device mesh. (b) Table 1's scan at the full
    corpus, ``scan_100q`` of both configs at their own ``n_docs``
    (8,842,240): the index made on the card from copies of phase 5's
-   100,000-doc block pack (SPLADE) or of phase 11's 5,000 LiLSR docs,
+   block pack of phase 3's docs (SPLADE) or of phase 11's 5,000 LiLSR docs,
    ``doc_ids`` offset a copy (``replicate_pack``), at opt 0 (int32 seg)
    and opt 2 (int8 seg), every copy's scores held to ``sparse.mm`` of the
    base CSR (1e-4); ms (CUDA events, median of 10), resident GB, bits per
@@ -289,7 +289,29 @@ no result:
    int64 CSR does not fit beside the pack). (c) Each config's
    ``smoke()`` on the card. Launches go to
    ``launches_by_path["configs"]``;
-14. one JSON line of kernels, the card line, and as the last line
+14. the LM family (``repro_torch.configs``' LM configs, ``models/``,
+   ``dist.collectives``), in one spawned NCCL rank on a ``(1, 1)`` mesh
+   started after phase 2b: it needs nothing of the phases before it and
+   runs beside phase 3's host build (Python, the card idle); the parent
+   joins it before phase 3 places its index. qwen3-8b and olmoe-1b-7b at
+   full width (random bf16 weights drawn on the card, seed 0): (a)
+   ``build_cell("prefill_32k")`` at batch 1 (cut from 32: one card) over
+   the full 32,768 tokens, chunked attention at 2,048, its cache's first
+   positions held to ``forward``; (b) ``build_cell("decode_32k")`` at batch
+   8 (cut from 128) over a full 32,768-slot cache (38.6 GB for qwen3-8b):
+   a prompt prefilled into it, decode steps held to ``forward`` at their
+   positions, then timed steps; (c) flash decoding's local path at
+   ``long_500k``'s 524,288 keys (one qwen3-8b layer's cache) against the
+   masked reference; (d) chunked against full attention at 4,096 tokens,
+   one olmoe MoE layer's dispatch (capacity, order, no token twice),
+   every LM config's ``smoke()`` on the card against the CPU, and one
+   ``launch.train --smoke``. Tolerances beside their constants (``LM_*``).
+   Prefill ms and tokens/s beside ``model_flops`` over 989 TFLOP/s, a
+   decode step's ms beside weights + cache over 3.35 TB/s,
+   ``max_memory_allocated`` beside the dry run's bytes at the cut batch.
+   The LM family has no Pallas kernel, so no kernel of the port runs
+   here;
+15. one JSON line of kernels, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -935,7 +957,7 @@ def full_scan(fwd, Q, truth, csr, card: str, max_err: dict, fused_err: dict) -> 
             def whole():
                 return ops.score_bitpack_bucketed(q0, p)
 
-            err = max(check_close(f"{entry} @ 100k width {w}", g, e)
+            err = max(check_close(f"{entry} @ n_docs width {w}", g, e)
                       for (w, _, _), g, e in zip(buckets, kernel(), plain()))
             bound_ms, bound_by = scan_bound(p, 1, dim, sum(int(b["words"].nbytes)
                                                            for _, b, _ in buckets))
@@ -962,13 +984,13 @@ def full_scan(fwd, Q, truth, csr, card: str, max_err: dict, fused_err: dict) -> 
             def whole():
                 return (batch(Q, p) if batched else single(q0, p))
 
-            err = check_close(f"{entry} @ 100k", kernel(), plain())
+            err = check_close(f"{entry} @ n_docs", kernel(), plain())
             bound_ms, bound_by = scan_bound(p, Qx.shape[0], dim)
         max_err[entry] = max(max_err.get(entry, 0.0), err)
         # the fused call in every stage that takes it, each held against its plain version
         want_fused = fused_plain()
         for st in stages_here:
-            f_err = check_close(f"{entry} @ 100k fused {st}", fused_call(st), want_fused)
+            f_err = check_close(f"{entry} @ n_docs fused {st}", fused_call(st), want_fused)
             fused_err[entry] = max(fused_err.get(entry, 0.0), f_err)
         stage_ms = {st: cuda_ms(lambda: fused_call(st), 10 if batched else 20)
                     for st in stages_here}
@@ -1092,7 +1114,7 @@ def rows_device_ms(calls: dict, stages, reps: int = 20) -> dict:
 HNSW_PARAMS = dict(beam=64, iters=64, n_seeds=8, m=16, ef_construction=48)
 #: batch size → candidates a set in the sweep behind the row-warp rule (one
 #: set per query): at nq 64 the hnsw engine's 8 and 32 up to Seismic's
-#: 4,096; one query up to the whole 100k collection and past it
+#: 4,096; one query up to the whole collection and past it
 SWEEP_C = {64: (8, 32, 64, 256, 512, 1024, 2048, 4096),
            8: (256, 1024, 4096, 8192, 16384, 32768),
            1: (256, 1024, 4096, 16384, 65536, 100_001, 131_072, 262_144)}
@@ -3651,10 +3673,548 @@ def cells_phase(fwd, Q_all, index, seismic_ret, hnsw_ret, truth, csr, lilsr, car
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the LM family
+# ---------------------------------------------------------------------------
+
+#: phase 14: the configs served at full width (random bf16 weights, seed 0)
+LM_SERVED = ("qwen3-8b", "olmoe-1b-7b")
+#: every LM config, whose smoke() runs on the card and on the CPU
+LM_ALL = ("olmoe-1b-7b", "kimi-k2-1t-a32b", "qwen3-8b", "yi-6b", "deepseek-coder-33b")
+#: the cut batches (one card): prefill_32k's 32 sequences of 32,768 tokens
+#: cut to 1 (its full logits alone are 10 GB for qwen3-8b); decode_32k's
+#: 128 cut to 8 (a 32,768-slot cache is 4.83 GB a sequence for qwen3-8b)
+LM_PREFILL_BATCH = 1
+LM_DECODE_BATCH = 8
+#: the prompt prefilled into the decode cache, the decode steps checked
+#: against ``forward`` after it, the decode steps timed, the prefill's
+#: warm-up tokens
+LM_PROMPT, LM_CHECK_STEPS, LM_TIMED_STEPS, LM_WARM_TOKENS = 16, 8, 5, 2048
+#: chunked vs full attention (qwen3-8b's heads), MoE at olmoe's width
+LM_CHUNK_TOKENS = LM_MOE_TOKENS = 4096
+#: long_500k's keys (one qwen3-8b layer's cache, 2.1 GB); the valid length
+LM_LONG_KEYS = 524_288
+LM_LONG_VALID = 524_288 - 12_345
+#: bf16 model paths compared (prefill's cache and last logits, decode's
+#: logits, each against ``forward``): relative L2 error of the block. The
+#: paths round bf16 activations at other places (a chunked or a flash
+#: softmax against a full one; GEMMs of other shapes): on the CPU an
+#: 8-layer bf16 model's chunked and full forwards differ by ~1% and a
+#: bf16 forward from its f32 twin by 0.9% (4% with experts, whose
+#: routing flips on a rounding); a layer left out or an fp8 product
+#: would not stay inside 5%
+LM_BF16_RTOL = 5e-2
+#: one attention call compared (chunked vs full, flash decode vs the
+#: masked reference, bf16 in and out): relative L2 error; the sides
+#: differ by where they round p to bf16 (2**-9)
+LM_ATTN_RTOL = 1e-2
+#: an MoE model's paths compared in f32 (TF32 off): relative L2 error of
+#: the positions before any routing flip; on the CPU two f32 paths at
+#: olmoe's width differed by 1.3e-6, a bf16 path would miss it by 100×
+LM_F32_RTOL = 1e-4
+#: the f32 check's decode batch: an f32 32,768-slot cache at batch 8 would
+#: be 68.7 GB for olmoe-1b-7b beside its 27.7 GB of f32 weights
+LM_F32_CHECK_BATCH = 2
+#: smoke() on the card against the CPU (f32, TF32 off): losses (rtol) and
+#: logits (atol); the second loss follows an AdamW step, whose first
+#: update is ±lr for a gradient of either sign
+LM_SMOKE_RTOL = 1e-4
+LM_SMOKE_ATOL = 1e-4
+LM_TRAIN_STEPS = 20
+LM_DEADLINE_S = 1500
+LM_DIR = ROOT / "build" / "chip_smoke_lm"
+#: H100 SXM dense bf16 peak (NVIDIA data sheet)
+BF16_FLOP_PER_S = 989e12
+
+
+def _rel(got, want) -> float:
+    """Relative L2 error of ``got`` against ``want`` (f32)."""
+    want = want.float()
+    return float((got.float() - want).norm() / want.norm())
+
+
+def _tree_bytes(tree) -> int:
+    from repro_torch.tree import tree_leaves
+
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def _lm_smoke_parity() -> dict:
+    """Every LM config's ``smoke()`` on the card and on the CPU."""
+    from repro_torch.configs import get_arch
+
+    out = {}
+    for a in LM_ALL:
+        card, cpu = get_arch(a).smoke(0, device="cuda"), get_arch(a).smoke(0, device="cpu")
+        rec = {k: [card[k], cpu[k]] for k in ("loss0", "loss1")}
+        rec["logits_max_abs_err"] = max(float((card[k] - cpu[k]).abs().max())
+                                        for k in ("logits", "decode_logits"))
+        bad = [k for k in ("loss0", "loss1")
+               if abs(card[k] - cpu[k]) > LM_SMOKE_RTOL * abs(cpu[k])]
+        if bad or rec["logits_max_abs_err"] > LM_SMOKE_ATOL:
+            raise SystemExit(f"phase 14 (d): {a} smoke() on the card differs from the CPU: "
+                             f"{rec} (rtol {LM_SMOKE_RTOL}, atol {LM_SMOKE_ATOL})")
+        out[a] = rec
+    return out
+
+
+def _lm_train_cli() -> str:
+    """One ``launch.train --smoke`` run on the card → its result line."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        train.main(["--arch", "qwen3-8b", "--smoke", "--steps", str(LM_TRAIN_STEPS),
+                    "--checkpoint-every", "10"])
+    line = buf.getvalue().strip().splitlines()[-1]
+    if not line.startswith(f"trained qwen3-8b {LM_TRAIN_STEPS} steps") or "restarts=0" not in line:
+        raise SystemExit(f"phase 14 (d): launch.train printed {line!r}")
+    return line
+
+
+def _lm_attention_checks(cfg, mesh, dev) -> dict:
+    """(c) flash decoding's local path at long_500k's length against the
+    masked reference, and (d) chunked against full attention at 4,096
+    tokens, both at ``cfg``'s heads (bf16)."""
+    from repro_torch.dist.collectives import flash_decode_shardmap
+    from repro_torch.models import transformer as tf
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    H, Hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    out = {}
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    q = randn(1, LM_CHUNK_TOKENS, H, dh)
+    k, v = randn(1, LM_CHUNK_TOKENS, Hk, dh), randn(1, LM_CHUNK_TOKENS, Hk, dh)
+    with torch.no_grad():
+        chunked = tf.attention(q, k, v, causal=True, impl="chunked", chunk=2048)
+        full = tf.attention(q, k, v, causal=True, impl="full")
+    out["chunked_vs_full_rel"] = _rel(chunked, full)
+    if not out["chunked_vs_full_rel"] <= LM_ATTN_RTOL:
+        raise SystemExit(f"phase 14 (d): chunked attention differs from full by "
+                         f"{out['chunked_vs_full_rel']:.3e} (rtol {LM_ATTN_RTOL})")
+    del q, k, v, chunked, full
+    q = randn(1, 1, H, dh)
+    k, v = randn(1, LM_LONG_KEYS, Hk, dh), randn(1, LM_LONG_KEYS, Hk, dh)
+    vl = torch.tensor([LM_LONG_VALID], dtype=torch.int32, device=dev)
+    flash = flash_decode_shardmap(mesh, batch_axes=(), seq_axes=("data", "model"))
+    with torch.no_grad():
+        got, want = flash(q, k, v, vl), tf._decode_attention_ref(q, k, v, vl)
+        out["flash_ms"] = cuda_ms_median(lambda: flash(q, k, v, vl), 10)
+        out["ref_ms"] = cuda_ms_median(lambda: tf._decode_attention_ref(q, k, v, vl), 10)
+    out["flash_vs_ref_rel"] = _rel(got, want)
+    out["cache_bytes"] = 2 * k.numel() * k.element_size()
+    if not (torch.isfinite(got).all() and out["flash_vs_ref_rel"] <= LM_ATTN_RTOL):
+        raise SystemExit(f"phase 14 (c): flash decoding over {LM_LONG_KEYS} keys differs from "
+                         f"the reference by {out['flash_vs_ref_rel']:.3e} (rtol {LM_ATTN_RTOL})")
+    return out
+
+
+def _lm_moe_check(params, cfg, dev) -> dict:
+    """(d) one olmoe layer's experts on ``LM_MOE_TOKENS`` tokens: every
+    expert keeps its first ``C`` pairs in token order and drops the rest,
+    no token twice within an expert, every kept pair a routed one."""
+    from repro_torch.models import moe
+
+    lp = {k: v[0] for k, v in params["layers"]["moe"].items()}
+    x = torch.randn((LM_MOE_TOKENS, cfg.d_model), generator=torch.Generator(device=dev)
+                    .manual_seed(3), device=dev).to(cfg.dtype)
+    E, K, T = cfg.moe.n_experts, cfg.moe.top_k, LM_MOE_TOKENS
+    C = moe._capacity(T, cfg.moe)
+    with torch.no_grad():
+        _, gate_w, idx = moe._route(lp, cfg.moe, x)
+        tok, w = moe._dispatch(idx, gate_w, cfg.moe)
+        y, aux = moe.moe_apply(lp, cfg.moe, x)
+        ms = cuda_ms_median(lambda: moe.moe_apply(lp, cfg.moe, x), 5)
+    routed = torch.zeros((T, E), dtype=torch.bool, device=dev)
+    routed[torch.arange(T, device=dev)[:, None], idx] = True
+    slots = tok.reshape(E, C)
+    counts = torch.bincount(idx.reshape(-1), minlength=E)
+    for e in range(E):
+        live = slots[e][slots[e] < T]
+        want = torch.nonzero(routed[:, e])[:, 0][:C]  # its first C routed tokens, in order
+        if not torch.equal(live, want):
+            raise SystemExit(f"phase 14 (d): expert {e} kept {live.tolist()[:8]}…, its first "
+                             f"{C} routed tokens are {want.tolist()[:8]}…")
+    kept = int((tok < T).sum())
+    if kept != int(torch.clamp(counts, max=C).sum()) or not torch.isfinite(y).all():
+        raise SystemExit(f"phase 14 (d): MoE kept {kept} pairs of {T * K}")
+    if (w[tok < T] <= 0).any():
+        raise SystemExit("phase 14 (d): a kept pair has no router weight")
+    return dict(tokens=T, capacity=C, kept=kept, pairs=T * K, dropped=T * K - kept,
+                max_load=int(counts.max()), load_balance_loss=float(aux["load_balance_loss"]),
+                ms=ms)
+
+
+@contextlib.contextmanager
+def _routing_log():
+    """Record every MoE routing (``moe._route``'s expert sets, sorted, on
+    the host) made inside the block, in call order."""
+    from repro_torch.models import moe
+
+    route, log_ = moe._route, []
+
+    def logged(params, cfg, x):
+        out = route(params, cfg, x)
+        log_.append(out[2].sort(dim=-1).values.cpu())
+        return out
+
+    moe._route = logged
+    try:
+        yield log_
+    finally:
+        moe._route = route
+
+
+def _first_flips(want: list, got: list, B: int) -> list:
+    """Per sequence, the first position whose expert sets differ at any
+    layer between two routings (``[L]`` lists of ``[B, S, K]``; S when
+    none differs). A flip changes that token's output wholesale and,
+    through attention, every later position of its sequence."""
+    S = want[0].shape[1]
+    diff = torch.zeros((B, S), dtype=torch.bool)
+    for w, g in zip(want, got):
+        diff |= (w != g).any(dim=-1)
+    return [int(torch.nonzero(diff[b])[0]) if diff[b].any() else S for b in range(B)]
+
+
+def _clean_rel(got, want, clean) -> tuple[float, int]:
+    """Relative L2 error over the positions ``clean`` marks (``[B]``
+    bools) and how many were left out."""
+    keep = torch.tensor(clean, dtype=torch.bool)
+    if not keep.any():
+        return float("nan"), len(clean)
+    idx = torch.nonzero(keep)[:, 0].to(got.device)
+    return _rel(got[idx], want[idx]), int((~keep).sum())
+
+
+def _lm_checks(arch, params, mesh, dev, rtol: float, seed: int, batch: int) -> dict:
+    """The model's paths against ``forward`` at full width, in ``params``'
+    dtype: (a) ``prefill_32k`` over 32,768 tokens, its cache's first
+    ``LM_PROMPT`` positions against a forward over them; (b) a prompt
+    prefilled into a full 32,768-slot ``decode_32k`` cache at ``batch``, the
+    prompt's last logits and ``LM_CHECK_STEPS`` decode steps against a
+    forward over the whole sequence. MoE: the reference forward (and the
+    prompt's prefill) run at capacity_factor = E / top_k, where no token
+    drops (a 32,768-token prefill keeps its first tokens at the config's
+    capacity, a decode step of 8 tokens drops none); the routing of both
+    sides is recorded, and a position at or past a token whose expert set
+    differs is left out and counted (see ``LM_F32_RTOL``)."""
+    import dataclasses
+
+    from repro_torch.models import transformer as tf
+
+    cfg = arch.cfg
+    moe_cfg = cfg.moe
+    if moe_cfg is not None:
+        nodrop = dataclasses.replace(moe_cfg, capacity_factor=moe_cfg.n_experts / moe_cfg.top_k)
+        ref_arch = dataclasses.replace(arch, cfg=dataclasses.replace(cfg, moe=nodrop))
+    else:
+        ref_arch = arch
+    L, P, n, B = cfg.n_layers, LM_PROMPT, LM_PROMPT + LM_CHECK_STEPS, batch
+    tg = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    # (a)
+    cell = arch.build_cell("prefill_32k", mesh, global_batch=LM_PREFILL_BATCH)
+    S = cell.input_structs[1].shape[1]
+    toks = torch.randint(0, cfg.vocab, (LM_PREFILL_BATCH, S), generator=tg, device=dev)
+    with _routing_log() as got_r:
+        _, cache = cell.fn(params, toks)
+    k_first = cache["k"][:, :, :P].clone()
+    del cache
+    torch.cuda.empty_cache()
+    with _routing_log() as want_r, torch.no_grad():
+        _, aux = tf.forward(params, ref_arch.cfg, toks[:, :P], collect_kv=True)
+    want_k = aux["kv_cache"]["k"]
+    first = [P] * LM_PREFILL_BATCH
+    if moe_cfg is not None:
+        first = _first_flips([w.reshape(LM_PREFILL_BATCH, P, -1) for w in want_r],
+                             [g.reshape(LM_PREFILL_BATCH, S, -1)[:, :P] for g in got_r],
+                             LM_PREFILL_BATCH)
+    m = min(first)
+    out["prefill_cache_rel"] = _rel(k_first[:, :, :m], want_k[:, :, :m]) if m else float("nan")
+    out["prefill_positions_left_out"] = (P - m) * LM_PREFILL_BATCH
+    del k_first, aux, want_k
+    # (b)
+    cache = tf.init_kv_cache(cfg, B, S, dtype=params["embed"].dtype, device=dev)
+    ptoks = torch.randint(0, cfg.vocab, (B, n), generator=tg, device=dev)
+    step = arch.build_cell("decode_32k", mesh, global_batch=B).fn
+    with _routing_log() as got_r:
+        last, pc = ref_arch.build_cell("prefill_32k", mesh, global_batch=B).fn(
+            params, ptoks[:, :P])
+        for k in ("k", "v"):
+            cache[k][:, :, :P] = pc[k]
+        del pc
+        lens = torch.full((B,), P, dtype=torch.int32, device=dev)
+        logits = [last]
+        for j in range(LM_CHECK_STEPS):
+            lg, cache = step(params, cache, ptoks[:, P + j:P + j + 1], lens)
+            logits.append(lg)
+            lens = lens + 1
+    del cache
+    torch.cuda.empty_cache()
+    with _routing_log() as want_r, torch.no_grad():
+        want, _ = tf.forward(params, ref_arch.cfg, ptoks)
+    first = [n] * B
+    if moe_cfg is not None:
+        path = [torch.cat([got_r[l].reshape(B, P, -1)] + [got_r[L * (1 + j) + l][:, None]
+                                                          for j in range(LM_CHECK_STEPS)], 1)
+                for l in range(L)]
+        first = _first_flips([w.reshape(B, n, -1) for w in want_r], path, B)
+    errs, left_out = [], 0
+    for j, lg in enumerate(logits):  # the prompt's last position, then each step's
+        pos = P - 1 + j
+        e, lo = _clean_rel(lg, want[:, pos], [pos < f for f in first])
+        errs.append(e)
+        left_out += lo
+    out.update(prefill_then_decode_rel=errs, positions_left_out=left_out, batch=B,
+               positions=B * (LM_CHECK_STEPS + 1), rtol=rtol,
+               dtype=str(params["embed"].dtype).removeprefix("torch."))
+    worst = max((e for e in errs if e == e), default=float("nan"))
+    out["worst_rel"] = worst
+    bad = not (worst <= rtol and out["prefill_cache_rel"] <= rtol)
+    if bad or 2 * (left_out + out["prefill_positions_left_out"]) > out["positions"]:
+        raise SystemExit(f"phase 14 (a)/(b): {arch.name} in {out['dtype']} vs forward: prefill "
+                         f"cache {out['prefill_cache_rel']:.3e}, prefill → decode "
+                         f"{[f'{e:.3e}' for e in errs]} (rtol {rtol}); positions past a "
+                         f"routing flip left out: {left_out} of {out['positions']}")
+    return out
+
+
+def _lm_model(arch_id: str, mesh, dev, card: str) -> dict:
+    """One config at full width: (a) ``prefill_32k`` and (b)
+    ``decode_32k`` timed in bf16, then their checks against ``forward``
+    (``_lm_checks``): in bf16 for a dense model; for an MoE model in f32
+    (TF32 off), because with random weights a token's 8th and 9th router
+    logits lie ~0.1 apart and two bf16 paths differ by ~1e-2 in a logit,
+    so most tokens of a bf16 comparison would change experts on a
+    rounding (measured on the CPU at olmoe's width: 2 f32 paths differ by
+    1.3e-6, no flip in 3,072 token-layers)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tf
+    from repro_torch.tree import tree_leaves, tree_map
+
+    gib = 2**30
+    arch = get_arch(arch_id)
+    cfg = arch.cfg
+    rec = dict(arch=arch_id)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = tf.init_params(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    torch.cuda.synchronize()
+    rec.update(init_s=time.perf_counter() - t0, param_bytes=_tree_bytes(params),
+               n_params=sum(t.numel() for t in tree_leaves(params)))
+    tg = torch.Generator(device=dev).manual_seed(1)
+
+    # (a) prefill_32k at batch 1 over the full 32,768 tokens
+    cell = arch.build_cell("prefill_32k", mesh, global_batch=LM_PREFILL_BATCH)
+    S = cell.input_structs[1].shape[1]
+    toks = torch.randint(0, cfg.vocab, (LM_PREFILL_BATCH, S), generator=tg, device=dev)
+    cell.fn(params, toks[:, :LM_WARM_TOKENS])  # warm-up: cuBLAS handles, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    last, cache = cell.fn(params, toks)
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    rec["prefill"] = dict(
+        tokens=S, batch=LM_PREFILL_BATCH, s=pre_s, tokens_per_s=LM_PREFILL_BATCH * S / pre_s,
+        bound_s=arch.model_flops("prefill_32k", LM_PREFILL_BATCH) / BF16_FLOP_PER_S,
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        dry_run_bytes=cell.meta["argument_bytes"] + cell.meta["output_bytes"],
+        finite=bool(torch.isfinite(last).all() and torch.isfinite(cache["k"]).all()))
+    if not (rec["prefill"]["finite"] and tuple(last.shape) == (LM_PREFILL_BATCH, cfg.vocab)
+            and tuple(cache["k"].shape) == (cfg.n_layers, LM_PREFILL_BATCH, S, cfg.n_kv_heads,
+                                            cfg.head_dim)):
+        raise SystemExit(f"phase 14 (a): {arch_id} prefill gave {tuple(last.shape)} / "
+                         f"{tuple(cache['k'].shape)}, finite {rec['prefill']['finite']}")
+    del last, cache
+    torch.cuda.empty_cache()
+
+    # (b) decode_32k at batch 8 over a full 32,768-slot cache: a prompt
+    # prefilled into it, then a warm-up step and LM_TIMED_STEPS timed ones
+    dec = arch.build_cell("decode_32k", mesh, global_batch=LM_DECODE_BATCH)
+    B, S = LM_DECODE_BATCH, dec.input_structs[1]["k"].shape[2]
+    torch.cuda.reset_peak_memory_stats()
+    cache = tf.init_kv_cache(cfg, B, S, device=dev)
+    ptoks = torch.randint(0, cfg.vocab, (B, LM_PROMPT + LM_TIMED_STEPS + 1), generator=tg,
+                          device=dev)
+    _, pc = arch.build_cell("prefill_32k", mesh, global_batch=B).fn(params, ptoks[:, :LM_PROMPT])
+    for k in ("k", "v"):
+        cache[k][:, :, :LM_PROMPT] = pc[k]
+    del pc
+    lens = torch.full((B,), LM_PROMPT, dtype=torch.int32, device=dev)
+    times = []
+    for j in range(LM_TIMED_STEPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, cache = dec.fn(params, cache, ptoks[:, LM_PROMPT + j:LM_PROMPT + j + 1], lens)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+        lens = lens + 1
+    prof = {}
+    tok = ptoks[:, -1:]
+    device_breakdown(f"{arch_id} decode_32k step (batch {B})",
+                     lambda: dec.fn(params, cache, tok, lens), card, reps=2, out=prof)
+    cache_bytes = _tree_bytes(cache)
+    rec["decode"] = dict(
+        batch=B, slots=S, step_ms=times[1:], step_ms_median=statistics.median(times[1:]),
+        cache_bytes=cache_bytes,
+        bound_ms=1e3 * (rec["param_bytes"] + cache_bytes) / HBM_BYTES_PER_S,
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        dry_run_bytes=dec.meta["argument_bytes"] + dec.meta["output_bytes"],
+        finite=bool(torch.isfinite(lg).all()), profile=dict(
+            wall_ms=prof.get("wall_ms"), busy_ms=prof.get("busy_ms"), top=sorted(
+                ((k, v[0]) for k, v in prof.get("kernels", {}).items()), key=lambda kv: -kv[1])
+            [:6]))
+    if not rec["decode"]["finite"]:
+        raise SystemExit(f"phase 14 (b): {arch_id} decode logits are not finite")
+    del cache, lg
+    torch.cuda.empty_cache()
+    if cfg.moe is not None:
+        rec["moe"] = _lm_moe_check(params, cfg, dev)
+    if arch_id == "qwen3-8b":
+        rec["attention"] = _lm_attention_checks(cfg, mesh, dev)
+    if cfg.moe is not None:  # the checks in f32 (see the docstring)
+        params = tree_map(lambda t: t.float(), params)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        rec["check"] = _lm_checks(arch, params, mesh, dev, LM_F32_RTOL, seed=4,
+                                  batch=LM_F32_CHECK_BATCH)
+    else:
+        rec["check"] = _lm_checks(arch, params, mesh, dev, LM_BF16_RTOL, seed=4,
+                                  batch=LM_DECODE_BATCH)
+    rec["check"]["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    del params
+    torch.cuda.empty_cache()
+    rec["peak_gib"] = max(rec["prefill"]["max_memory_allocated"],
+                          rec["decode"]["max_memory_allocated"]) / gib
+    return rec
+
+
+def _log_lm_model(a: str, r: dict, card: str) -> None:
+    """One config's phase-14 lines (printed by the rank as it finishes)."""
+    gib = 2**30
+    p, dcd, c = r["prefill"], r["decode"], r["check"]
+    log(f"[14] {a}: {r['n_params']:,} params ({r['param_bytes'] / 1e9:.2f} GB bf16, drawn on "
+        f"the card in {r['init_s']:.1f}s)")
+    log(f"    (a) {a} prefill_32k, batch {p['batch']} (cut from 32: one card) × "
+        f"{p['tokens']:,} tokens, chunked attention (2,048), bf16: {1e3 * p['s']:.1f} ms, "
+        f"{p['tokens_per_s']:,.0f} tokens/s, bound {1e3 * p['bound_s']:.1f} ms "
+        f"(model_flops over {BF16_FLOP_PER_S / 1e12:.0f} TFLOP/s bf16); max_memory_allocated "
+        f"{p['max_memory_allocated'] / gib:.2f} GiB, dry run (1, 1) at this batch "
+        f"{p['dry_run_bytes'] / gib:.2f} GiB ({card})")
+    log(f"    (b) {a} decode_32k, batch {dcd['batch']} (cut from 128) over "
+        f"{dcd['slots']:,} slots ({dcd['cache_bytes'] / 1e9:.2f} GB cache), bf16: a step "
+        f"{dcd['step_ms_median']:.2f} ms (median of {LM_TIMED_STEPS}, host clock + "
+        f"synchronise; {[round(t, 2) for t in dcd['step_ms']]}), bound "
+        f"{dcd['bound_ms']:.2f} ms (weights + cache over {HBM_BYTES_PER_S / 1e12:.2f} TB/s); "
+        f"max_memory_allocated {dcd['max_memory_allocated'] / gib:.2f} GiB, dry run (1, 1) "
+        f"at this batch {dcd['dry_run_bytes'] / gib:.2f} GiB ({card})")
+    log(f"    (a)/(b) {a} against forward in {c['dtype']}: prefill_32k's cache at its first "
+        f"{LM_PROMPT} positions {c['prefill_cache_rel']:.2e}; a {LM_PROMPT}-token prompt "
+        f"prefilled into a {dcd['slots']:,}-slot cache at batch {c['batch']}, then "
+        f"{LM_CHECK_STEPS} decode steps: relative L2 at most {c['worst_rel']:.2e} (rtol "
+        f"{c['rtol']}); positions past a routing flip left out: {c['positions_left_out']} "
+        f"of {c['positions']} (+{c['prefill_positions_left_out']} in the prefill's); "
+        f"max_memory_allocated {c['max_memory_allocated'] / gib:.2f} GiB ({card})")
+    if "moe" in r:
+        m = r["moe"]
+        log(f"    (d) {a} MoE layer 0 on {m['tokens']} tokens (bf16): capacity "
+            f"{m['capacity']}, {m['kept']} of {m['pairs']} pairs kept ({m['dropped']} "
+            f"dropped, busiest expert {m['max_load']}), each expert its first "
+            f"{m['capacity']} in token order, no token twice; {m['ms']:.3f} ms ({card})")
+    if "attention" in r:
+        at = r["attention"]
+        log(f"    (c) {a} flash decoding's local path over {LM_LONG_KEYS:,} keys "
+            f"({at['cache_bytes'] / 1e9:.2f} GB, valid {LM_LONG_VALID:,}) vs the masked "
+            f"reference: relative L2 {at['flash_vs_ref_rel']:.2e} (rtol {LM_ATTN_RTOL}); "
+            f"{at['flash_ms']:.3f} ms vs {at['ref_ms']:.3f} ms (CUDA events, median of 10); "
+            f"(d) chunked vs full attention at {LM_CHUNK_TOKENS} tokens: "
+            f"{at['chunked_vs_full_rel']:.2e} ({card})")
+
+
+def lm_rank(rank: int, world: int, d: str) -> None:
+    """Phase 14's NCCL rank (world 1, mesh ``(1, 1)``): the LM family (see
+    the module docstring); its record goes to ``<d>/out.json``."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    mesh = make_debug_mesh((1, 1), ("data", "model"))
+    card = card_line()
+    out = dict(backend=dist.get_backend())
+    t0 = time.perf_counter()
+    out["smoke"] = _lm_smoke_parity()
+    out["train_cli"] = _lm_train_cli()
+    out["small_s"] = time.perf_counter() - t0
+    _log_lm_small(out, card)
+    out["models"] = {}
+    for a in LM_SERVED:
+        out["models"][a] = _lm_model(a, mesh, dev, card)
+        _log_lm_model(a, out["models"][a], card)
+    out["seconds"] = time.perf_counter() - t_start
+    (pathlib.Path(d) / "out.json").write_text(json.dumps(out))
+
+
+def lm_phase_start():
+    """Start phase 14's rank in the background → (pool, future). It needs
+    nothing of the phases before it, so it runs beside phase 3's host
+    build, which leaves the card idle."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.launch.mesh import spawn_ranks
+
+    shutil.rmtree(LM_DIR, ignore_errors=True)
+    LM_DIR.mkdir(parents=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    pool = ThreadPoolExecutor(1)
+    return pool, pool.submit(spawn_ranks, lm_rank, 1, str(LM_DIR), backend="nccl",
+                             init_file=LM_DIR / "init", timeout_s=LM_DEADLINE_S)
+
+
+def lm_phase_finish(job, card: str) -> dict:
+    """Wait for phase 14's rank, log its records beside the card → them."""
+    pool, fut = job
+    t0 = time.perf_counter()
+    try:
+        spawn_s = fut.result()
+    finally:
+        pool.shutdown(wait=True)
+    out = json.loads((LM_DIR / "out.json").read_text())
+    out.update(spawn_s=spawn_s, waited_s=time.perf_counter() - t0)
+    log(f"[14] the LM family ({card}): one {out['backend']} rank, mesh (1, 1), beside phase 3's "
+        f"host build: {out['seconds']:.1f}s in the rank ({spawn_s:.1f}s with its start), the "
+        f"parent waited {out['waited_s']:.1f}s; {len(out['models'])} configs at full width, "
+        f"every check held; no kernel of the port is on this path (the reference computes it "
+        f"with plain jnp, no Pallas)")
+    shutil.rmtree(LM_DIR, ignore_errors=True)
+    return out
+
+
+def _log_lm_small(out: dict, card: str) -> None:
+    log(f"[14] (d) smoke() card == CPU ({card}): " + ", ".join(
+        f"{a} loss {r['loss0'][0]:.6f}/{r['loss1'][0]:.6f} (cpu {r['loss0'][1]:.6f}/"
+        f"{r['loss1'][1]:.6f}), logits max err {r['logits_max_abs_err']:.1e}"
+        for a, r in out["smoke"].items()) + f" (rtol {LM_SMOKE_RTOL}, atol {LM_SMOKE_ATOL})")
+    log(f"    (d) launch.train --smoke on the card: {out['train_cli']}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="smoke run of the port on one GPU")
-    ap.add_argument("--n-docs", type=int, default=100_000,
-                    help="collection size (MsMarco has 8,842,240; the host build bounds it)")
+    ap.add_argument("--n-docs", type=int, default=60_000,
+                    help="collection size (MsMarco has 8,842,240; the host build, Python "
+                         "loops, bounds it)")
     ap.add_argument("--hnsw-docs", type=int, default=2_500,
                     help="the prefix of the collection the hnsw phase serves (its host build "
                          "is Python insertion loops, ~10 ms a document)")
@@ -3850,6 +4410,11 @@ def main() -> int:
     del Qwb
     phase_s["2b block scan vs plain"] = time.perf_counter() - t0
 
+    # -- 14. the LM family, in a rank of its own beside phase 3's host build ----------
+    lm_job = lm_phase_start()
+    log("[14] the LM family started in a spawned NCCL rank (it runs beside phase 3's host "
+        "build, which leaves the card idle)")
+
     # -- 3. the main path -----------------------------------------------------
     t0 = time.perf_counter()
     # drawn once with phase 13's 4,096 queries: the documents do not depend on
@@ -3871,6 +4436,9 @@ def main() -> int:
     log(f"    Seismic host index ({index.n_blocks} blocks) built once in "
         f"{time.perf_counter() - t0:.1f}s")
     phase_s["3 seismic host build"] = time.perf_counter() - t0
+    lm = lm_phase_finish(lm_job, card)
+    phase_s["14 lm (beside 3)"] = lm["spawn_s"]
+    phase_s["14 lm wait"] = lm["waited_s"]
 
     t0 = time.perf_counter()
     Q = torch.from_numpy(Q_np).to(dev)
@@ -4189,7 +4757,7 @@ def main() -> int:
     phase_s["13 configs"] = time.perf_counter() - t0
     log(f"[13] {phase_s['13 configs']:.1f}s")
 
-    # -- 14. summary ------------------------------------------------------------
+    # -- 15. summary ------------------------------------------------------------
     log("phases: " + ", ".join(f"{k} {v:.1f}s" for k, v in phase_s.items()))
     log(f"ported kernels: {n_rows} rows_dot variants and {len(kernels) - n_rows} block-scan "
         f"entries ok; total {time.perf_counter() - t_start:.0f}s")

@@ -35,7 +35,6 @@ nnz/doc, LiLSR 387 nnz/doc — §3 of the paper).
 from __future__ import annotations
 
 import dataclasses
-import math
 
 import torch
 
@@ -43,7 +42,7 @@ from .. import resolve_device
 from ..dist import sharding as shd
 from ..dist.sharding import P
 from ..serve.api import RetrieverConfig, get_engine, make_sharded_search
-from .base import BaseArch, Cell
+from .base import BaseArch, Cell, _nbytes, _OnFirstCall, _struct, device_counts
 
 __all__ = ["RetrievalArch", "RETRIEVAL_SHAPES"]
 
@@ -52,48 +51,6 @@ RETRIEVAL_SHAPES = {
     "serve_4096q": dict(kind="serve", n_queries=4096),
     "graph_4096q": dict(kind="serve", n_queries=4096),
 }
-
-
-def _struct(shape, dtype) -> torch.Tensor:
-    return torch.empty(tuple(shape), dtype=dtype, device="meta")
-
-
-def _nbytes(t: torch.Tensor, shape=None) -> int:
-    return math.prod(t.shape if shape is None else shape) * t.element_size()
-
-
-def _device_bytes(mesh, structs, placements) -> int:
-    """Bytes one device holds of ``structs`` (a tree) under ``placements``
-    (the same tree of ``Placement``s)."""
-    if isinstance(structs, dict):
-        return sum(_device_bytes(mesh, structs[k], placements[k]) for k in structs)
-    if isinstance(structs, (tuple, list)):
-        return sum(_device_bytes(mesh, s, p) for s, p in zip(structs, placements))
-    return _nbytes(structs, placements.shard_shape(structs.shape))
-
-
-class _OnFirstCall:
-    """A cell's step, made at its first call on the device its query
-    lies on (a mesh program takes the rank's coordinate, which a
-    ``MeshShape`` does not have): ``make(device, *args)`` builds it,
-    again when the device or ``key(*args)`` changes."""
-
-    def __init__(self, mesh, make, key=lambda *args: None):
-        self.mesh, self.make, self.key = mesh, make, key
-        self.fn, self.made_for = None, None
-
-    def __call__(self, *args):
-        from ..launch.mesh import MeshShape
-
-        if isinstance(self.mesh, MeshShape):
-            raise ValueError(f"a cell built on {self.mesh} has shapes only; build it on a "
-                             f"DeviceMesh of the process group to run it")
-        Q = args[-1]
-        device = Q.device if isinstance(Q, torch.Tensor) else resolve_device(None)
-        made_for = (device, self.key(*args))
-        if self.fn is None or made_for != self.made_for:
-            self.fn, self.made_for = self.make(device, *args), made_for
-        return self.fn(*args)
 
 
 def _global_scan(codec: str, n_docs: int, dim: int, scale: float):
@@ -246,8 +203,8 @@ class RetrievalArch(BaseArch):
         meta = {"n_docs": self.n_docs, "payload_bytes": self._payload_bytes(), "opt": self.opt}
         return Cell(self.name, "scan_100q", "serve", _OnFirstCall(mesh, make), structs, in_sh,
                     out_sh, self.model_flops("scan_100q"),
-                    {**meta, **self._counts(mesh, structs, in_sh, out, out_sh,
-                                            self.model_flops("scan_100q"), collective)})
+                    {**meta, **device_counts(mesh, structs, in_sh, out, out_sh,
+                                             self.model_flops("scan_100q"), collective)})
 
     def _search_cell(self, shape: str, mesh, da, nq: int) -> Cell:
         n_shards = shd.axis_size(mesh, "model")
@@ -288,20 +245,8 @@ class RetrievalArch(BaseArch):
         fn = _OnFirstCall(mesh, make, key=lambda arrays, idmap, Q: idmap.shape[-1])
         return Cell(self.name, shape, "serve", fn, structs, in_sh, out_sh,
                     flops, {"n_docs": self.n_docs, "n_shards": n_shards,
-                            **self._counts(mesh, structs, in_sh, out, out_sh, flops,
-                                           collective)})
-
-    @staticmethod
-    def _counts(mesh, structs, in_sh, out, out_sh, flops: float, collective: dict) -> dict:
-        """The per-device counts the dry run reports (``launch/hlo_stats.py``):
-        input and output bytes under their placements, the useful flops
-        split evenly, and the collectives' result bytes by op."""
-        n_chips = shd.mesh_size(mesh)
-        arg = _device_bytes(mesh, structs, in_sh)
-        res = _device_bytes(mesh, out, out_sh)
-        return {"argument_bytes": arg, "output_bytes": res, "device_bytes": float(arg + res),
-                "device_flops": flops / n_chips, "collectives_by_op": collective,
-                "collective_bytes": float(sum(collective.values()))}
+                            **device_counts(mesh, structs, in_sh, out, out_sh, flops,
+                                            collective)})
 
     def _payload_bytes(self) -> int:
         return sum(_nbytes(v) for v in self.packed_structs().values())

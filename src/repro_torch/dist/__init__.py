@@ -11,14 +11,17 @@ calls ``all_gather`` or ``pmean`` over it:
   the tombstone budget, the axis helpers every mesh path shares
   (``axis_index``, ``axis_size``, ``axes_group``, ``all_gather``) and
   the placements the configs' cells carry (``P``, ``to_shardings``,
-  ``replicate``, ``shard_shape``);
+  ``replicate``, ``shard_shape``, ``shard_block``) and the LM family's
+  rules (``lm_param_specs``, ``kv_cache_spec``);
 * ``compression`` — the int8 error-feedback gradient mean of the
-  compressed data-parallel step.
+  compressed data-parallel step;
+* ``collectives`` — sequence-sharded flash decoding
+  (``flash_decode_shardmap``).
 
-The LM, GNN and recsys placement rules and the flash-decode collective
-of the reference are the auxiliary workloads (ROADMAP A11).
+The GNN and recsys placement rules of the reference are still to port
+(ROADMAP A11).
 """
 
-from . import compression, sharding
+from . import collectives, compression, sharding
 
-__all__ = ["sharding", "compression"]
+__all__ = ["sharding", "compression", "collectives"]

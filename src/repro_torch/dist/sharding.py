@@ -16,7 +16,12 @@ A placement is the reference's ``NamedSharding``: a mesh and a
 ``PartitionSpec`` (``P``, a tuple with one entry per leading dimension:
 ``None``, an axis name, or a tuple of axis names split row-major).
 ``to_shardings`` and ``replicate`` build them over a tree of specs as the
-reference's do; ``Placement.shard_shape`` is the per-device shape.
+reference's do; ``Placement.shard_shape`` is the per-device shape and
+``shard_block`` a rank's block of an array.
+
+The LM family's rules (``lm_param_specs``, ``kv_cache_spec``) are the
+reference's, entry for entry, over the ``meta`` parameter tree of
+``models.transformer.param_structs``.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ __all__ = [
     "to_shardings",
     "replicate",
     "shard_shape",
+    "shard_block",
     "mesh_size",
     "data_axes",
     "index_mesh",
@@ -45,6 +51,8 @@ __all__ = [
     "axes_group",
     "group_all_gather",
     "all_gather",
+    "lm_param_specs",
+    "kv_cache_spec",
 ]
 
 
@@ -115,6 +123,18 @@ def shard_shape(shape, spec, mesh) -> tuple[int, ...]:
                 f"partitioned {f} times, but the dimension size is {d} (full shape: {shape}, "
                 f"per-dimension tiling factors: {factors} should evenly divide the shape)")
     return tuple(d // f for d, f in zip(shape, factors))
+
+
+def shard_block(x: torch.Tensor, spec, mesh) -> torch.Tensor:
+    """This rank's block of ``x`` placed by ``spec`` on ``mesh`` (a
+    ``DeviceMesh``): every dimension split over its entry's axes at the
+    rank's row-major index over them. The block is a view of ``x``."""
+    shard = shard_shape(x.shape, spec, mesh)
+    for d, e in enumerate(spec):
+        if e is not None:
+            i = axis_index(mesh, e)
+            x = x.narrow(d, i * shard[d], shard[d])
+    return x
 
 
 def data_axes(mesh) -> tuple[str, ...]:
@@ -238,3 +258,77 @@ def all_gather(t: torch.Tensor, mesh, axes: str | Sequence[str]) -> torch.Tensor
     for a in reversed(_axes(axes)):
         out = group_all_gather(out, mesh.get_group(a)).flatten(0, 1)
     return out
+
+
+# ---------------------------------------------------------------------------
+# LM family
+# ---------------------------------------------------------------------------
+
+
+def _fit(mesh, entry, dim: int):
+    """Keep a spec entry only when it divides the dimension."""
+    if entry is None:
+        return None
+    axes = entry if isinstance(entry, tuple) else (entry,)
+    axes = tuple(a for a in axes if a in mesh.mesh_dim_names)
+    if not axes or dim % axis_size(mesh, axes):
+        return None
+    return axes if len(axes) > 1 else axes[0]
+
+
+def _spec(mesh, shape, *entries) -> PartitionSpec:
+    return P(*[_fit(mesh, e, d) for e, d in zip(entries, shape)])
+
+
+def lm_param_specs(cfg, mesh, fsdp: bool = True):
+    """Storage specs for every LM parameter (stacked-layer layout).
+
+    TP over ``model`` on the contraction-free dim; FSDP over the data
+    axes on the other dim when ``fsdp`` (train/prefill — decode turns it
+    off so weights stay TP-resident)."""
+    from ..models.transformer import param_structs
+    from ..tree import tree_leaves_with_path, tree_unflatten
+
+    structs = param_structs(cfg)
+    da = data_axes(mesh)
+    dsp = da if fsdp else None
+
+    def one(name, leaf):
+        shape = tuple(leaf.shape)
+        if leaf.dim() <= 1 or "norm" in name or "router" in name:
+            return P()
+        if "moe" in name:
+            # stacked experts [L, E, d_in, d_out]: expert-parallel over
+            # model, FSDP on d_in (gate/up) or d_out (down)
+            if leaf.dim() == 4:
+                if "w_down" in name:
+                    return _spec(mesh, shape, None, "model", None, dsp)
+                return _spec(mesh, shape, None, "model", dsp, None)
+            if "shared_down" in name:  # [L, S·F, D]
+                return _spec(mesh, shape, None, "model", dsp)
+            return _spec(mesh, shape, None, dsp, "model")  # shared gate/up
+        if "embed" in name:  # [V, D] — vocab-sharded over model
+            return _spec(mesh, shape, "model", dsp)
+        if "lm_head" in name:  # [D, V]
+            return _spec(mesh, shape, dsp, "model")
+        if "wo" in name or "w_down" in name:  # [L, X, D] row-parallel
+            return _spec(mesh, shape, None, "model", dsp)
+        # [L, D, X] column-parallel (wq/wk/wv/w_gate/w_up)
+        return _spec(mesh, shape, None, dsp, "model")
+
+    return tree_unflatten(structs, [one(n, leaf) for n, leaf in tree_leaves_with_path(structs)])
+
+
+def kv_cache_spec(mesh, *, batch: int, seq_shard: bool = False) -> dict:
+    """Specs for the [L, B, S, Hk, dh] KV cache dict.
+
+    Normal decode: batch over data, sequence over ``model`` (matches
+    ``flash_decode_shardmap(batch_axes=da, seq_axes=("model",))``).
+    ``seq_shard`` (500k context): sequence over every axis, batch
+    replicated."""
+    da = data_axes(mesh)
+    if seq_shard:
+        spec = P(None, None, (*da, "model"), None, None)
+    else:
+        spec = P(None, _fit(mesh, da, batch), "model", None, None)
+    return {"k": spec, "v": spec}

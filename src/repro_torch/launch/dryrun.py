@@ -25,8 +25,12 @@ Usage::
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch msmarco-splade-opt2 --shape scan_100q
     PYTHONPATH=src python -m repro_torch.launch.dryrun --mesh single --out build/dryrun
 
-Without ``--arch`` every id not ported yet gets one ``SKIP`` line naming
-ROADMAP A11.
+Without ``--arch`` every ported id runs (the five LM configs × 4 shapes
+and the two retrieval configs × 3, on both meshes: 52 cells) and every
+id not ported yet (the GNN and RecSys configs) gets one ``SKIP`` line
+naming ROADMAP A11. The LM cells' counts are ``configs/base.py``'s
+(``LMArch``): the parameters, optimizer state and caches as ``meta``
+tensors under their placements, and ``hlo_stats.lm_collectives``.
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ import json
 import os
 import traceback
 
-from ..configs import ARCH_IDS, RETRIEVAL_IDS, get_arch
+from ..configs import ARCH_IDS, PORTED_IDS, get_arch
 from ..dist.sharding import mesh_size
 from .hlo_stats import cell_costs, roofline_terms
 from .mesh import production_mesh_shape
@@ -116,8 +120,9 @@ def main(argv=None) -> None:
         arch_ids = [args.arch]
     else:
         for arch_id in ARCH_IDS:
-            print(f"SKIP {arch_id}: not ported to repro_torch yet (ROADMAP A11)", flush=True)
-        arch_ids = list(RETRIEVAL_IDS)
+            if arch_id not in PORTED_IDS:
+                print(f"SKIP {arch_id}: not ported to repro_torch yet (ROADMAP A11)", flush=True)
+        arch_ids = list(PORTED_IDS)
 
     n_ok = n_fail = 0
     for mesh_tag, mesh in meshes:

@@ -31,13 +31,11 @@ from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 
 from .. import resolve_device
-from ..tree import tree_map
-from .common import embed_init, normal, rms_norm
+from .common import embed_init, normal, params_from_jax, params_to_numpy, rms_norm
 from .transformer import attention
 
 __all__ = [
@@ -184,19 +182,6 @@ def contrastive_loss(params, cfg: SparseEncoderConfig, batch):
         "nnz_query": nnz_q,
         "nnz_doc": nnz_d,
     }
-
-
-def params_from_jax(tree, *, device=None):
-    """A tree of arrays (the reference's parameters, ``jax.device_get``
-    or ``np.asarray`` of each leaf) → the same tree of tensors on
-    ``device`` (``cuda`` unless given)."""
-    dev = resolve_device(device)
-    return tree_map(lambda a: torch.from_numpy(np.array(a, copy=True)).to(dev), tree)
-
-
-def params_to_numpy(tree):
-    """A tree of tensors → the same tree of host numpy arrays (copies)."""
-    return tree_map(lambda t: t.detach().cpu().numpy().copy(), tree)
 
 
 class SparseEncoder(torch.nn.Module):

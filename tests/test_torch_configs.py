@@ -83,7 +83,8 @@ def exact_payload_bytes(ref_arch) -> int:
 def test_registry_ids_match_reference():
     assert configs.ARCH_IDS == ref_configs.ARCH_IDS
     assert configs.RETRIEVAL_IDS == ref_configs.RETRIEVAL_IDS
-    assert sorted(configs._MODULES) == sorted(configs.RETRIEVAL_IDS)  # the ported ids
+    assert sorted(configs._MODULES) == sorted(configs.PORTED_IDS)  # the ported ids
+    assert configs.PORTED_IDS == configs.ARCH_IDS[:5] + configs.RETRIEVAL_IDS  # LM + retrieval
 
 
 @pytest.mark.parametrize("opt", [0, 1, 2, 3])
@@ -112,15 +113,22 @@ def test_unknown_arch_raises_the_reference_key_error():
 
 @pytest.mark.parametrize("arch_id", ref_configs.ARCH_IDS)
 def test_unported_arch_raises_naming_a11(arch_id):
-    ref_configs.get_arch(arch_id)  # the reference has it
+    """The GNN and RecSys ids raise naming A11; the LM ids resolve
+    (ported with the LM family)."""
+    ref = ref_configs.get_arch(arch_id)  # the reference has it
+    if ref.family == "lm":
+        assert configs.get_arch(arch_id).name == arch_id
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP A11"):
         configs.get_arch(arch_id)
 
 
 def test_all_cells_are_the_ported_ones():
-    want = [(a, s) for a, s in ref_configs.all_cells(include_retrieval=True) if a in IDS]
-    assert list(configs.all_cells()) == want
-    assert list(configs.all_cells(include_retrieval=False)) == []
+    want = [(a, s) for a, s in ref_configs.all_cells(include_retrieval=True)
+            if a in configs.PORTED_IDS]
+    assert list(configs.all_cells()) == want and len(want) == 5 * 4 + 2 * 3
+    assert list(configs.all_cells(include_retrieval=False)) == [
+        (a, s) for a, s in want if a not in IDS]
 
 
 @pytest.mark.parametrize("opt", [0, 1, 2, 3])

@@ -1,8 +1,9 @@
 """The port's dry run (``python -m repro_torch.launch.dryrun``) on the
 CPU: the command line over both production meshes, its records against
-the reference's per-device shapes (one subprocess with 512 forced jax
-devices, ``tests/torch_configs_cases.py``), its ``OK`` and ``SKIP`` lines,
-and no jax in the process that ran it."""
+the reference's per-device shapes (subprocesses with 512 forced jax
+devices, ``tests/torch_configs_cases.py``: the retrieval cells, and the
+LM cells with their outputs from ``jax.eval_shape``), its ``OK`` and
+``SKIP`` lines, and no jax in the process that ran it."""
 
 import json
 import subprocess
@@ -10,9 +11,9 @@ import sys
 
 import numpy as np
 import pytest
-from torch_configs_cases import ROOT, device_bytes, reference_cells
+from torch_configs_cases import LM_IDS, ROOT, device_bytes, reference_cells, reference_lm_cells
 
-from repro_torch.configs import ARCH_IDS, RETRIEVAL_IDS
+from repro_torch.configs import ARCH_IDS, PORTED_IDS, RETRIEVAL_IDS
 from repro_torch.launch.hlo_stats import HW, roofline_terms
 
 #: runs the dry run's ``main`` and fails if jax or the reference was imported
@@ -51,11 +52,12 @@ def test_cli_covers_every_ported_cell_and_names_the_rest(full_run):
     lines = res.stdout.splitlines()
     skips = [ln for ln in lines if ln.startswith("SKIP ")]
     assert skips == [f"SKIP {a}: not ported to repro_torch yet (ROADMAP A11)"
-                     for a in ARCH_IDS]
+                     for a in ARCH_IDS if a not in PORTED_IDS]
+    assert len(skips) == 5  # the GNN and RecSys ids
     oks = [ln for ln in lines if ln.startswith("OK  ")]
-    assert len(oks) == 2 * len(RETRIEVAL_IDS) * 3
+    assert len(oks) == 2 * (len(RETRIEVAL_IDS) * 3 + len(LM_IDS) * 4) == 52
     assert all("GiB of 80 GB (H100)" in ln and "dominant=" in ln for ln in oks)
-    assert lines[-1] == "dry-run complete: 12 ok, 0 failed"
+    assert lines[-1] == "dry-run complete: 52 ok, 0 failed"
 
 
 @pytest.mark.parametrize("mesh_tag", ["pod256", "pod512x2"])
@@ -111,9 +113,9 @@ def test_one_cell_at_an_opt_level(tmp_path, reference, opt):
 
 
 def test_unported_and_unknown_ids_fail(tmp_path):
-    res = dryrun("--arch", "qwen3-8b", "--mesh", "single", "--out", str(tmp_path), cwd=tmp_path)
+    res = dryrun("--arch", "gat-cora", "--mesh", "single", "--out", str(tmp_path), cwd=tmp_path)
     assert res.returncode == 1
-    assert "FAIL [pod256] qwen3-8b:" in res.stdout and "ROADMAP A11" in res.stdout
+    assert "FAIL [pod256] gat-cora:" in res.stdout and "ROADMAP A11" in res.stdout
     res = dryrun("--arch", "nope", "--out", str(tmp_path), cwd=tmp_path)
     assert res.returncode != 0 and "unknown arch 'nope'" in res.stderr
 
@@ -124,5 +126,44 @@ def test_per_device_bytes_fit_the_card(full_run):
     _, records = full_run
     peaks = [json.loads(p.read_text())["memory"]["peak_device_bytes"]
              for p in records.rglob("*.json")]
-    assert len(peaks) == 12 and max(peaks) < 80e9
+    assert len(peaks) == 52 and max(peaks) < 80e9
     assert np.all(np.asarray(peaks) > 0)
+
+
+@pytest.fixture(scope="module")
+def reference_lm():
+    return reference_lm_cells()
+
+
+@pytest.mark.parametrize("mesh_tag", ["pod256", "pod512x2"])
+@pytest.mark.parametrize("arch_id", LM_IDS)
+def test_lm_records_equal_the_reference_per_device_bytes(full_run, reference_lm, arch_id,
+                                                         mesh_tag):
+    """Every LM record's per-device argument and output bytes equal the
+    reference cell's (its inputs under ``in_shardings``, its outputs from
+    ``jax.eval_shape`` under ``out_shardings``), with the reference's
+    model flops, meta and the counts' sums."""
+    _, records = full_run
+    for shape in ("train_4k", "prefill_32k", "decode_32k", "long_500k"):
+        rec = json.loads((records / mesh_tag / f"{arch_id}__{shape}.json").read_text())
+        want = reference_lm[f"{arch_id}|{mesh_tag}|{shape}"]
+        assert (rec["arch"], rec["shape"], rec["kind"], rec["mesh"], rec["ok"]) == (
+            arch_id, shape, want["kind"], mesh_tag, True)
+        assert rec["n_chips"] == want["n_chips"]
+        mem = rec["memory"]
+        assert mem["argument_bytes"] == device_bytes(want["inputs"]), shape
+        assert mem["output_bytes"] == device_bytes(want["outputs"]), shape
+        assert mem["peak_device_bytes"] == mem["argument_bytes"] + mem["output_bytes"]
+        cost = rec["cost"]
+        assert cost["device_flops"] == want["model_flops"] / want["n_chips"]
+        assert cost["device_bytes"] == mem["peak_device_bytes"]
+        for k, v in want["meta"].items():
+            assert rec["meta"][k] == v, (shape, k)
+        coll = rec["collectives"]
+        assert coll["total_bytes_per_device"] == sum(coll["by_op"].values()) > 0
+        assert set(coll["by_op"]) <= {"all-gather", "all-reduce", "reduce-scatter"}
+        assert rec["roofline"] == roofline_terms(
+            global_flops=cost["device_flops"] * rec["n_chips"],
+            device_flops=cost["device_flops"], device_bytes=cost["device_bytes"],
+            collective_bytes=coll["total_bytes_per_device"], n_chips=rec["n_chips"],
+            model_flops=want["model_flops"], hw=HW())

@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain torch versions, on the card: the
 rows kernel for every row codec × value codec and stored value format,
 and the block-scan kernel for every codec, static width, value storage
-and seg dtype.
+and seg dtype; and the paths above them (serving, shards, mutation, the
+encoder, the mesh, the configs, the LM family) on the card.
 
 Every test here carries the ``gpu`` marker and skips where no CUDA GPU
 is present; whether one is present is decided inside the fixture, never
@@ -1904,3 +1905,97 @@ def test_full_corpus_replication_on_the_card(cuda, mesh_corpus, n_docs):
     full = torch.sparse_csr_tensor(crow, col, val, size=(n_docs, fwd.dim))
     torch.testing.assert_close(got, torch.sparse.mm(full, Qc.t().contiguous()).t(),
                                rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# the LM family (chip_smoke.py phase 14 at a small size)
+# ---------------------------------------------------------------------------
+
+LM_IDS = ("olmoe-1b-7b", "kimi-k2-1t-a32b", "qwen3-8b", "yi-6b", "deepseek-coder-33b")
+
+
+@pytest.mark.parametrize("arch_id", LM_IDS)
+def test_lm_smoke_on_the_card_matches_the_cpu(cuda, arch_id):
+    """Every LM config's ``smoke()`` (two train steps, a forward, a decode
+    step at the smoke width, f32) on the card and on the CPU from the same
+    weights: losses rtol 1e-4, logits atol 1e-4 (f32 sums in other orders;
+    TF32 off)."""
+    from repro_torch.configs import get_arch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = get_arch(arch_id).smoke(0, device=cuda)
+    cpu = get_arch(arch_id).smoke(0, device="cpu")
+    assert card["device"] == "cuda"
+    for k in ("loss0", "loss1"):
+        assert abs(card[k] - cpu[k]) <= 1e-4 * abs(cpu[k]), (k, card[k], cpu[k])
+    for k in ("logits", "decode_logits"):
+        torch.testing.assert_close(card[k], cpu[k], rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("moe", [False, True], ids=["dense", "moe"])
+def test_lm_decode_matches_forward_on_the_card(cuda, moe):
+    """The mini LM in f32 on the card: ten decode steps equal ``forward``
+    at their positions (atol 3e-5, the reference's own test's), with
+    experts at a capacity where no token drops."""
+    import dataclasses
+
+    from torch_lm_cases import mini_lm
+
+    from repro_torch.models import transformer as tf
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = mini_lm(moe=moe)
+    if moe:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=4.0))
+    p = tf.init_params(torch.Generator().manual_seed(1), cfg, device=cuda)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab, (2, 10))).to(cuda)
+    with torch.no_grad():
+        full, _ = tf.forward(p, cfg, toks)
+        cache = tf.init_kv_cache(cfg, 2, 10, torch.float32, device=cuda)
+        lens = torch.zeros(2, dtype=torch.int32, device=cuda)
+        outs = []
+        for t in range(10):
+            lg, cache = tf.decode_step(p, cfg, cache, toks[:, t:t + 1], lens)
+            lens = lens + 1
+            outs.append(lg)
+    torch.testing.assert_close(torch.stack(outs, 1), full, rtol=0, atol=3e-5)
+
+
+def test_lm_decode_cell_and_flash_decode_nccl_world_1(cuda, tmp_path):
+    """The mini LM's ``decode_32k`` cell on one NCCL rank (flash decoding
+    over a one-rank group, the in-place cache write) against the CPU's
+    ``decode_step`` (atol 1e-4), and flash decoding's local path against
+    the masked reference (atol 1e-5)."""
+    from torch_lm_cases import (MINI_DECODE, MINI_STEPS, card_ranks, flash_inputs, mini_lm)
+
+    from repro_torch.launch.mesh import spawn_ranks
+    from repro_torch.models import transformer as tf
+
+    cfg = mini_lm()
+    B, S = MINI_DECODE["decode_32k"]
+    params = tf.init_params(torch.Generator().manual_seed(4), cfg, device="cpu")
+    toks = np.random.default_rng(5).integers(0, cfg.vocab, (B, MINI_STEPS))
+    spawn_ranks(card_ranks, 1, str(tmp_path), params, toks, "cuda", backend="nccl",
+                init_file=tmp_path / "init", timeout_s=300)
+    got = dict(np.load(tmp_path / "rank0.npz"))
+    cache = tf.init_kv_cache(cfg, B, S, device="cpu")
+    lens = torch.zeros(B, dtype=torch.int32)
+    with torch.no_grad():
+        for t in range(MINI_STEPS):
+            want, cache = tf.decode_step(params, cfg, cache, torch.from_numpy(toks[:, t:t + 1]),
+                                         lens)
+            lens = lens + 1
+            np.testing.assert_allclose(got[f"logits{t}"], want.numpy(), rtol=0, atol=1e-4)
+    for k in ("k", "v"):
+        np.testing.assert_allclose(got[k], cache[k].numpy(), rtol=0, atol=1e-4)
+    want = tf._decode_attention_ref(*(torch.from_numpy(a) for a in flash_inputs(2)))
+    np.testing.assert_allclose(got["flash"], want.numpy(), rtol=0, atol=1e-5)
+
+
+def test_lm_train_cli_on_the_card(cuda, capsys, tmp_path):
+    from repro_torch.launch import train
+
+    train.main(["--arch", "kimi-k2-1t-a32b", "--smoke", "--steps", "4", "--checkpoint-every",
+                "2", "--checkpoint-dir", str(tmp_path)])
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    assert line.startswith("trained kimi-k2-1t-a32b 4 steps") and "restarts=0" in line
