@@ -284,9 +284,12 @@ no result:
    ``doc_ids`` offset a copy (``replicate_pack``), at opt 0 (int32 seg)
    and opt 2 (int8 seg), every copy's scores held to ``sparse.mm`` of the
    base CSR (1e-4); ms (CUDA events, median of 10), resident GB, bits per
-   component, the bound; ``sparse.mm`` over the full CSR where int32
-   indices hold it (SPLADE; LiLSR's 3.4 billion nonzeros do not, and an
-   int64 CSR does not fit beside the pack). (c) Each config's
+   component, the bound; then, the pack freed, ``sparse.mm`` over the
+   full CSR (nq 100 and 1, int32 indices), held to opt 2's scores: one
+   CSR for SPLADE, row parts of at most 2**30 nonzeros for LiLSR's 3.4
+   billion (27.4 GB; one int64 CSR of them gave cuSPARSE's SpMM wrong
+   scores at nq 100 and an internal error at nq 1, and so did a part of
+   2**31 − 1 at nq 1). (c) Each config's
    ``smoke()`` on the card. Launches go to
    ``launches_by_path["configs"]``;
 14. the LM family (``repro_torch.configs``' LM configs, ``models/``,
@@ -311,7 +314,39 @@ no result:
    ``max_memory_allocated`` beside the dry run's bytes at the cut batch.
    The LM family has no Pallas kernel, so no kernel of the port runs
    here;
-15. one JSON line of kernels, the card line, and as the last line
+15. the GNN and RecSys families (``GNNArch``, ``RecsysArch``,
+   ``models/gnn.py``, ``models/recsys.py``), in phase 14's rank after its
+   LM work, once that memory is freed; weights drawn on the card from a
+   ``torch.Generator`` at the reference's scales, graphs and batches from
+   seeds. (a) GAT: ``get_arch("gat-cora").build_cell`` for its four
+   shapes at their budgets — Cora's 2,708 nodes and 10,556 edges (1,433
+   binary features, 7 classes), 128 molecules of 30 nodes and 64 edges,
+   ``NeighborSampler.sample_padded`` of 1,024 seeds at fanout (15, 10)
+   over a host graph at Reddit's 232,965 nodes and mean in-degree
+   (~114.6M edges), and ``ogb_products`` at its full 2,449,407 nodes and
+   61,865,984 edges (the chunked SpMM keeps ``[E, H]`` tensors only);
+   each step timed, its loss and every gradient held to the CPU's (the
+   three shapes the CPU runs), and ``gat-cora-opt1`` / ``-opt2`` (the
+   edge-sharded layer on this one-card mesh) held to ``opt`` 0 on
+   ``full_graph_sm`` and ``ogb_products``. (b) DeepFM, DCN-v2, SASRec
+   and DIN at full width, each in its four cells: ``serve_p99`` (512)
+   held to the CPU on the same weights and batch, ``serve_bulk``
+   (262,144) whose first 512 rows equal ``serve_p99``'s function,
+   ``retrieval_cand`` (1,000,448 in-range candidates; DIN **cut to
+   250,112**: at 1,000,448 its attention tower's input and first
+   layer's product pass 80 GB) whose first 512 scores equal the batched
+   forward of those rows, ``train_batch`` (65,536; SASRec **cut to
+   8,192**: its gathered negatives are 1.28 MB a row) timed with a finite
+   loss, and a train step's loss and gradients at 512 rows held to the
+   CPU's. (c) The five configs' ``smoke()`` on the card against the CPU,
+   and one ``launch.train --arch deepfm --smoke``. Every cell's ms (host
+   clock + synchronise, median of 5 after a warm-up), samples, nodes or
+   edges a second, bound (``model_flops`` over 67 TFLOP/s f32 against
+   the cell's dry-run bytes over 3.35 TB/s) and ``max_memory_allocated``
+   beside the dry run's bytes on this one-device mesh. Tolerances beside
+   their constants (``FAM_*``). Neither family has a Pallas kernel, so
+   no kernel of the port runs here;
+16. one JSON line of kernels, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -3226,17 +3261,45 @@ def replicate_pack(base: dict, n_base: int, n_docs: int) -> dict:
     return out
 
 
-def replicate_csr(offsets, comps, vals, n_base: int, n_docs: int, index_dtype=torch.int32):
+def replicate_csr(offsets, comps, vals, n_base: int, n_docs: int, index_dtype=torch.int32,
+                  col_dtype=None):
     """The CSR of ``replicate_pack``'s corpus (``offsets`` [n_base + 1],
     ``comps``, ``vals`` of the base, tensors) → (crow, col, val) with
-    ``index_dtype`` indices."""
+    ``index_dtype`` indices (``col_dtype`` for ``col`` where given)."""
     reps = -(-n_docs // n_base)
     nnz0 = int(offsets[-1])
     starts = offsets[:-1].to(torch.int64).repeat(reps)[:n_docs]
     starts += torch.arange(n_docs, device=offsets.device) // n_base * nnz0
     total = nnz0 * (n_docs // n_base) + int(offsets[n_docs % n_base])
     crow = torch.cat([starts, starts.new_tensor([total])]).to(index_dtype)
-    return crow, comps.to(index_dtype).repeat(reps)[:total], vals.repeat(reps)[:total]
+    return crow, comps.to(col_dtype or index_dtype).repeat(reps)[:total], vals.repeat(reps)[:total]
+
+
+def csr_row_parts(crow, col, val, n_cols: int, max_nnz: int = 2**30) -> list:
+    """A CSR (``crow`` offsets of any integer dtype, ``col``, ``val``) as
+    sparse CSR tensors over consecutive row ranges of at most ``max_nnz``
+    nonzeros each, with int32 indices (``col`` and ``val`` sliced, not
+    copied): ``sparse.mm`` over each, concatenated, is the whole's. The
+    default keeps a part well inside int32: on the H100 (torch 2.11, CUDA
+    12.8) cuSPARSE's SpMM raised an internal error at one query over a
+    part of 2**31 − 1 nonzeros, and ran over parts of 1.71e9."""
+    n = crow.shape[0] - 1
+    wide = crow.to(torch.int64)
+    bounds = [0]
+    while bounds[-1] < n:  # each part the most rows that fit
+        d0 = bounds[-1]
+        d1 = int(torch.searchsorted(wide, wide[d0:d0 + 1] + max_nnz, right=True)) - 1
+        if d1 <= d0:
+            raise SystemExit(f"csr_row_parts: row {d0} alone holds more than {max_nnz} "
+                             f"nonzeros")
+        bounds.append(min(d1, n))
+    parts = []
+    for d0, d1 in zip(bounds[:-1], bounds[1:]):
+        a, b = int(crow[d0]), int(crow[d1])
+        parts.append(torch.sparse_csr_tensor((crow[d0:d1 + 1] - a).to(torch.int32),
+                                             col[a:b].to(torch.int32), val[a:b],
+                                             size=(d1 - d0, n_cols)))
+    return parts
 
 
 def replicas_close(scores, base_scores, n_base: int, rtol=FULL_RTOL, atol=FULL_ATOL) -> list:
@@ -3369,29 +3432,41 @@ def full_corpus_scan(config: str, base: dict, csr: tuple, Q, mesh, n_base: int,
         last = scores
         del cell, scores
         torch.cuda.empty_cache()
-    # sparse.mm over the whole replicated CSR, where int32 indices hold it
+    # sparse.mm over the whole replicated CSR, int32 indices, in row parts
+    # of at most 2**30 nonzeros (``csr_row_parts``), their products
+    # concatenated: one for SPLADE, four for LiLSR's 3.4 billion.
+    # cuSPARSE over one int64 CSR of them returned wrong scores at nq 100
+    # and failed at nq 1 (torch 2.11, CUDA 12.8)
+    del arrays, feed
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
     total_nnz = int(offsets[-1]) * (n_docs // n_base) + int(offsets[n_docs % n_base])
     rec["nnz_csr"] = total_nnz
-    csr_bytes = total_nnz * 8 + 4 * (n_docs + 1)
-    if total_nnz < 2**31:
-        crow, col, val = replicate_csr(offsets, comps, vals, n_base, n_docs)
-        full = torch.sparse_csr_tensor(crow, col, val, size=(n_docs, dim))
-        Qt = Qd.t().contiguous()
-        lib = torch.sparse.mm(full, Qt).t()
-        torch.testing.assert_close(last, lib, rtol=FULL_RTOL, atol=FULL_ATOL)
-        q_col = Qt[:, :1].contiguous()
-        rec["sparse_mm"] = dict(ms=cuda_ms_median(lambda: torch.sparse.mm(full, Qt), CELL_REPS),
-                                ms_nq1=cuda_ms_median(lambda: torch.sparse.mm(full, q_col),
-                                                      CELL_REPS),
-                                csr_bytes=csr_bytes, index_dtype="int32",
-                                max_abs_err_vs_opt2=float((last - lib).abs().max()))
-        del full, crow, col, val, lib
-    else:
-        rec["sparse_mm"] = dict(skipped=f"{total_nnz} nonzeros pass int32 indices; an int64 "
-                                        f"CSR ({total_nnz * 12 / 1e9:.1f} GB) does not fit beside "
-                                        f"the {rec['opt0']['resident_bytes'] / 1e9:.1f} GB pack",
-                                csr_bytes_int64=total_nnz * 12 + 8 * (n_docs + 1))
-    del arrays, last
+    wide = total_nnz >= 2**31
+    crow, col, val = replicate_csr(offsets, comps, vals, n_base, n_docs,
+                                   torch.int64 if wide else torch.int32, torch.int32)
+    parts = csr_row_parts(crow, col, val, dim)
+    csr_bytes = sum(p.crow_indices().nbytes + p.col_indices().nbytes + p.values().nbytes
+                    for p in parts)
+    del crow
+
+    def lib_mm(q):
+        outs = [torch.sparse.mm(p, q) for p in parts]
+        return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+    Qt = Qd.t().contiguous()
+    lib = lib_mm(Qt).t()
+    torch.testing.assert_close(last, lib, rtol=FULL_RTOL, atol=FULL_ATOL)
+    err = float((last - lib).abs().max())
+    del lib
+    q_col = Qt[:, :1].contiguous()
+    rec["sparse_mm"] = dict(
+        ms=cuda_ms_median(lambda: lib_mm(Qt), CELL_REPS),
+        ms_nq1=cuda_ms_median(lambda: lib_mm(q_col), CELL_REPS),
+        csr_bytes=csr_bytes, index_dtype="int32", parts=len(parts), max_abs_err_vs_opt2=err,
+        max_memory_allocated=torch.cuda.max_memory_allocated())
+    del parts, col, val
+    del last
     torch.cuda.empty_cache()
     return rec
 
@@ -3662,10 +3737,11 @@ def cells_phase(fwd, Q_all, index, seismic_ret, hnsw_ret, truth, csr, lilsr, car
             f"sparse.mm of the base copy by copy (max {one['copies_max_abs_err']:.2e}); "
             f"{one['ms']:.3f} ms, bound {one['bound_ms']:.3f} ms by {one['bound_by']} ({card})")
         log(f"    (b) {config}: {rec['bits_per_component']:.2f} bits/comp (ctrl + data); "
-            + (f"sparse.mm over the full CSR ({sm['csr_bytes'] / 1e9:.2f} GB, int32) "
-               f"{sm['ms']:.3f} ms (nq 1: {sm['ms_nq1']:.3f}), == opt 2 within 1e-4 (max "
-               f"{sm['max_abs_err_vs_opt2']:.2e})"
-               if "ms" in sm else f"sparse.mm skipped: {sm['skipped']}") + f" ({card})")
+            + f"sparse.mm over the full CSR ({sm['csr_bytes'] / 1e9:.2f} GB, int32, in "
+            f"{sm['parts']} row part(s) of ≤ 2**30 nonzeros; max_memory_allocated "
+            f"{sm['max_memory_allocated'] / 1e9:.2f} GB) {sm['ms']:.3f} ms (nq 1: "
+            f"{sm['ms_nq1']:.3f}), == opt 2 within 1e-4 (max {sm['max_abs_err_vs_opt2']:.2e}) "
+            f"({card})")
     log("    (c) smoke: " + ", ".join(f"{a} max_err {v['max_err']:.2e} on {v['device']}"
                                       for a, v in smoke.items())
         + f"; launches {smoke_launches}")
@@ -4162,6 +4238,11 @@ def lm_rank(rank: int, world: int, d: str) -> None:
     for a in LM_SERVED:
         out["models"][a] = _lm_model(a, mesh, dev, card)
         _log_lm_model(a, out["models"][a], card)
+    out["lm_seconds"] = time.perf_counter() - t_start
+    # phase 15 in the same rank, once the LM's memory is freed
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["families"] = family_phase(mesh, dev, card)
     out["seconds"] = time.perf_counter() - t_start
     (pathlib.Path(d) / "out.json").write_text(json.dumps(out))
 
@@ -4194,10 +4275,15 @@ def lm_phase_finish(job, card: str) -> dict:
     out = json.loads((LM_DIR / "out.json").read_text())
     out.update(spawn_s=spawn_s, waited_s=time.perf_counter() - t0)
     log(f"[14] the LM family ({card}): one {out['backend']} rank, mesh (1, 1), beside phase 3's "
-        f"host build: {out['seconds']:.1f}s in the rank ({spawn_s:.1f}s with its start), the "
-        f"parent waited {out['waited_s']:.1f}s; {len(out['models'])} configs at full width, "
-        f"every check held; no kernel of the port is on this path (the reference computes it "
-        f"with plain jnp, no Pallas)")
+        f"host build: {out['lm_seconds']:.1f}s in the rank, {len(out['models'])} configs at "
+        f"full width, every check held; no kernel of the port is on this path (the reference "
+        f"computes it with plain jnp, no Pallas)")
+    log(f"[15] the GNN and RecSys families ({card}): {out['families']['seconds']:.1f}s in the "
+        f"same rank after phase 14 ({out['seconds']:.1f}s in all, {spawn_s:.1f}s with its "
+        f"start; the parent waited {out['waited_s']:.1f}s); gat-cora's 4 cells and 4 RecSys "
+        f"configs × 4 cells at full width, every check held; no kernel of the port is on this "
+        f"path (the reference builds both families from jnp gathers, segment sums and dense "
+        f"products, no Pallas)")
     shutil.rmtree(LM_DIR, ignore_errors=True)
     return out
 
@@ -4208,6 +4294,588 @@ def _log_lm_small(out: dict, card: str) -> None:
         f"{r['loss1'][1]:.6f}), logits max err {r['logits_max_abs_err']:.1e}"
         for a, r in out["smoke"].items()) + f" (rtol {LM_SMOKE_RTOL}, atol {LM_SMOKE_ATOL})")
     log(f"    (d) launch.train --smoke on the card: {out['train_cli']}")
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the GNN and RecSys families
+# ---------------------------------------------------------------------------
+
+#: timed repetitions a cell (after a warm-up)
+FAM_REPS = 5
+#: minibatch_lg's host graph: Reddit's nodes at its mean in-degree
+#: (114,615,892 / 232,965 ≈ 492), built sorted by destination
+REDDIT_NODES, REDDIT_EDGES = 232_965, 114_615_892
+#: SASRec's train_batch on one card: its gathered negatives are 1.28 MB a
+#: row ([50, 128, 50] f32), 83.9 GB at 65,536 rows and as much again for
+#: their gradient
+SASREC_TRAIN_BATCH = 8_192
+#: DIN's retrieval_cand on one card: at 1,000,448 candidates the attention
+#: tower's input [N, 100, 72] f32 (28.8 GB) and its first layer's product
+#: and bias sum (32.0 GB each) pass 80 GB together
+DIN_CANDIDATES = 250_112
+#: the rows whose outputs and gradients are checked against the CPU
+FAM_CHECK_ROWS = 512
+#: card against the CPU, and one path against another on the card (f32,
+#: TF32 off; sums in other orders, atomics on the card): losses and
+#: outputs within FAM_RTOL (atol FAM_ATOL); gradients within FAM_REL of
+#: the leaf's largest entry or FAM_FLOOR × the tree's largest, where that
+#: is larger (DIN's attention tower's gradients are 1e-6–1e-11 beside
+#: 0.1, and its last bias's is 0 up to rounding)
+FAM_RTOL, FAM_ATOL = 1e-4, 1e-5
+FAM_REL, FAM_FLOOR = 1e-4, 1e-2
+#: ogb_products' output layer's a_dst gradient (two paths, or sharded
+#: against unsharded) is held within FAM_REL of the tree's largest entry;
+#: every other leaf keeps FAM_FLOOR. That gradient cancels (a constant
+#: a_dst·h_dst over a node's incoming edges leaves the node's softmax
+#: unchanged; only the leaky ReLU's kink breaks that), so what is left is
+#: the rounding of 61.9M-edge sums whose atomics add in another order each
+#: run: 3.0e-10 and 6.2e-10 apart against a largest entry ~1.5e-4 of the
+#: tree (2.9e-4 of the 1e-2 floor's scale; 3.5e-7 of it in another run)
+OGB_FLOOR = 1.0
+#: minibatch_lg's step on the card is also run with the SpMM in chunks of
+#: this many edges (42 chunks of its 168,960, the last partial) and held
+#: against the CPU's single chunk
+CARD_MESSAGE_CHUNK = 4_096
+FAM_TRAIN_STEPS = 20
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _timed(fn, dev, reps: int = FAM_REPS) -> tuple:
+    """A warm-up call, then ``reps`` timed ones (host clock around a
+    synchronise) → (the last result, ms a call, max_memory_allocated)."""
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    out = fn()
+    times = []
+    for _ in range(reps):
+        del out
+        _sync(dev)
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(dev)
+        times.append(1e3 * (time.perf_counter() - t0))
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    return out, times, peak
+
+
+def _output_a_dst(cfg) -> str:
+    """The path of GAT's output layer's ``a_dst``, whose gradient cancels
+    (see OGB_FLOOR)."""
+    return f"['layers'][{cfg.n_layers - 1}]['a_dst']"
+
+
+def _trees_close(what: str, got, want, floors: dict | None = None) -> float:
+    """Every leaf of ``got`` (any device) within FAM_REL of the larger of
+    its own largest entry and a floor × the tree's largest in ``want``:
+    ``floors[path]`` where given, else FAM_FLOOR → the largest error over
+    that scale; exits otherwise."""
+    from repro_torch.tree import tree_leaves_with_path
+
+    g, w = dict(tree_leaves_with_path(got)), dict(tree_leaves_with_path(want))
+    if sorted(g) != sorted(w):
+        raise SystemExit(f"phase 15: {what}: leaves {sorted(g)} vs {sorted(w)}")
+    top = max(float(v.detach().abs().max()) for v in w.values())
+    worst = 0.0
+    for k, v in w.items():
+        floor = (floors or {}).get(k, FAM_FLOOR)
+        scale = max(float(v.detach().abs().max()), floor * top, 1e-30)
+        err = float((g[k].detach().to(v.device).float() - v.float()).abs().max())
+        if not err <= FAM_REL * scale:
+            raise SystemExit(f"phase 15: {what}: {k} differs by {err:.3e} (scale {scale:.3e}, "
+                             f"rel {FAM_REL}, floor {floor})")
+        worst = max(worst, err / scale)
+    return worst
+
+
+def _close(what: str, got, want) -> float:
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    if tuple(got.shape) != tuple(want.shape) or not bool(torch.isfinite(got).all()):
+        raise SystemExit(f"phase 15: {what}: shape {tuple(got.shape)} vs {tuple(want.shape)}, "
+                         f"finite {bool(torch.isfinite(got).all())}")
+    err = (got - want).abs()
+    if not bool((err <= FAM_ATOL + FAM_RTOL * want.abs()).all()):
+        raise SystemExit(f"phase 15: {what}: max abs err {float(err.max()):.3e} (rtol "
+                         f"{FAM_RTOL}, atol {FAM_ATOL})")
+    return float(err.max())
+
+
+def _bound_ms(cell) -> tuple[float, str]:
+    """A train cell's bound: the larger of model_flops over the f32 peak
+    (TF32 off) and the bytes the cell reads and writes (every input once,
+    every output once: the dry run's per-device bytes on this one-device
+    mesh, the whole state in and out) over HBM."""
+    return _larger(cell.model_flops, cell.meta["argument_bytes"] + cell.meta["output_bytes"])
+
+
+def _larger(ops: float, n_bytes: float) -> tuple[float, str]:
+    t_ops, t_mem = ops / F32_FLOP_PER_S, n_bytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_mem), "operations" if t_ops >= t_mem else "bytes"
+
+
+#: the RecSys tables (leaf paths) that a serving cell reads by row
+REC_TABLES = {"deepfm": ("['embed']", "['linear']"), "dcn-v2": ("['embed']",),
+              "sasrec": ("['item_embed']",), "din": ("['item_embed']",)}
+
+
+def _rec_serve_bound_ms(arch, shape: str, n: int, params, ids, inputs, out) -> tuple:
+    """A serving cell's bound (``serve_*`` at ``n`` rows, ``retrieval_cand``
+    at ``n`` candidates): the larger of its operations over the f32 peak
+    and its bytes over HBM. Bytes: each table row that ``ids`` (this run's
+    ids, global in the CTR models' combined table) touch, once; every
+    other parameter whole; ``inputs`` and ``out`` once. Operations:
+    ``model_flops``, except SASRec's (it charges the training's candidate
+    logits, and at ``retrieval_cand`` an encode a candidate): an encode
+    of each sequence, ``n`` to serve and one at ``retrieval_cand``
+    (12·S·D² + 4·S²·D a block: the QKV, output and two feed-forward
+    products, scores and weighted sum), plus one D-wide dot a candidate
+    → (ms, "bytes" or "operations")."""
+    from repro_torch.tree import tree_leaves_with_path
+
+    cfg = arch.cfg
+    rows = int(torch.unique(ids).numel())
+    leaves = dict(tree_leaves_with_path(params))
+    tables = REC_TABLES[cfg.name]
+    n_bytes = sum(rows * t[0].numel() * t.element_size() if k in tables
+                  else t.numel() * t.element_size() for k, t in leaves.items())
+    n_bytes += sum(t.numel() * t.element_size() for t in (*inputs, out))
+    if cfg.name == "sasrec":
+        D, S = cfg.embed_dim, cfg.seq_len
+        enc = cfg.n_blocks * (12 * S * D * D + 4 * S * S * D)
+        ops = enc + 2 * n * D if shape == "retrieval_cand" else enc * n
+    else:
+        ops = arch.model_flops(shape, n)
+    return _larger(ops, n_bytes)
+
+
+def _to(tree, dev):
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda t: t.to(dev), tree)
+
+
+def _gnn_graph(shape: str, rng, n_nodes: int, n_edges: int) -> dict:
+    """A graph of ``shape`` drawn from ``rng`` at the shape's true sizes and
+    padded to ``n_nodes`` / ``n_edges`` (numpy; ``gnn.pad_graph``'s rows
+    plus ``edge_index``, the unpadded edges, and ``graph_*`` for
+    molecule)."""
+    from repro_torch.configs.base import GNN_SHAPES
+    from repro_torch.models import gnn
+
+    sh = GNN_SHAPES[shape]
+    F, C = sh["d_feat"], sh["n_classes"]
+    x = np.zeros((n_nodes, F), np.float32)
+    labels = rng.integers(0, C, size=n_nodes)
+    mask = np.zeros(n_nodes, bool)
+    info = {}
+    if shape == "full_graph_sm":  # Cora: binary bag of words, ~18 words a paper
+        n, E = sh["true_nodes"], sh["true_edges"]
+        x[:n] = rng.random((n, F), dtype=np.float32) < 18 / F
+        ei = rng.integers(0, n, size=(2, E))
+        mask[:140] = True  # the Planetoid split: 20 a class
+    elif shape == "molecule":
+        G, per, pe = sh["graphs"], 30, 64
+        n = G * per
+        x[:n] = rng.normal(size=(n, F))
+        off = np.repeat(np.arange(G) * per, pe)
+        ei = rng.integers(0, per, size=(2, G * pe)) + off
+        gid = np.full(n_nodes + 1, -1, np.int32)
+        gid[:n] = np.repeat(np.arange(G), per)
+        info = {"graph_ids": gid, "graph_labels": rng.integers(0, C, size=G).astype(np.int32)}
+    elif shape == "minibatch_lg":
+        deg = rng.poisson(REDDIT_EDGES / REDDIT_NODES, size=REDDIT_NODES)
+        dst = np.repeat(np.arange(REDDIT_NODES), deg)
+        src = rng.integers(0, REDDIT_NODES, size=dst.shape[0])
+        t0 = time.perf_counter()
+        smp = gnn.NeighborSampler(np.stack([src, dst]), REDDIT_NODES, seed=0)
+        del src, dst
+        seeds = rng.choice(REDDIT_NODES, size=sh["batch_nodes"], replace=False)
+        node_ids, es, ed = smp.sample_padded(seeds, sh["fanout"], n_nodes, n_edges)
+        info = {"host_graph_edges": int(deg.sum()), "sampled_nodes": int((node_ids >= 0).sum()),
+                "sampled_edges": int((es < n_nodes).sum()),
+                "sampler_s": time.perf_counter() - t0}
+        del smp
+        x[:] = rng.normal(size=(n_nodes, F))
+        mask[: sh["batch_nodes"]] = True  # the seeds' loss (GraphSAGE minibatch)
+        ei = np.stack([es, ed])
+    else:  # ogb_products at its budgets
+        n = n_nodes
+        x[:] = rng.normal(size=(n, F))
+        ei = rng.integers(0, n, size=(2, n_edges))
+        mask[:] = rng.random(n) < 0.08  # ogbn-products trains on ~8% of its nodes
+    return dict(x=x, edge_index=ei, labels=labels, mask=mask, **info)
+
+
+def _gnn_batch(g: dict, n_edges: int, dev) -> dict:
+    from repro_torch.models import gnn
+
+    graph = gnn.pad_graph(g["x"], g["edge_index"], g["labels"], g["mask"],
+                          edge_budget=n_edges, device=dev)
+    batch = dict(vars(graph))
+    for k in ("graph_ids", "graph_labels"):
+        if k in g:
+            batch[k] = torch.from_numpy(g[k]).to(dev)
+    return batch
+
+
+def _profile(name: str, fn, card: str) -> dict:
+    """One call of ``fn`` under ``torch.profiler`` (``device_breakdown``)
+    → its wall and busy ms and its six busiest kernels."""
+    prof = {}
+    device_breakdown(name, fn, card, reps=1, out=prof)
+    top = sorted(((k, v[0]) for k, v in prof.get("kernels", {}).items()),
+                 key=lambda kv: -kv[1])[:6]
+    return dict(wall_ms=prof.get("wall_ms"), busy_ms=prof.get("busy_ms"), top=top)
+
+
+def _gnn_cell(shape: str, mesh, dev, rng, card: str = "") -> dict:
+    """Phase 15 (a) for ``shape`` (see the module docstring) → its record."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import GNN_SHAPES
+    from repro_torch.models import gnn
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.train_step import value_and_grad
+
+    sh = GNN_SHAPES[shape]
+    N, E = sh["n_nodes"], sh["n_edges"]
+    arch = get_arch("gat-cora")
+    cfg = arch._cfg(shape)
+    t0 = time.perf_counter()
+    g = _gnn_graph(shape, rng, N, E)
+    host_s = time.perf_counter() - t0
+    batch = _gnn_batch(g, E, dev)
+    params = gnn.gat_init(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    oinit, _ = make_optimizer(arch.optimizer)
+    state = {"params": params, "opt": oinit(params)}
+    cell = arch.build_cell(shape, mesh)
+    (new, metrics), times, peak = _timed(lambda: cell.fn(state, batch), dev)
+    loss = float(metrics["loss"])
+    ms = statistics.median(times)
+    bound, by = _bound_ms(cell)
+    rec = dict(shape=shape, nodes=N + 1, edges=E, host_s=host_s, loss=loss,
+               step_ms=times, ms=ms, nodes_per_s=(N + 1) / ms * 1e3, edges_per_s=E / ms * 1e3,
+               bound_ms=bound, bound_by=by, max_memory_allocated=peak,
+               dry_run_bytes=cell.meta["argument_bytes"] + cell.meta["output_bytes"],
+               **{k: v for k, v in g.items() if k in ("host_graph_edges", "sampled_nodes",
+                                                      "sampled_edges", "sampler_s")})
+    if not np.isfinite(loss):
+        raise SystemExit(f"phase 15 (a): gat-cora {shape}: loss {loss}")
+    del new
+    if shape == "ogb_products" and dev.type == "cuda":
+        rec["profile"] = _profile(f"gat-cora {shape} train step", lambda: cell.fn(state, batch),
+                                  card)
+    loss_fn = arch.loss(shape)
+    (l_dev, _), grads = value_and_grad(loss_fn, params, batch)
+    if shape != "ogb_products":  # the step's loss and gradients on the CPU
+        cpu = torch.device("cpu")
+        (l_cpu, _), g_cpu = value_and_grad(loss_fn, _to(params, cpu), _to(batch, cpu))
+        rec["cpu_loss"] = float(l_cpu)
+        rec["loss_vs_cpu"] = _close(f"{shape} loss vs the CPU", l_dev, l_cpu)
+        rec["grads_vs_cpu"] = _trees_close(f"{shape} gradients vs the CPU", grads, g_cpu)
+        if shape == "minibatch_lg":  # the SpMM in several chunks on the card
+            whole, gnn.MESSAGE_CHUNK = gnn.MESSAGE_CHUNK, CARD_MESSAGE_CHUNK
+            try:
+                (l_ch, _), g_ch = value_and_grad(loss_fn, params, batch)
+            finally:
+                gnn.MESSAGE_CHUNK = whole
+            rec["chunks"] = -(-E // CARD_MESSAGE_CHUNK)
+            rec["chunked_loss_vs_cpu"] = _close(f"{shape} loss in chunks of "
+                                                f"{CARD_MESSAGE_CHUNK} vs the CPU", l_ch, l_cpu)
+            rec["chunked_grads_vs_cpu"] = _trees_close(
+                f"{shape} gradients in chunks of {CARD_MESSAGE_CHUNK} vs the CPU", g_ch, g_cpu)
+            del g_ch
+    if arch.edge_sharded(shape) or get_arch("gat-cora-opt1").edge_sharded(shape):
+        # opt 1 and 2: the edge-sharded layer on this (1, 1) mesh against opt 0
+        esrc, edst, _ = gnn.partition_edges_by_dst(g["edge_index"], N + 1, 1)
+        sb = {"x": batch["x"], "edge_src": torch.from_numpy(esrc).to(dev),
+              "edge_dst": torch.from_numpy(edst).to(dev), "labels": batch["labels"],
+              "train_mask": batch["train_mask"].float()}
+        rec["opt"] = {}
+        floors = {_output_a_dst(cfg): OGB_FLOOR} if shape == "ogb_products" else None
+        for opt in (1, 2):
+            a = get_arch(f"gat-cora-opt{opt}")
+            c = a.build_cell(shape, mesh)
+            (_, m), t_opt, peak_opt = _timed(lambda: c.fn(state, sb), dev)
+            (l_s, _), g_s = value_and_grad(
+                lambda p, b: gnn.gat_loss_edge_sharded(p, cfg, b, mesh, ("data", "model"),
+                                                       min_side_gather=opt >= 2), params, sb)
+            rec["opt"][opt] = dict(
+                ms=statistics.median(t_opt), step_ms=t_opt, max_memory_allocated=peak_opt,
+                loss_vs_opt0=_close(f"{shape} opt {opt} loss vs opt 0", m["loss"], l_dev),
+                grads_vs_opt0=_trees_close(f"{shape} opt {opt} gradients vs opt 0", g_s, grads,
+                                           floors))
+            del g_s
+    del params, state, batch, grads
+    return rec
+
+
+def _rec_batch(cfg, B: int, g, dev) -> dict:
+    """A batch of ``B`` rows of ``cfg`` drawn on ``dev`` from generator
+    ``g``, every id inside its table (or its field's vocabulary)."""
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=g, device=dev, dtype=torch.int32)
+
+    m = cfg.name
+    if m in ("deepfm", "dcn-v2"):
+        out = {"sparse": torch.stack([ints(0, v, (B,)) for v in cfg.vocab_sizes], 1)}
+        if m == "dcn-v2":
+            out = {"dense": torch.rand((B, cfg.n_dense), generator=g, device=dev), **out}
+        out["label"] = ints(0, 2, (B,)).float()
+        return out
+    S = cfg.seq_len
+    pad = torch.rand((B, 1), generator=g, device=dev) * S  # each row's padded prefix
+    live = torch.arange(S, device=dev)[None] >= pad.floor().int()
+    if m == "sasrec":
+        seq = ints(1, cfg.n_items, (B, S)) * live
+        pos = torch.cat([seq[:, 1:], ints(1, cfg.n_items, (B, 1))], 1) * live
+        return {"seq": seq, "pos_label": pos,
+                "neg_label": ints(1, cfg.n_items, (B, S, cfg.n_negatives))}
+    return {"hist": ints(1, cfg.n_items, (B, S)) * live, "target": ints(1, cfg.n_items, (B,)),
+            "label": ints(0, 2, (B,)).float()}
+
+
+def _rows(batch: dict, n: int) -> dict:
+    return {k: v[:n] for k, v in batch.items()}
+
+
+def _rec_config(arch_id: str, mesh, dev, card: str = "") -> dict:
+    """Phase 15 (b) for one RecSys config at full width: its four cells
+    (see the module docstring) → its record."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import CAND_FIELD, REC_SHAPES
+    from repro_torch.models import recsys as rec_m
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.train.train_step import value_and_grad
+    from repro_torch.tree import tree_leaves
+
+    arch = get_arch(arch_id)
+    cfg = arch.cfg
+    init_fn, loss_raw, _ = arch._fns(cfg)
+    _sync(dev)
+    t0 = time.perf_counter()
+    params = init_fn(torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    _sync(dev)
+    rec = dict(arch=arch_id, init_s=time.perf_counter() - t0,
+               n_params=sum(t.numel() for t in tree_leaves(params)),
+               param_bytes=_tree_bytes(params), cells={})
+    g = torch.Generator(device=dev).manual_seed(1)
+    cpu = torch.device("cpu")
+    serve = arch.serve_fn()
+    with torch.no_grad():
+        p_cpu = _to(params, cpu)
+    for shape in ("serve_p99", "serve_bulk", "retrieval_cand", "train_batch"):
+        sh = REC_SHAPES[shape]
+        if shape == "retrieval_cand":
+            B = DIN_CANDIDATES if arch_id == "din" else sh["n_candidates"]
+        elif shape == "train_batch" and arch_id == "sasrec":
+            B = SASREC_TRAIN_BATCH
+        else:
+            B = sh["batch"]
+        cell = arch.build_cell(shape, mesh, global_batch=B)
+        r = dict(batch=B, full=sh.get("n_candidates", sh["batch"]))
+        if shape == "retrieval_cand":
+            user = _rec_batch(cfg, 1, g, dev)
+            hi = cfg.vocab_sizes[CAND_FIELD] if arch_id in ("deepfm", "dcn-v2") else cfg.n_items
+            cand = torch.randint(0, hi, (B,), generator=g, device=dev, dtype=torch.int32)
+            if arch_id == "deepfm":
+                args = (user["sparse"],)
+            elif arch_id == "dcn-v2":
+                args = (user["dense"], user["sparse"])
+            elif arch_id == "sasrec":
+                args = (user["seq"],)
+            else:
+                args = (user["hist"][0],)
+            scores, times, peak = _timed(lambda: cell.fn(params, *args, cand), dev)
+            if arch_id in ("deepfm", "dcn-v2"):
+                off = rec_m._field_offsets(cfg.vocab_sizes, dev)
+                keep = torch.arange(cfg.n_fields, device=dev) != CAND_FIELD
+                ids = torch.cat([(user["sparse"][0] + off)[keep], cand + off[CAND_FIELD]])
+            else:
+                ids = torch.cat([args[0].flatten(), cand])
+            bound = _rec_serve_bound_ms(arch, shape, B, params, ids, (*args, cand), scores)
+            n = FAM_CHECK_ROWS
+            with torch.no_grad():  # the first candidates as one batched forward
+                if arch_id in ("deepfm", "dcn-v2"):
+                    rows = user["sparse"].expand(n, cfg.n_fields).clone()
+                    rows[:, CAND_FIELD] = cand[:n]
+                    b = {"sparse": rows}
+                    if arch_id == "dcn-v2":
+                        b["dense"] = user["dense"].expand(n, cfg.n_dense)
+                    want = serve(params, b)
+                elif arch_id == "sasrec":
+                    u = rec_m.sasrec_encode(params, cfg, user["seq"])[:, -1]
+                    want = u @ params["item_embed"][cand[:n].long()].T
+                else:
+                    want = serve(params, {"hist": user["hist"].expand(n, cfg.seq_len),
+                                          "target": cand[:n]})
+            got = scores[:, :n] if arch_id == "sasrec" else scores[:n]
+            r["first_rows_vs_batched"] = _close(f"{arch_id} retrieval_cand's first {n}", got,
+                                                want)
+            del scores
+        elif shape == "train_batch":
+            oinit, _ = make_optimizer(arch.optimizer)
+            state = {"params": params, "opt": oinit(params)}
+            batch = _rec_batch(cfg, B, g, dev)
+            (new, metrics), times, peak = _timed(lambda: cell.fn(state, batch), dev)
+            bound = _bound_ms(cell)
+            r["loss"] = float(metrics["loss"])
+            if not np.isfinite(r["loss"]):
+                raise SystemExit(f"phase 15 (b): {arch_id} train_batch loss {r['loss']}")
+            del new
+            if arch_id == "sasrec" and dev.type == "cuda":
+                r["profile"] = _profile(f"{arch_id} train_batch step at {B:,}",
+                                        lambda: cell.fn(state, batch), card)
+            del state
+            small = _rows(batch, FAM_CHECK_ROWS)
+            del batch
+            loss_fn = lambda p, b: loss_raw(p, cfg, b)  # noqa: E731
+            (l_dev, _), g_dev = value_and_grad(loss_fn, params, small)
+            (l_cpu, _), g_cpu = value_and_grad(loss_fn, p_cpu, _to(small, cpu))
+            r["check_loss"] = [float(l_dev), float(l_cpu)]
+            r["loss_vs_cpu"] = _close(f"{arch_id} train loss at {FAM_CHECK_ROWS} vs the CPU",
+                                      l_dev, l_cpu)
+            r["grads_vs_cpu"] = _trees_close(f"{arch_id} gradients at {FAM_CHECK_ROWS} vs the "
+                                             f"CPU", g_dev, g_cpu)
+            del g_dev, g_cpu
+        else:
+            batch = _rec_batch(cfg, B, g, dev)
+            batch = {k: v for k, v in batch.items() if k not in ("label", "pos_label",
+                                                                  "neg_label")}
+            out, times, peak = _timed(lambda: cell.fn(params, batch), dev)
+            if arch_id in ("deepfm", "dcn-v2"):
+                ids = batch["sparse"] + rec_m._field_offsets(cfg.vocab_sizes, dev)[None]
+            else:
+                ids = torch.cat([batch[k].flatten() for k in ("seq", "hist", "target")
+                                 if k in batch])
+            bound = _rec_serve_bound_ms(arch, shape, B, params, ids, tuple(batch.values()), out)
+            n = FAM_CHECK_ROWS
+            with torch.no_grad():
+                if shape == "serve_p99":
+                    want = serve(p_cpu, _to(batch, cpu))
+                    r["vs_cpu"] = _close(f"{arch_id} serve_p99 vs the CPU", out, want)
+                else:
+                    want = serve(params, _rows(batch, n))
+                    r["first_rows_vs_p99_fn"] = _close(f"{arch_id} serve_bulk's first {n}",
+                                                       out[:n], want)
+            del out, batch
+        ms = statistics.median(times)
+        bound, by = bound
+        r.update(step_ms=times, ms=ms, per_s=B / ms * 1e3, bound_ms=bound, bound_by=by,
+                 max_memory_allocated=peak,
+                 dry_run_bytes=cell.meta["argument_bytes"] + cell.meta["output_bytes"])
+        rec["cells"][shape] = r
+    del params, p_cpu
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return rec
+
+
+def _family_smoke_parity() -> dict:
+    """The five new configs' ``smoke()`` on the card and on the CPU."""
+    from repro_torch.configs import get_arch
+
+    out = {}
+    for a in FAMILY_IDS:
+        card, cpu = get_arch(a).smoke(0, device="cuda"), get_arch(a).smoke(0, device="cpu")
+        key = "losses" if a == "gat-cora" else "loss"
+        got, want = np.atleast_1d(card[key]), np.atleast_1d(cpu[key])
+        if not np.allclose(got, want, rtol=FAM_RTOL, atol=0):
+            raise SystemExit(f"phase 15 (c): {a} smoke() on the card {got} vs the CPU {want} "
+                             f"(rtol {FAM_RTOL})")
+        out[a] = [got.tolist(), want.tolist()]
+    return out
+
+
+def _family_train_cli() -> str:
+    """One ``launch.train --arch deepfm --smoke`` run on the card → its line."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        train.main(["--arch", "deepfm", "--smoke", "--steps", str(FAM_TRAIN_STEPS)])
+    line = buf.getvalue().strip().splitlines()[-1]
+    if not line.startswith(f"trained deepfm {FAM_TRAIN_STEPS} steps") or "restarts=0" not in line:
+        raise SystemExit(f"phase 15 (c): launch.train printed {line!r}")
+    return line
+
+
+FAMILY_IDS = ("gat-cora", "deepfm", "dcn-v2", "sasrec", "din")
+
+
+def family_phase(mesh, dev, card: str) -> dict:
+    """Phase 15: (a) GAT's four cells, (b) the four RecSys configs at full
+    width, (c) the small checks → the record (each line logged as it
+    finishes)."""
+    from repro_torch.configs.base import GNN_SHAPES
+
+    t_start = time.perf_counter()
+    out = dict(gnn={}, recsys={})
+    rng = np.random.default_rng(0)
+    gib = 2**30
+    for shape in GNN_SHAPES:
+        r = out["gnn"][shape] = _gnn_cell(shape, mesh, dev, rng, card)
+        extra = ""
+        if "cpu_loss" in r:
+            extra += (f"; loss and gradients == the CPU's (loss err {r['loss_vs_cpu']:.1e}, "
+                      f"gradients {r['grads_vs_cpu']:.1e} of scale)")
+        if "chunks" in r:
+            extra += (f"; the SpMM in {r['chunks']} chunks of {CARD_MESSAGE_CHUNK:,} edges == "
+                      f"the CPU's (loss err {r['chunked_loss_vs_cpu']:.1e}, gradients "
+                      f"{r['chunked_grads_vs_cpu']:.1e} of scale)")
+        if "opt" in r:
+            extra += "; " + ", ".join(
+                f"opt {o}: {v['ms']:.2f} ms, loss/gradients == opt 0 ({v['loss_vs_opt0']:.1e}/"
+                f"{v['grads_vs_opt0']:.1e})" for o, v in r["opt"].items())
+        if "sampled_nodes" in r:
+            extra += (f"; sampled {r['sampled_nodes']:,} nodes / {r['sampled_edges']:,} edges "
+                      f"from a {REDDIT_NODES:,}-node, {r['host_graph_edges']:,}-edge host graph "
+                      f"in {r['sampler_s']:.1f}s")
+        log(f"[15] (a) gat-cora {shape}: {r['nodes']:,} nodes, {r['edges']:,} edges; a train step {r['ms']:.2f} ms "
+            f"(median of {FAM_REPS}), {r['edges_per_s']:,.0f} edges/s, {r['nodes_per_s']:,.0f} "
+            f"nodes/s, bound {r['bound_ms']:.3f} ms by {r['bound_by']}; loss {r['loss']:.4f}; "
+            f"max_memory_allocated {r['max_memory_allocated'] / gib:.2f} GiB, dry run (1, 1) "
+            f"{r['dry_run_bytes'] / gib:.3f} GiB{extra} ({card})")
+    for a in FAMILY_IDS[1:]:
+        r = out["recsys"][a] = _rec_config(a, mesh, dev, card)
+        log(f"[15] (b) {a}: {r['n_params']:,} params ({r['param_bytes'] / 1e9:.2f} GB f32, "
+            f"drawn on the card in {r['init_s']:.1f}s) ({card})")
+        for shape, c in r["cells"].items():
+            checks = ", ".join(f"{k} {v:.1e}" for k, v in c.items()
+                               if k.endswith(("vs_cpu", "vs_batched", "p99_fn")))
+            cut = f" (cut from {c['full']:,})" if c["batch"] != c["full"] else ""
+            log(f"    {a} {shape} at {c['batch']:,}{cut}: {c['ms']:.3f} ms (median of "
+                f"{FAM_REPS}), {c['per_s']:,.0f} "
+                f"{'candidates' if shape == 'retrieval_cand' else 'samples'}/s, bound "
+                f"{c['bound_ms']:.3f} ms by {c['bound_by']}; max_memory_allocated "
+                f"{c['max_memory_allocated'] / gib:.2f} GiB, dry run (1, 1) "
+                f"{c['dry_run_bytes'] / gib:.3f} GiB; checks held ({checks}) ({card})")
+    t0 = time.perf_counter()
+    out["smoke"] = _family_smoke_parity()
+    out["train_cli"] = _family_train_cli()
+    out["small_s"] = time.perf_counter() - t0
+    log(f"[15] (c) smoke() card == CPU (rtol {FAM_RTOL}): " + ", ".join(
+        f"{a} {v[0]}" for a, v in out["smoke"].items()) + f"; launch.train --smoke on the card: "
+        f"{out['train_cli']} ({card})")
+    out["seconds"] = time.perf_counter() - t_start
+    return out
+
+
+def family_rank(rank: int, world: int, d: str) -> None:
+    """Phase 15 alone in an NCCL rank (world 1, mesh ``(1, 1)``) → ``<d>/out.json``."""
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_debug_mesh((1, 1), ("data", "model"))
+    out = family_phase(mesh, torch.device("cuda"), card_line())
+    (pathlib.Path(d) / "out.json").write_text(json.dumps(out))
 
 
 def main() -> int:
@@ -4412,8 +5080,8 @@ def main() -> int:
 
     # -- 14. the LM family, in a rank of its own beside phase 3's host build ----------
     lm_job = lm_phase_start()
-    log("[14] the LM family started in a spawned NCCL rank (it runs beside phase 3's host "
-        "build, which leaves the card idle)")
+    log("[14] the LM family, then [15] the GNN and RecSys families, started in a spawned "
+        "NCCL rank (it runs beside phase 3's host build, which leaves the card idle)")
 
     # -- 3. the main path -----------------------------------------------------
     t0 = time.perf_counter()
@@ -4757,7 +5425,7 @@ def main() -> int:
     phase_s["13 configs"] = time.perf_counter() - t0
     log(f"[13] {phase_s['13 configs']:.1f}s")
 
-    # -- 15. summary ------------------------------------------------------------
+    # -- 16. summary ------------------------------------------------------------
     log("phases: " + ", ".join(f"{k} {v:.1f}s" for k, v in phase_s.items()))
     log(f"ported kernels: {n_rows} rows_dot variants and {len(kernels) - n_rows} block-scan "
         f"entries ok; total {time.perf_counter() - t_start:.0f}s")

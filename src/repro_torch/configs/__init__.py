@@ -1,12 +1,11 @@
 """Config registry: ``--arch <id>`` resolution — the port of
 ``repro/configs/__init__.py``.
 
-The reference's ten assigned architectures (LM, GNN, RecSys) plus the
-paper's own retrieval configs. Ported: the five LM configs and the
-retrieval configs (``PORTED_IDS``). The GNN and RecSys ids stay in
-``ARCH_IDS`` (they are the reference's registry) and ``get_arch`` raises
-``NotImplementedError`` for them (ROADMAP A11); ``all_cells`` leaves them
-out."""
+The reference's ten assigned architectures (five LM configs, GAT and
+four RecSys models) plus the paper's own retrieval configs: every id
+resolves (``PORTED_IDS`` is the whole registry). ``-optN`` selects a
+config's optimisation level where it has one (the retrieval scan's, the
+GAT cell's edge-sharded layer)."""
 
 from __future__ import annotations
 
@@ -39,28 +38,30 @@ _MODULES = {
     "qwen3-8b": "qwen3_8b",
     "yi-6b": "yi_6b",
     "deepseek-coder-33b": "deepseek_coder_33b",
+    "gat-cora": "gat_cora",
+    "deepfm": "deepfm",
+    "sasrec": "sasrec",
+    "dcn-v2": "dcn_v2",
+    "din": "din",
     "msmarco-splade": "msmarco_splade",
     "msmarco-lilsr": "msmarco_lilsr",
 }
 
-#: the ids this package resolves, in the reference's registry order
-PORTED_IDS = tuple(a for a in ARCH_IDS + RETRIEVAL_IDS if a in _MODULES)
+#: the ids this package resolves, in the reference's registry order: all of them
+PORTED_IDS = ARCH_IDS + RETRIEVAL_IDS
 
 
 def get_arch(arch_id: str):
-    """Resolve an arch id. Retrieval configs accept a ``-optN`` suffix
-    selecting the scan's optimisation level (see configs/retrieval.py)."""
+    """Resolve an arch id. A ``-optN`` suffix selects the optimisation level
+    (the retrieval scan's, configs/retrieval.py; the GAT cell's,
+    ``GNNArch``)."""
     opt = 0
     base = arch_id
     if "-opt" in arch_id:
         base, _, lvl = arch_id.rpartition("-opt")
         opt = int(lvl)
-    if base in ARCH_IDS and base not in _MODULES:
-        raise NotImplementedError(
-            f"arch {base!r} is not ported to repro_torch yet (ROADMAP A11: the GNN and "
-            f"RecSys families); ported: {list(PORTED_IDS)}")
     if base not in _MODULES:
-        raise KeyError(f"unknown arch {arch_id!r}; have {sorted(ARCH_IDS + RETRIEVAL_IDS)}")
+        raise KeyError(f"unknown arch {arch_id!r}; have {sorted(_MODULES)}")
     arch = import_module(f"{__name__}.{_MODULES[base]}").ARCH
     if opt:
         arch = dataclasses.replace(arch, name=arch_id, opt=opt)
@@ -68,8 +69,7 @@ def get_arch(arch_id: str):
 
 
 def all_cells(include_retrieval: bool = True):
-    """Yield (arch_id, shape_name) for every dry-run cell of the ported
-    configs."""
+    """Yield (arch_id, shape_name) for every dry-run cell."""
     for a in PORTED_IDS:
         if a in RETRIEVAL_IDS and not include_retrieval:
             continue

@@ -39,8 +39,25 @@ the reference's tensor- and FSDP-parallel
 weight placements for real is ROADMAP A12: ``build_cell(...,
 weights="placed")`` raises naming it.
 
-The GNN and RecSys families (``GNNArch``, ``RecsysArch``) are still to
-port (ROADMAP A11).
+**The GNN family** (``GNNArch``, GAT). Four train cells:
+``full_graph_sm`` (Cora), ``minibatch_lg`` (a sampled Reddit subgraph),
+``ogb_products`` and ``molecule`` (128 small graphs, a graph-level
+loss), with the reference's budgets. Parameters are replicated; at
+``opt`` 0 the node and edge arrays split over the data axes
+(``gnn_batch_spec``) and a rank all-gathers its blocks and takes the
+whole loss; at ``opt`` ≥ 1 ``full_graph_sm`` and ``ogb_products`` run
+the dst-aligned edge-sharded layer over every axis
+(``models.gnn.gat_loss_edge_sharded``; the caller splits the edges with
+``partition_edges_by_dst``).
+
+**The RecSys family** (``RecsysArch``: DeepFM, DCN-v2, SASRec, DIN). Four
+cells: ``train_batch``, ``serve_p99``, ``serve_bulk`` and
+``retrieval_cand`` (one user against 1,000,448 candidates). The tables'
+placements row-split them over ``model`` (``recsys_param_specs``) for
+the dry run; a rank holds them whole, as the LM weights, and passes its
+block of the batch (of the candidates, over every axis); train steps
+average their gradients over the data axes. Both families' cells take
+``weights="placed"`` as the LM's do: it raises naming A12.
 """
 
 from __future__ import annotations
@@ -55,14 +72,16 @@ import torch.distributed as dist
 
 from .. import resolve_device
 from ..dist import sharding as shd
-from ..dist.sharding import P
+from ..dist.sharding import P, Placement
+from ..models import gnn as gnn_m
+from ..models import recsys as rec_m
 from ..models import transformer as tf_m
 from ..train.optimizer import OptimizerConfig, make_optimizer
 from ..train.train_step import make_train_step
 from ..tree import tree_map
 
-__all__ = ["Cell", "BaseArch", "LMArch", "LM_SHAPES", "count_abstract_params",
-           "device_counts"]
+__all__ = ["Cell", "BaseArch", "LMArch", "GNNArch", "RecsysArch", "LM_SHAPES", "GNN_SHAPES",
+           "REC_SHAPES", "count_abstract_params", "device_counts"]
 
 
 @dataclasses.dataclass
@@ -221,6 +240,30 @@ def _group_mean(t: torch.Tensor, group, n: int) -> torch.Tensor:
     return (wire / n).to(device=t.device, dtype=t.dtype)
 
 
+def _data_parallel_step(loss_fn, oupd, mesh, microbatches: int = 1):
+    """The reference's train step over the rank's rows of the batch; with
+    more than one data rank the gradients (and the loss) are averaged
+    over the data axes before the optimizer applies them."""
+    da = shd.data_axes(mesh)
+    n = shd.axis_size(mesh, da) if da else 1
+    group = shd.axes_group(mesh, da) if n > 1 else None
+
+    def update(grads, opt, params):
+        if group is not None:
+            grads = tree_map(lambda g: _group_mean(g, group, n), grads)
+        return oupd(grads, opt, params)
+
+    step = make_train_step(loss_fn, update, microbatches=microbatches)
+
+    def train(state, batch):
+        state, metrics = step(state, batch)
+        if group is not None:
+            metrics["loss"] = _group_mean(metrics["loss"], group, n)
+        return state, metrics
+
+    return train
+
+
 def _unsplit_batch(spec, batch_dim: int):
     """``spec`` with its batch entry dropped (a rank's output already holds
     its batch rows only)."""
@@ -370,28 +413,9 @@ class LMArch(BaseArch):
 
     # -- a rank's steps ------------------------------------------------------
     def _train_step(self, cfg, mesh, oupd):
-        """The reference's train step over the rank's rows of the batch;
-        with more than one data rank the gradients (and the loss) are
-        averaged over the data axes before the optimizer applies them."""
-        da = shd.data_axes(mesh)
-        n = shd.axis_size(mesh, da) if da else 1
-        group = shd.axes_group(mesh, da) if n > 1 else None
-
-        def update(grads, opt, params):
-            if group is not None:
-                grads = tree_map(lambda g: _group_mean(g, group, n), grads)
-            return oupd(grads, opt, params)
-
-        step = make_train_step(lambda p, b: tf_m.lm_loss(p, cfg, b["tokens"], b["labels"]),
-                               update, microbatches=self.microbatches)
-
-        def train(state, batch):
-            state, metrics = step(state, batch)
-            if group is not None:
-                metrics["loss"] = _group_mean(metrics["loss"], group, n)
-            return state, metrics
-
-        return train
+        return _data_parallel_step(
+            lambda p, b: tf_m.lm_loss(p, cfg, b["tokens"], b["labels"]), oupd, mesh,
+            microbatches=self.microbatches)
 
     def _prefill(self, cfg, mesh, out_spec):
         logits_spec, cache_spec = out_spec
@@ -458,3 +482,459 @@ class LMArch(BaseArch):
         return {"loss0": float(m1["loss"]), "loss1": float(m2["loss"]),
                 "logits": logits.float().cpu(), "decode_logits": lg.float().cpu(),
                 "device": dev.type}
+
+
+def _whole_weights(name: str, shape: str, weights: str) -> None:
+    if weights != "whole":
+        raise NotImplementedError(
+            f"{name} × {shape}: running the reference's weight placements "
+            f"(weights={weights!r}) is not ported yet (ROADMAP A12); weights='whole' holds "
+            f"every weight on every rank")
+
+
+def _metrics(*names: str) -> dict:
+    """A train step's metrics as ``meta`` scalars: the loss, the
+    optimizer's lr and grad_norm, then the loss's own."""
+    return {k: _struct((), torch.float32) for k in ("loss", "lr", "grad_norm", *names)}
+
+
+# ---------------------------------------------------------------------------
+# GNN family (GAT)
+# ---------------------------------------------------------------------------
+
+# Static budgets are padded to multiples of 512 so node and edge arrays
+# split over the 512-device multi-pod mesh (sentinel padding is neutral —
+# see models/gnn.py). The datasets' true sizes are kept in ``true_*``.
+GNN_SHAPES = {
+    "full_graph_sm": dict(
+        kind="train", n_nodes=3071, n_edges=10752, d_feat=1433, n_classes=7,
+        true_nodes=2708, true_edges=10556,  # Cora
+    ),
+    "minibatch_lg": dict(
+        kind="train", n_nodes=170_495, n_edges=168_960, d_feat=602, n_classes=41,
+        sampled=True, batch_nodes=1024, fanout=(15, 10),
+        true_nodes=232_965, true_edges=114_615_892,  # Reddit (sampled)
+    ),
+    "ogb_products": dict(
+        kind="train", n_nodes=2_449_407, n_edges=61_865_984, d_feat=100, n_classes=47,
+        true_nodes=2_449_029, true_edges=61_859_140,  # ogbn-products
+    ),
+    "molecule": dict(
+        kind="train", n_nodes=4095, n_edges=8192, d_feat=16, n_classes=2,
+        graphs=128, true_nodes=30 * 128, true_edges=64 * 128,
+    ),
+}
+
+
+@dataclasses.dataclass
+class GNNArch(BaseArch):
+    """GAT configs. ``opt`` 0: the node and edge arrays split over the data
+    axes (``gnn_batch_spec``); a rank all-gathers the blocks and computes
+    the whole loss, so the replicated parameters get the same gradient
+    on every rank. ``opt`` ≥ 1 (``full_graph_sm`` and ``ogb_products``):
+    the dst-aligned edge-sharded layer (``models.gnn.
+    gat_loss_edge_sharded``, one all-gather a layer) over every axis;
+    ``opt`` ≥ 2 gathers the narrower side of each projection."""
+
+    name: str
+    n_layers: int = 2
+    d_hidden: int = 8
+    n_heads: int = 8
+    family: str = "gnn"
+    optimizer: OptimizerConfig = dataclasses.field(
+        default_factory=lambda: OptimizerConfig(lr=5e-3, weight_decay=5e-4)
+    )
+    shape_names: tuple[str, ...] = tuple(GNN_SHAPES)
+    opt: int = 0
+
+    def _cfg(self, shape: str) -> gnn_m.GATConfig:
+        sh = GNN_SHAPES[shape]
+        return gnn_m.GATConfig(
+            name=self.name, n_layers=self.n_layers, d_in=sh["d_feat"],
+            d_hidden=self.d_hidden, n_heads=self.n_heads, n_classes=sh["n_classes"],
+        )
+
+    def abstract_params(self, shape: str):
+        return gnn_m.gat_init(torch.Generator(), self._cfg(shape), device="meta")
+
+    def edge_sharded(self, shape: str) -> bool:
+        """Whether ``shape``'s cell runs the edge-sharded layer."""
+        sh = GNN_SHAPES[shape]
+        return self.opt >= 1 and not sh.get("graphs") and not sh.get("sampled")
+
+    def model_flops(self, shape: str) -> float:
+        sh = GNN_SHAPES[shape]
+        cfg = self._cfg(shape)
+        N, E = sh["n_nodes"], sh["n_edges"]
+        H, d = cfg.n_heads, cfg.d_hidden
+        l1 = N * cfg.d_in * H * d * 2 + E * H * (4 * d)
+        l2 = N * (H * d) * H * cfg.n_classes * 2 + E * H * 4 * cfg.n_classes
+        return 3.0 * (l1 + l2)  # fwd+bwd
+
+    def build_cell(self, shape: str, mesh, *, weights: str = "whole") -> Cell:
+        """The train cell of ``shape`` on ``mesh`` (a ``DeviceMesh`` or a
+        ``MeshShape``) at the shape's budgets."""
+        from ..launch.hlo_stats import gnn_collectives
+
+        _whole_weights(self.name, shape, weights)
+        sh = GNN_SHAPES[shape]
+        cfg = self._cfg(shape)
+        N, E = sh["n_nodes"], sh["n_edges"]
+        abs_params = self.abstract_params(shape)
+        pspecs = shd.replicate(abs_params)
+        oinit, oupd = make_optimizer(self.optimizer)
+        graphs = sh.get("graphs")
+        flat_axes = (*shd.data_axes(mesh), "model")
+        use_sharded = self.edge_sharded(shape)
+        abs_state = {"params": abs_params, "opt": oinit(abs_params)}
+        sspecs = _state_specs(pspecs, abs_params, self.optimizer)
+        bspec = shd.gnn_batch_spec(mesh)
+        batch = {
+            "x": _struct((N + 1, sh["d_feat"]), torch.float32),
+            "edge_src": _struct((E,), torch.int32),
+            "edge_dst": _struct((E,), torch.int32),
+            "labels": _struct((N + 1,), torch.int32),
+            "train_mask": _struct((N + 1,), torch.bool),
+        }
+        if graphs:
+            batch["graph_ids"] = _struct((N + 1,), torch.int32)
+            batch["graph_labels"] = _struct((graphs,), torch.int32)
+            bspec = {**bspec, "graph_ids": P(shd.data_axes(mesh)), "graph_labels": P(None)}
+        if use_sharded:
+            # the dst-aligned contract: a float mask, nodes and edges over every axis
+            batch["train_mask"] = _struct((N + 1,), torch.float32)
+            bspec = {k: P(flat_axes, None) if k == "x" else P(flat_axes) for k in batch}
+        structs = (abs_state, batch)
+        in_sh = (shd.to_shardings(mesh, sspecs), shd.to_shardings(mesh, bspec))
+        out_sh = (shd.to_shardings(mesh, sspecs), None)
+        out = (abs_state, _metrics("acc"))
+        flops = self.model_flops(shape)
+        fn = _OnFirstCall(mesh, lambda *_: self._train_step(shape, mesh, oupd, use_sharded))
+        collective = gnn_collectives(cfg, mesh, abs_params, batch, bspec,
+                                     edge_sharded=use_sharded,
+                                     min_side_gather=use_sharded and self.opt >= 2)
+        meta = {"params": count_abstract_params(abs_params), "edges": E}
+        return Cell(self.name, shape, "train", fn, structs, in_sh, out_sh, flops,
+                    {**meta, **device_counts(mesh, structs, in_sh, out, out_sh, flops,
+                                             collective)})
+
+    def loss(self, shape: str):
+        """The loss of ``shape``'s cell on a whole graph, ``(params, batch) →
+        (loss, metrics)``: ``gat_graph_loss`` for batched graphs (``batch``
+        holds ``graph_ids`` and ``graph_labels``), else ``gat_loss``."""
+        cfg, graphs = self._cfg(shape), GNN_SHAPES[shape].get("graphs")
+
+        def loss(p, b):
+            b = dict(b)
+            if graphs:
+                gid, glab = b.pop("graph_ids"), b.pop("graph_labels")
+                return gnn_m.gat_graph_loss(p, cfg, gnn_m.Graph(**b), gid, glab, graphs)
+            return gnn_m.gat_loss(p, cfg, gnn_m.Graph(**b))
+
+        return loss
+
+    def _train_step(self, shape, mesh, oupd, use_sharded):
+        """A rank's step. Edge-sharded: the rank's blocks go through
+        ``gat_loss_edge_sharded``, whose gradients are whole on every rank.
+        Otherwise the rank's blocks over the data axes are all-gathered
+        and the whole loss taken."""
+        if use_sharded:
+            cfg, axes = self._cfg(shape), (*shd.data_axes(mesh), "model")
+            return make_train_step(
+                lambda p, b: gnn_m.gat_loss_edge_sharded(p, cfg, b, mesh, axes,
+                                                         min_side_gather=self.opt >= 2),
+                oupd)
+        da = shd.data_axes(mesh)
+        n = shd.axis_size(mesh, da) if da else 1
+
+        def whole(v):
+            wire = v.to(torch.uint8) if v.dtype == torch.bool else v  # gloo moves no bool
+            return shd.all_gather(wire, mesh, da).flatten(0, 1).to(v.dtype)
+
+        step = make_train_step(self.loss(shape), oupd)
+
+        def train(state, batch):
+            if n > 1:
+                batch = {k: v if k == "graph_labels" else whole(v) for k, v in batch.items()}
+            return step(state, batch)
+
+        return train
+
+    def smoke(self, seed: int = 0, device=None, params=None) -> dict:
+        """Three train steps on a 64-node graph drawn from numpy at ``seed``
+        (the reference's draws, in its order), then the sampler's smoke,
+        on ``device`` (``cuda`` unless given). The weights come from a CPU
+        generator seeded with ``seed``, or are ``params`` (a tree of
+        tensors, e.g. the reference's through ``params_from_jax``)."""
+        dev = resolve_device(device)
+        rng = np.random.default_rng(seed)
+        N, E, F, C = 64, 256, 12, 5
+        cfg = gnn_m.GATConfig(name="smoke", d_in=F, n_classes=C, d_hidden=self.d_hidden,
+                              n_heads=self.n_heads)
+        g = gnn_m.pad_graph(
+            rng.normal(size=(N, F)).astype(np.float32),
+            rng.integers(0, N, size=(2, E)),
+            rng.integers(0, C, size=N),
+            rng.random(N) < 0.5,
+            device=dev,
+        )
+        if params is None:
+            params = gnn_m.gat_init(torch.Generator().manual_seed(seed), cfg, device=dev)
+        else:
+            params = tree_map(lambda t: t.to(dev), params)
+        oinit, oupd = make_optimizer(self.optimizer)
+        step = make_train_step(lambda p, b: gnn_m.gat_loss(p, cfg, gnn_m.Graph(**b)), oupd)
+        state = {"params": params, "opt": oinit(params)}
+        batch = dict(vars(g))
+        losses = []
+        for _ in range(3):
+            state, m = step(state, batch)
+            losses.append(float(m["loss"]))
+        if not np.isfinite(losses).all():
+            raise RuntimeError(f"{self.name} smoke: losses {losses}")
+        smp = gnn_m.NeighborSampler(np.asarray(rng.integers(0, N, size=(2, E))), N)
+        nid, es, ed = smp.sample_padded(np.arange(4), (3, 2), 64, 128)
+        if len(nid) != 64 or len(es) != 128:
+            raise RuntimeError(f"{self.name} smoke: sampler gave {len(nid)} / {len(es)}")
+        return {"losses": losses, "sample": (nid, es, ed), "device": dev.type}
+
+
+# ---------------------------------------------------------------------------
+# RecSys family
+# ---------------------------------------------------------------------------
+
+REC_SHAPES = {
+    "train_batch": dict(kind="train", batch=65_536),
+    "serve_p99": dict(kind="serve", batch=512),
+    "serve_bulk": dict(kind="serve", batch=262_144),
+    # candidates padded 1,000,000 → 1,000,448 (divisible by the 512-device flat mesh)
+    "retrieval_cand": dict(kind="serve", batch=1, n_candidates=1_000_448),
+}
+
+#: the field ``retrieval_cand`` varies for the CTR models (the reference's)
+CAND_FIELD = 3
+
+
+@dataclasses.dataclass
+class RecsysArch(BaseArch):
+    """RecSys configs. On a ``DeviceMesh`` the batch (and
+    ``retrieval_cand``'s candidates, over every axis) splits as
+    ``recsys_batch_spec`` says; a rank passes its block and holds whole
+    tables, and train steps average their gradients over the data axes
+    as ``LMArch`` does."""
+
+    name: str
+    cfg: Any = None
+    family: str = "recsys"
+    optimizer: OptimizerConfig = dataclasses.field(
+        default_factory=lambda: OptimizerConfig(lr=1e-3)
+    )
+    shape_names: tuple[str, ...] = tuple(REC_SHAPES)
+    smoke_cfg: Any = None
+
+    # dispatch tables -------------------------------------------------------
+    def _fns(self, cfg):
+        m = cfg.name
+        if m == "deepfm":
+            return rec_m.deepfm_init, rec_m.deepfm_loss, rec_m.deepfm_forward
+        if m == "dcn-v2":
+            return rec_m.dcnv2_init, rec_m.dcnv2_loss, rec_m.dcnv2_forward
+        if m == "sasrec":
+            return rec_m.sasrec_init, rec_m.sasrec_loss, None
+        if m == "din":
+            return rec_m.din_init, rec_m.din_loss, None
+        raise KeyError(m)
+
+    def serve_fn(self, cfg=None):
+        """``serve_p99`` / ``serve_bulk``'s batched forward, ``(params,
+        batch) → [B]`` logits (SASRec: the last position's ``[B, D]``
+        state)."""
+        cfg = cfg or self.cfg
+        m = cfg.name
+        if m == "deepfm":
+            return lambda p, b: rec_m.deepfm_forward(p, cfg, b["sparse"])
+        if m == "dcn-v2":
+            return lambda p, b: rec_m.dcnv2_forward(p, cfg, b["dense"], b["sparse"])
+        if m == "sasrec":
+            return lambda p, b: rec_m.sasrec_encode(p, cfg, b["seq"])[:, -1]
+        return lambda p, b: rec_m.din_forward(p, cfg, b["hist"], b["target"])
+
+    def abstract_params(self, cfg=None):
+        """The parameter tree as ``meta`` tensors."""
+        cfg = cfg or self.cfg
+        return self._fns(cfg)[0](torch.Generator(), cfg, device="meta")
+
+    def _batch_structs(self, cfg, B: int) -> dict:
+        m = cfg.name
+        if m == "deepfm":
+            return {"sparse": _struct((B, cfg.n_fields), torch.int32),
+                    "label": _struct((B,), torch.float32)}
+        if m == "dcn-v2":
+            return {
+                "dense": _struct((B, cfg.n_dense), torch.float32),
+                "sparse": _struct((B, cfg.n_fields), torch.int32),
+                "label": _struct((B,), torch.float32),
+            }
+        if m == "sasrec":
+            return {
+                "seq": _struct((B, cfg.seq_len), torch.int32),
+                "pos_label": _struct((B, cfg.seq_len), torch.int32),
+                "neg_label": _struct((B, cfg.seq_len, cfg.n_negatives), torch.int32),
+            }
+        if m == "din":
+            return {
+                "hist": _struct((B, cfg.seq_len), torch.int32),
+                "target": _struct((B,), torch.int32),
+                "label": _struct((B,), torch.float32),
+            }
+        raise KeyError(m)
+
+    def _smoke_batch(self, cfg, B: int, seed, device=None) -> dict:
+        """A batch of ``B`` rows drawn from numpy at ``seed`` (an int or a
+        sequence, e.g. ``(seed, step)``): ids in [0, 32), floats in [0, 1),
+        leaf by leaf in the structs' order."""
+        rng = np.random.default_rng(seed)
+        dev = resolve_device(device)
+
+        def rnd(s):
+            if s.dtype == torch.int32:
+                a = rng.integers(0, 32, size=tuple(s.shape)).astype(np.int32)
+            else:
+                a = rng.random(tuple(s.shape), dtype=np.float32)
+            return torch.from_numpy(a).to(dev)
+
+        return {k: rnd(s) for k, s in self._batch_structs(cfg, B).items()}
+
+    def model_flops(self, shape: str, global_batch: int | None = None) -> float:
+        cfg = self.cfg
+        sh = REC_SHAPES[shape]
+        B = sh.get("n_candidates", sh["batch"]) if shape == "retrieval_cand" else sh["batch"]
+        B = B if global_batch is None else global_batch
+        m = cfg.name
+        if m == "deepfm":
+            per = cfg.n_fields * cfg.embed_dim * (2 + 2 * cfg.mlp[0]) + sum(
+                2 * a * b for a, b in zip(cfg.mlp[:-1], cfg.mlp[1:])
+            )
+        elif m == "dcn-v2":
+            d = cfg.d_interact
+            per = cfg.n_cross_layers * 2 * d * d + 2 * d * cfg.mlp[0] + sum(
+                2 * a * b for a, b in zip(cfg.mlp[:-1], cfg.mlp[1:])
+            )
+        elif m == "sasrec":
+            D, S = cfg.embed_dim, cfg.seq_len
+            per = cfg.n_blocks * (8 * S * D * D + 4 * S * S * D) + S * D * 2 * (
+                1 + cfg.n_negatives
+            )
+        else:  # din
+            D, S = cfg.embed_dim, cfg.seq_len
+            per = S * (2 * 4 * D * cfg.attn_mlp[0] + 2 * cfg.attn_mlp[0] * cfg.attn_mlp[1]) + \
+                2 * 3 * D * cfg.mlp[0] + 2 * cfg.mlp[0] * cfg.mlp[1]
+        mult = 3.0 if sh["kind"] == "train" else 1.0
+        return float(per) * B * mult
+
+    def build_cell(self, shape: str, mesh, *, weights: str = "whole",
+                   global_batch: int | None = None) -> Cell:
+        """The cell of ``shape`` on ``mesh`` (a ``DeviceMesh`` or a
+        ``MeshShape``) at the shape's batch (candidates for
+        ``retrieval_cand``), or at ``global_batch`` (a run on one card cuts
+        it; the step takes any)."""
+        from ..launch.hlo_stats import recsys_collectives
+
+        _whole_weights(self.name, shape, weights)
+        sh = REC_SHAPES[shape]
+        cfg = self.cfg
+        loss_fn_raw = self._fns(cfg)[1]
+        abs_params = self.abstract_params()
+        pspecs = shd.recsys_param_specs(cfg.name, abs_params, mesh)
+        da = shd.data_axes(mesh)
+        flat = (*da, "model")
+        n_params = count_abstract_params(abs_params)
+        flops = self.model_flops(shape, global_batch)
+        f32 = torch.float32
+
+        if sh["kind"] == "train":
+            B = sh["batch"] if global_batch is None else global_batch
+            oinit, oupd = make_optimizer(self.optimizer)
+            abs_state = {"params": abs_params, "opt": oinit(abs_params)}
+            sspecs = _state_specs(pspecs, abs_params, self.optimizer)
+            bspec = shd.recsys_batch_spec(cfg.name, mesh)
+            structs = (abs_state, self._batch_structs(cfg, B))
+            in_sh = (shd.to_shardings(mesh, sspecs), shd.to_shardings(mesh, bspec))
+            out_sh = (shd.to_shardings(mesh, sspecs), None)
+            out = (abs_state, _metrics("hit_rate" if cfg.name == "sasrec" else "accuracy"))
+            fn = _OnFirstCall(mesh, lambda *_: _data_parallel_step(
+                lambda p, b: loss_fn_raw(p, cfg, b), oupd, mesh))
+            meta = {"params": n_params}
+            rows = B
+        elif shape == "retrieval_cand":
+            N = sh["n_candidates"] if global_batch is None else global_batch
+            cand = _struct((N,), torch.int32)
+            if cfg.name == "deepfm":
+                user = (_struct((1, cfg.n_fields), torch.int32),)
+                score = lambda p, u, c: rec_m.deepfm_score_candidates(p, cfg, u, c, CAND_FIELD)
+            elif cfg.name == "dcn-v2":
+                user = (_struct((1, cfg.n_dense), f32), _struct((1, cfg.n_fields), torch.int32))
+                score = lambda p, ud, us, c: rec_m.dcnv2_score_candidates(p, cfg, ud, us, c,
+                                                                          CAND_FIELD)
+            elif cfg.name == "sasrec":
+                user = (_struct((1, cfg.seq_len), torch.int32),)
+                score = lambda p, s, c: rec_m.sasrec_score_candidates(p, cfg, s, c)
+            else:  # din
+                user = (_struct((cfg.seq_len,), torch.int32),)
+                score = lambda p, h, c: rec_m.din_score_candidates(p, cfg, h, c)
+            structs = (abs_params, *user, cand)
+            in_sh = (shd.to_shardings(mesh, pspecs),
+                     *(Placement(mesh, P(*([None] * u.dim()))) for u in user),
+                     Placement(mesh, P(flat)))
+            if cfg.name == "sasrec":
+                out, out_sh = _struct((1, N), f32), Placement(mesh, P(None, flat))
+            else:
+                out, out_sh = _struct((N,), f32), Placement(mesh, P(flat))
+            fn = _OnFirstCall(mesh, lambda *_: torch.no_grad()(score))
+            meta = {"params": n_params, "candidates": N}
+            rows = N
+        else:  # serve_p99 / serve_bulk: a batched forward
+            B = sh["batch"] if global_batch is None else global_batch
+            fwd = self.serve_fn()
+            batch = {k: v for k, v in self._batch_structs(cfg, B).items()
+                     if k not in ("label", "pos_label", "neg_label")}
+            bspec = {k: v for k, v in shd.recsys_batch_spec(cfg.name, mesh).items()
+                     if k in batch}
+            structs = (abs_params, batch)
+            in_sh = (shd.to_shardings(mesh, pspecs), shd.to_shardings(mesh, bspec))
+            if cfg.name == "sasrec":
+                out, out_sh = _struct((B, cfg.embed_dim), f32), Placement(mesh, P(da, None))
+            else:
+                out, out_sh = _struct((B,), f32), Placement(mesh, P(da))
+            fn = _OnFirstCall(mesh, lambda *_: torch.no_grad()(fwd))
+            meta = {"params": n_params}
+            rows = B
+        collective = recsys_collectives(cfg, mesh, shape, sh["kind"], pspecs, abs_params,
+                                        rows=rows)
+        return Cell(self.name, shape, sh["kind"], fn, structs, in_sh, out_sh, flops,
+                    {**meta, **device_counts(mesh, structs, in_sh, out, out_sh, flops,
+                                             collective)})
+
+    def smoke(self, seed: int = 0, device=None, params=None, batch=None) -> dict:
+        """One train step of the smoke config at batch 8 on ``device``
+        (``cuda`` unless given). The weights come from a CPU generator
+        seeded with ``seed`` and the batch from numpy at ``seed``, unless
+        ``params`` / ``batch`` are given (trees of tensors, e.g. the
+        reference's)."""
+        cfg = self.smoke_cfg
+        if cfg is None:
+            raise ValueError(f"{self.name}: no smoke config")
+        dev = resolve_device(device)
+        init_fn, loss_fn_raw, _ = self._fns(cfg)
+        if params is None:
+            params = init_fn(torch.Generator().manual_seed(seed), cfg, device=dev)
+        params = tree_map(lambda t: t.to(dev), params)
+        if batch is None:
+            batch = self._smoke_batch(cfg, 8, seed, dev)
+        batch = {k: v.to(dev) for k, v in batch.items()}
+        oinit, oupd = make_optimizer(self.optimizer)
+        step = make_train_step(lambda p, b: loss_fn_raw(p, cfg, b), oupd)
+        state, m = step({"params": params, "opt": oinit(params)}, batch)
+        if not torch.isfinite(m["loss"]):
+            raise RuntimeError(f"{self.name} smoke: loss {float(m['loss'])}")
+        return {"loss": float(m["loss"]), "device": dev.type}

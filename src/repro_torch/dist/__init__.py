@@ -11,15 +11,17 @@ calls ``all_gather`` or ``pmean`` over it:
   the tombstone budget, the axis helpers every mesh path shares
   (``axis_index``, ``axis_size``, ``axes_group``, ``all_gather``) and
   the placements the configs' cells carry (``P``, ``to_shardings``,
-  ``replicate``, ``shard_shape``, ``shard_block``) and the LM family's
-  rules (``lm_param_specs``, ``kv_cache_spec``);
+  ``replicate``, ``shard_shape``, ``shard_block``) and the families'
+  rules (``lm_param_specs``, ``kv_cache_spec``, ``gnn_batch_spec``,
+  ``recsys_param_specs``, ``recsys_batch_spec``);
 * ``compression`` — the int8 error-feedback gradient mean of the
   compressed data-parallel step;
 * ``collectives`` — sequence-sharded flash decoding
   (``flash_decode_shardmap``).
 
-The GNN and recsys placement rules of the reference are still to port
-(ROADMAP A11).
+GAT's edge-sharded layer (``models.gnn.gat_loss_edge_sharded``) runs on
+the same axis helpers: one all-gather of node rows a layer, its backward
+a reduce-scatter.
 """
 
 from . import collectives, compression, sharding

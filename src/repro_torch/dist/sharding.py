@@ -19,9 +19,12 @@ A placement is the reference's ``NamedSharding``: a mesh and a
 reference's do; ``Placement.shard_shape`` is the per-device shape and
 ``shard_block`` a rank's block of an array.
 
-The LM family's rules (``lm_param_specs``, ``kv_cache_spec``) are the
-reference's, entry for entry, over the ``meta`` parameter tree of
-``models.transformer.param_structs``.
+The families' rules are the reference's, entry for entry: the LM's
+(``lm_param_specs``, ``kv_cache_spec``) over the ``meta`` parameter tree
+of ``models.transformer.param_structs``, the GNN's (``gnn_batch_spec``;
+its parameters are replicated) and the RecSys family's
+(``recsys_param_specs``, ``recsys_batch_spec``) over the ``meta`` trees
+of the configs' ``abstract_params``.
 """
 
 from __future__ import annotations
@@ -53,6 +56,9 @@ __all__ = [
     "all_gather",
     "lm_param_specs",
     "kv_cache_spec",
+    "gnn_batch_spec",
+    "recsys_param_specs",
+    "recsys_batch_spec",
 ]
 
 
@@ -332,3 +338,60 @@ def kv_cache_spec(mesh, *, batch: int, seq_shard: bool = False) -> dict:
     else:
         spec = P(None, _fit(mesh, da, batch), "model", None, None)
     return {"k": spec, "v": spec}
+
+
+# ---------------------------------------------------------------------------
+# GNN family
+# ---------------------------------------------------------------------------
+
+
+def gnn_batch_spec(mesh) -> dict:
+    """Node and edge arrays split over the data axes; the parameters are
+    replicated by ``replicate`` (they are KBs)."""
+    da = data_axes(mesh)
+    return {
+        "x": P(da, None),
+        "edge_src": P(da),
+        "edge_dst": P(da),
+        "labels": P(da),
+        "train_mask": P(da),
+    }
+
+
+# ---------------------------------------------------------------------------
+# RecSys family
+# ---------------------------------------------------------------------------
+
+
+def recsys_param_specs(model_name: str, abs_params, mesh):
+    """Embedding tables row-split over ``model`` (the vocab dimension, where
+    it divides); everything else (MLP towers, cross layers, heads) is
+    small enough to replicate."""
+    from ..tree import tree_leaves_with_path, tree_unflatten
+
+    def one(name, leaf):
+        if "embed" in name and leaf.dim() >= 1:
+            return _spec(mesh, leaf.shape, "model", *([None] * (leaf.dim() - 1)))
+        if "linear" in name and leaf.dim() == 1:  # deepfm's first-order terms
+            return _spec(mesh, leaf.shape, "model")
+        return P()
+
+    return tree_unflatten(abs_params, [one(n, leaf)
+                                       for n, leaf in tree_leaves_with_path(abs_params)])
+
+
+def recsys_batch_spec(model_name: str, mesh) -> dict:
+    da = data_axes(mesh)
+    if model_name == "deepfm":
+        return {"sparse": P(da, None), "label": P(da)}
+    if model_name == "dcn-v2":
+        return {"dense": P(da, None), "sparse": P(da, None), "label": P(da)}
+    if model_name == "sasrec":
+        return {
+            "seq": P(da, None),
+            "pos_label": P(da, None),
+            "neg_label": P(da, None, None),
+        }
+    if model_name == "din":
+        return {"hist": P(da, None), "target": P(da), "label": P(da)}
+    raise KeyError(f"unknown recsys model {model_name!r}")

@@ -1,6 +1,6 @@
 """Production-mesh dry run — the port of ``repro/launch/dryrun.py``.
 
-For every ported (architecture × input shape) cell, build the cell
+For every (architecture × input shape) cell, build the cell
 against the production meshes, with ``meta`` inputs and no allocation:
 
     single-pod : (16, 16)      ("data", "model")        = 256 devices
@@ -21,16 +21,17 @@ per-device GiB beside one H100's 80 GB.
 
 Usage::
 
-    PYTHONPATH=src python -m repro_torch.launch.dryrun                # every ported cell
+    PYTHONPATH=src python -m repro_torch.launch.dryrun                # every cell
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch msmarco-splade-opt2 --shape scan_100q
     PYTHONPATH=src python -m repro_torch.launch.dryrun --mesh single --out build/dryrun
 
-Without ``--arch`` every ported id runs (the five LM configs × 4 shapes
-and the two retrieval configs × 3, on both meshes: 52 cells) and every
-id not ported yet (the GNN and RecSys configs) gets one ``SKIP`` line
-naming ROADMAP A11. The LM cells' counts are ``configs/base.py``'s
-(``LMArch``): the parameters, optimizer state and caches as ``meta``
-tensors under their placements, and ``hlo_stats.lm_collectives``.
+Without ``--arch`` every id runs (the five LM configs × 4 shapes, GAT ×
+4, the four RecSys configs × 4 and the two retrieval configs × 3, on
+both meshes: 92 cells). The LM, GNN and RecSys cells' counts are
+``configs/base.py``'s (``LMArch``, ``GNNArch``, ``RecsysArch``): the
+parameters, optimizer state, batches and caches as ``meta`` tensors
+under their placements, and ``hlo_stats``' ``lm_collectives``,
+``gnn_collectives`` and ``recsys_collectives``.
 """
 
 from __future__ import annotations
@@ -40,7 +41,7 @@ import json
 import os
 import traceback
 
-from ..configs import ARCH_IDS, PORTED_IDS, get_arch
+from ..configs import PORTED_IDS, get_arch
 from ..dist.sharding import mesh_size
 from .hlo_stats import cell_costs, roofline_terms
 from .mesh import production_mesh_shape
@@ -103,7 +104,7 @@ def run_cell(arch_id: str, shape: str, mesh, *, save_dir: str | None, mesh_tag: 
 
 
 def main(argv=None) -> None:
-    ap = argparse.ArgumentParser(description="size every ported cell on the production meshes")
+    ap = argparse.ArgumentParser(description="size every cell on the production meshes")
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None)
     ap.add_argument("--mesh", choices=["single", "multi", "both"], default="both")
@@ -116,23 +117,12 @@ def main(argv=None) -> None:
     if args.mesh in ("multi", "both"):
         meshes.append(("pod512x2", production_mesh_shape(multi_pod=True)))
 
-    if args.arch:
-        arch_ids = [args.arch]
-    else:
-        for arch_id in ARCH_IDS:
-            if arch_id not in PORTED_IDS:
-                print(f"SKIP {arch_id}: not ported to repro_torch yet (ROADMAP A11)", flush=True)
-        arch_ids = list(PORTED_IDS)
+    arch_ids = [args.arch] if args.arch else list(PORTED_IDS)
 
     n_ok = n_fail = 0
     for mesh_tag, mesh in meshes:
         for arch_id in arch_ids:
-            try:
-                arch = get_arch(arch_id)
-            except NotImplementedError as e:
-                n_fail += 1
-                print(f"FAIL [{mesh_tag}] {arch_id}: {e}", flush=True)
-                continue
+            arch = get_arch(arch_id)
             shapes = [args.shape] if args.shape else list(arch.shape_names)
             for shape in shapes:
                 tag = f"[{mesh_tag}] {arch_id} × {shape}"

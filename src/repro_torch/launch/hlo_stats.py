@@ -18,7 +18,9 @@ work, per device, into ``Cell.meta`` (``configs/retrieval.py``), and
   reduce-scatter of the ``[nq, n_docs]`` partial scores to each device's
   slice for the global scan (``opt`` 0); for the LM cells the counts of
   ``lm_collectives``, from the placements ``lm_param_specs`` and
-  ``kv_cache_spec`` imply (its docstring has the formula).
+  ``kv_cache_spec`` imply; for the GNN cells ``gnn_collectives`` and for
+  the RecSys cells ``recsys_collectives`` (each docstring has its
+  formula).
 
 ``HW`` holds one H100 SXM's published peaks: 989 TFLOP/s dense bf16,
 3.35 TB/s HBM3, 450 GB/s NVLink each way.
@@ -31,7 +33,8 @@ import math
 
 import torch
 
-__all__ = ["HW", "cell_costs", "roofline_terms", "lm_collectives"]
+__all__ = ["HW", "cell_costs", "roofline_terms", "lm_collectives", "gnn_collectives",
+           "recsys_collectives"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -181,3 +184,113 @@ def lm_collectives(cfg, mesh, kind: str, param_specs, params, *, batch: int, seq
     if kind == "decode" and seq_axes and shd.axis_size(mesh, seq_axes) > 1:
         out["all-reduce"] += L * 4.0 * b * cfg.n_heads * (2 + cfg.head_dim)
     return {k: float(v) for k, v in out.items() if v}
+
+
+def _bytes(t, shape=None) -> float:
+    return float(math.prod(t.shape if shape is None else shape) * t.element_size())
+
+
+def gnn_collectives(cfg, mesh, params, batch: dict, batch_spec: dict, *,
+                    edge_sharded: bool, min_side_gather: bool = False) -> dict:
+    """The collectives of a GAT train cell, per device, as result bytes by
+    op. With ``n`` the devices, ``n_d`` the data axes' size and ``N_pad``
+    the node rows (``batch["x"]``'s):
+
+    * ``opt`` 0 (and ``molecule``, ``minibatch_lg`` at any ``opt``): a
+      rank all-gathers its blocks of the batch over the data axes
+      (``n_d > 1``), so ``all-gather`` is the global bytes of every batch
+      array split over them; the whole loss is taken on every rank, so the
+      replicated parameters need no gradient sum.
+    * edge-sharded (``opt`` ≥ 1, over every axis, ``n > 1``): a layer
+      all-gathers ``[N_pad, w]`` f32 rows, ``w`` the projected width
+      ``H · d`` (or, at ``min_side_gather``, the layer's input width where
+      it is narrower), its result ``N_pad · w · 4`` (``all-gather``); its
+      backward scatters the cotangent back to the rank's rows,
+      ``N_pad / n · w · 4`` (``reduce-scatter``). ``all-reduce``: every
+      parameter's f32 gradient summed over the ranks (``numel · 4``) and
+      the loss's three f32 sums (12 bytes).
+    """
+    from ..dist import sharding as shd
+    from ..tree import tree_leaves
+
+    out: dict[str, float] = {}
+    n = shd.mesh_size(mesh)
+    if not edge_sharded:
+        da = shd.data_axes(mesh)
+        if da and shd.axis_size(mesh, da) > 1:
+            out["all-gather"] = sum(_bytes(batch[k]) for k, spec in batch_spec.items()
+                                    if any(e is not None for e in spec))
+    elif n > 1:
+        n_rows = batch["x"].shape[0]
+        d_in = cfg.d_in
+        gather = scatter = 0.0
+        for l in range(cfg.n_layers):
+            last = l == cfg.n_layers - 1
+            wide = cfg.n_heads * (cfg.n_classes if last else cfg.d_hidden)
+            w = d_in if min_side_gather and d_in < wide else wide
+            gather += n_rows * w * 4.0
+            scatter += n_rows // n * w * 4.0
+            d_in = wide if not last else cfg.n_classes
+        out["all-gather"] = gather
+        out["reduce-scatter"] = scatter
+        out["all-reduce"] = sum(4.0 * math.prod(p.shape) for p in tree_leaves(params)) + 12.0
+    return {k: float(v) for k, v in out.items() if v}
+
+
+def _recsys_lookups(cfg, shape: str, kind: str) -> list[tuple[str, int, int]]:
+    """The rows a RecSys step gathers from each table: (table leaf name,
+    rows a batch row (or candidate), elements a row)."""
+    m = cfg.name
+    if m in ("deepfm", "dcn-v2"):
+        out = [("['embed']", cfg.n_fields, cfg.embed_dim)]
+        if m == "deepfm":
+            out.append(("['linear']", cfg.n_fields, 1))
+        return out
+    D, S = cfg.embed_dim, cfg.seq_len
+    if m == "sasrec":
+        if shape == "retrieval_cand":
+            return [("['item_embed']", 1, D)]
+        if kind == "train":
+            return [("['item_embed']", S * (2 + cfg.n_negatives), D)]
+        return [("['item_embed']", S, D)]
+    return [("['item_embed']", S + 2, D)]  # din: history, target, the history's bag
+
+
+def recsys_collectives(cfg, mesh, shape: str, kind: str, param_specs, params, *,
+                       rows: int) -> dict:
+    """The collectives a RecSys cell's placements imply, per device, as
+    result bytes by op. With ``n_d`` the data axes' size, ``n_m`` the model
+    axis's and ``b`` the rows a device takes (train and serve: ``rows /
+    n_d``; ``retrieval_cand``: ``rows / (n_d · n_m)`` candidates):
+
+    * ``all-reduce`` — a lookup in a table row-split over ``model``
+      (``n_m > 1``) gives each device the rows it holds and zeros
+      elsewhere, summed over ``model``: ``b`` × the rows a batch row
+      gathers × the row's elements × 4 (DeepFM: its F embedding rows and
+      F first-order terms; DCN-v2: F rows; SASRec: S sequence, S
+      positive and S · K negative rows in training, S to serve, and at
+      ``retrieval_cand`` one row a candidate plus the user's S once;
+      DIN: S history rows, the target and the history's bag sum). The
+      backward scatters into the device's own rows: no collective. A
+      train step adds every parameter's f32 gradient averaged over the
+      data axes (``n_d > 1``): ``numel / split_m · 4``.
+    """
+    from ..dist import sharding as shd
+    from ..tree import tree_leaves, tree_leaves_with_path
+
+    da = shd.data_axes(mesh)
+    n_d = shd.axis_size(mesh, da) if da else 1
+    n_m = shd.axis_size(mesh, "model")
+    specs = dict(tree_leaves_with_path(param_specs))
+    leaves = dict(zip(specs, tree_leaves(params)))
+    b = rows // (n_d * n_m) if shape == "retrieval_cand" else rows // n_d
+    total = 0.0
+    for name, per_row, width in _recsys_lookups(cfg, shape, kind):
+        if _factor(mesh, specs[name], ("model",)) > 1:
+            total += b * per_row * width * leaves[name].element_size()
+            if cfg.name == "sasrec" and shape == "retrieval_cand":
+                total += cfg.seq_len * width * leaves[name].element_size()
+    if kind == "train" and n_d > 1:
+        total += sum(math.prod(leaves[k].shape) / _factor(mesh, s, ("model",)) * 4
+                     for k, s in specs.items())
+    return {"all-reduce": float(total)} if total else {}

@@ -10,12 +10,13 @@ batch. Runs on ``cuda`` unless ``--device cpu`` (no GPU and no
 ``--device cpu`` raises). ``--checkpoint-dir`` keeps the checkpoints
 (default: a temporary directory, removed at exit).
 
-The LM family trains its ``lm_loss`` with the arch's own optimizer. The
-RecSys and GNN families are still to port (ROADMAP A11): their ids raise
-``NotImplementedError`` naming it. A run at full width needs the tensor-
-and FSDP-parallel weight placements (ROADMAP A12) and exits; so does the
-reference's ``--distributed`` multi-host start, which this launcher does
-not take.
+The LM family trains its ``lm_loss`` with the arch's own optimizer, the
+RecSys family its model's loss on batches of 32 (``RecsysArch.
+_smoke_batch`` at ``(seed, step)``). A GNN id exits with the reference's
+own message: the reference wires no training loop for it. A run at full
+width needs the reference's weight placements (ROADMAP A12) and exits;
+so does the reference's ``--distributed`` multi-host start, which this
+launcher does not take.
 """
 
 from __future__ import annotations
@@ -55,19 +56,30 @@ def main(argv=None) -> None:
             "full-scale training needs the tensor- and FSDP-parallel weight placements "
             "(ROADMAP A12); run with --smoke for the reduced config (the dry run sizes the "
             "full-scale cells)")
-    if arch.family != "lm":
+    if arch.family not in ("lm", "recsys"):
         raise SystemExit(f"--smoke training loop not wired for family {arch.family}")
     dev = resolve_device(args.device)
-
     cfg = arch.smoke_cfg
-    params = tf_m.init_params(torch.Generator().manual_seed(args.seed), cfg, device=dev)
+    gen = torch.Generator().manual_seed(args.seed)
     oinit, oupd = make_optimizer(arch.optimizer)
-    step = make_train_step(lambda p, b: tf_m.lm_loss(p, cfg, b["tokens"], b["labels"]), oupd)
 
-    def batch_fn(i):
-        toks = torch.from_numpy(
-            np.random.default_rng([args.seed, i]).integers(0, cfg.vocab, size=(8, 33))).to(dev)
-        return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if arch.family == "lm":
+        params = tf_m.init_params(gen, cfg, device=dev)
+        step = make_train_step(lambda p, b: tf_m.lm_loss(p, cfg, b["tokens"], b["labels"]),
+                               oupd)
+
+        def batch_fn(i):
+            toks = torch.from_numpy(np.random.default_rng([args.seed, i]).integers(
+                0, cfg.vocab, size=(8, 33))).to(dev)
+            return {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    else:
+        init_fn, loss_fn_raw, _ = arch._fns(cfg)
+        params = init_fn(gen, cfg, device=dev)
+        step = make_train_step(lambda p, b: loss_fn_raw(p, cfg, b), oupd)
+
+        def batch_fn(i):
+            return arch._smoke_batch(cfg, 32, [args.seed, i], dev)
 
     with tempfile.TemporaryDirectory() as tmp:
         runner = Runner(

@@ -1,4 +1,4 @@
 """Models of the port (``repro/models``' counterparts): the SPLADE
-encoder, the decoder-only LM family (``transformer``, ``moe``) and the
-building blocks they share (``common``). The GNN and RecSys models are
-still to port (ROADMAP A11)."""
+encoder, the decoder-only LM family (``transformer``, ``moe``), GAT
+(``gnn``), the RecSys models DeepFM, DCN-v2, SASRec and DIN (``recsys``)
+and the building blocks they share (``common``)."""

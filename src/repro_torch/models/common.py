@@ -34,7 +34,11 @@ __all__ = [
 
 def normal(generator: torch.Generator, shape, scale: float, dtype=torch.float32, device=None):
     """``N(0, 1) · scale`` drawn in f32 from ``generator`` → ``dtype`` on
-    ``device`` (the generator's own device when None)."""
+    ``device`` (the generator's own device when None). On the ``meta``
+    device nothing is drawn: the shape and dtype only (a config's
+    abstract parameters)."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.empty(tuple(shape), dtype=dtype, device="meta")
     x = torch.randn(tuple(shape), generator=generator, device=generator.device) * scale
     return x.to(device=device or generator.device, dtype=dtype)
 

@@ -2,9 +2,11 @@
 
 A JAX pytree of dicts flattens in sorted-key order, and
 ``jax.tree_util.keystr`` names a leaf by its key path
-(``['params']['layers']['wq']``). The optimizers, the train step and
-the checkpoint walk trees the same way, so a leaf keeps its name and
-its place on both sides. Anything that is not a dict is a leaf."""
+(``['params']['layers']['wq']``, ``['layers'][0]['w']`` under a list).
+The optimizers, the train step and the checkpoint walk trees the same
+way, so a leaf keeps its name and its place on both sides. Dicts and
+lists are nodes (a list's entries in order, as jax flattens them);
+anything else, a tuple too, is a leaf."""
 
 from __future__ import annotations
 
@@ -19,6 +21,8 @@ def tree_map(fn: Callable, tree, *rest):
     ``treedef.flatten_up_to`` does) → a tree of ``tree``'s structure."""
     if isinstance(tree, dict):
         return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in sorted(tree)}
+    if isinstance(tree, list):
+        return [tree_map(fn, t, *(r[i] for r in rest)) for i, t in enumerate(tree)]
     return fn(tree, *rest)
 
 
@@ -28,6 +32,11 @@ def tree_leaves_with_path(tree, prefix: str = "") -> list[tuple[str, Any]]:
         out = []
         for k in sorted(tree):
             out += tree_leaves_with_path(tree[k], f"{prefix}[{k!r}]")
+        return out
+    if isinstance(tree, list):
+        out = []
+        for i, t in enumerate(tree):
+            out += tree_leaves_with_path(t, f"{prefix}[{i}]")
         return out
     return [(prefix, tree)]
 

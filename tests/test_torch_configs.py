@@ -2,8 +2,8 @@
 ``array_specs``, the placements and ``roofline_terms`` against the
 reference, on the CPU.
 
-* The registry: ids, ``-optN``, the reference's ``KeyError``, and
-  ``NotImplementedError`` naming ROADMAP A11 for the ids not ported yet.
+* The registry: ids, ``-optN``, the reference's ``KeyError``, every id
+  of the reference's registry resolving.
 * Both configs' fields, ``n_blocks``, ``packed_structs`` for every codec ×
   opt (and the fields and dtypes a real ``pack_blocks`` emits),
   ``model_flops``, ``_payload_bytes``, the engine and graph configs.
@@ -84,7 +84,8 @@ def test_registry_ids_match_reference():
     assert configs.ARCH_IDS == ref_configs.ARCH_IDS
     assert configs.RETRIEVAL_IDS == ref_configs.RETRIEVAL_IDS
     assert sorted(configs._MODULES) == sorted(configs.PORTED_IDS)  # the ported ids
-    assert configs.PORTED_IDS == configs.ARCH_IDS[:5] + configs.RETRIEVAL_IDS  # LM + retrieval
+    assert configs.PORTED_IDS == configs.ARCH_IDS + configs.RETRIEVAL_IDS  # every id
+    assert configs._MODULES == ref_configs._MODULES
 
 
 @pytest.mark.parametrize("opt", [0, 1, 2, 3])
@@ -113,20 +114,18 @@ def test_unknown_arch_raises_the_reference_key_error():
 
 @pytest.mark.parametrize("arch_id", ref_configs.ARCH_IDS)
 def test_unported_arch_raises_naming_a11(arch_id):
-    """The GNN and RecSys ids raise naming A11; the LM ids resolve
-    (ported with the LM family)."""
-    ref = ref_configs.get_arch(arch_id)  # the reference has it
-    if ref.family == "lm":
-        assert configs.get_arch(arch_id).name == arch_id
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        configs.get_arch(arch_id)
+    """Every id of the reference's registry resolves (the LM family, and
+    the GNN and RecSys families since they were ported), in the
+    reference's family with its shapes and name."""
+    ref = ref_configs.get_arch(arch_id)
+    got = configs.get_arch(arch_id)
+    assert (got.name, got.family, got.shape_names) == (arch_id, ref.family, ref.shape_names)
+    assert arch_id in configs.PORTED_IDS
 
 
 def test_all_cells_are_the_ported_ones():
-    want = [(a, s) for a, s in ref_configs.all_cells(include_retrieval=True)
-            if a in configs.PORTED_IDS]
-    assert list(configs.all_cells()) == want and len(want) == 5 * 4 + 2 * 3
+    want = list(ref_configs.all_cells(include_retrieval=True))
+    assert list(configs.all_cells()) == want and len(want) == 10 * 4 + 2 * 3
     assert list(configs.all_cells(include_retrieval=False)) == [
         (a, s) for a, s in want if a not in IDS]
 
@@ -510,3 +509,21 @@ def test_full_corpus_replication_on_a_tenfold_copy(meshes, small_collection, n_d
     np.testing.assert_array_equal(crow.numpy(), big.offsets)
     np.testing.assert_array_equal(col.numpy(), big.components)
     np.testing.assert_array_equal(val.numpy(), big.value_format.dequantise(big.values))
+    # phase 13 (b)'s sparse.mm in row parts under an index limit (LiLSR's
+    # corpus passes 2**31): int64 offsets, int32 columns, the parts' products
+    # concatenated equal the whole CSR's
+    wide = chip_smoke.replicate_csr(
+        torch.from_numpy(fwd.offsets.astype(np.int64)),
+        torch.from_numpy(fwd.components.astype(np.int64)),
+        torch.from_numpy(fwd.value_format.dequantise(fwd.values)), n, n_docs,
+        torch.int64, torch.int32)
+    assert (wide[0].dtype, wide[1].dtype) == (torch.int64, torch.int32)
+    limit = int(crow[-1]) // 3 + 1
+    parts = chip_smoke.csr_row_parts(*wide, fwd.dim, max_nnz=limit)
+    assert len(parts) >= 3 and sum(p.shape[0] for p in parts) == n_docs
+    assert all(p.values().numel() <= limit and p.crow_indices().dtype == torch.int32
+               for p in parts)
+    Qt = torch.from_numpy(Q.T.copy())
+    whole = torch.sparse.mm(torch.sparse_csr_tensor(crow, col, val, size=(n_docs, fwd.dim)), Qt)
+    np.testing.assert_allclose(torch.cat([torch.sparse.mm(p, Qt) for p in parts]).numpy(),
+                               whole.numpy(), rtol=1e-6, atol=1e-6)

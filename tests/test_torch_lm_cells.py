@@ -322,8 +322,9 @@ def test_train_cli_smoke(capsys, tmp_path):
     assert sorted(p.name for p in tmp_path.iterdir())
     with pytest.raises(SystemExit, match="--smoke"):
         train.main(["--arch", "yi-6b", "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        train.main(["--arch", "deepfm", "--smoke", "--device", "cpu"])
+    train.main(["--arch", "deepfm", "--smoke", "--steps", "2", "--device", "cpu"])
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    assert line.startswith("trained deepfm 2 steps: loss ") and line.endswith("(restarts=0)")
 
 
 def _tiny(attn="full", moe_cfg=None, qk=False):

@@ -192,14 +192,16 @@ json.dump(out, sys.stdout)
 """
 
 
-def reference_lm_cells() -> dict:
-    """``"<id>|<mesh tag>|<shape>"`` → the reference LM cell's ``kind``,
+def reference_lm_cells(ids=LM_IDS) -> dict:
+    """``"<id>|<mesh tag>|<shape>"`` → the reference cell's ``kind``,
     ``inputs`` and ``outputs`` (leaf path → [global shape, per-device
-    shape, dtype]), ``model_flops``, ``n_chips`` and ``meta``."""
+    shape, dtype]), ``model_flops``, ``n_chips`` and ``meta``, for the LM
+    ids (or ``ids``: any config whose cell's ``fn`` takes its
+    ``input_structs``, the GNN and RecSys ones too)."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=512")
     res = subprocess.run([sys.executable, "-c", _REFERENCE_LM_PROGRAM, json.dumps(MESHES),
-                          json.dumps(list(LM_IDS))], env=env, capture_output=True, text=True,
+                          json.dumps(list(ids))], env=env, capture_output=True, text=True,
                          timeout=400)
     assert res.returncode == 0, res.stderr[-4000:]
     return json.loads(res.stdout)
