@@ -312,8 +312,15 @@ no result:
    Prefill ms and tokens/s beside ``model_flops`` over 989 TFLOP/s, a
    decode step's ms beside weights + cache over 3.35 TB/s,
    ``max_memory_allocated`` beside the dry run's bytes at the cut batch.
-   The LM family has no Pallas kernel, so no kernel of the port runs
-   here;
+   (e) C7: one olmoe-1b-7b MoE layer in bf16 at full width, five runs on
+   the card without deterministic algorithms: the same bits each run
+   (output and input gradient), the slot-order combine equal to the
+   CPU's bits on the same expert outputs, the old ``index_add`` combine's
+   distinct results counted. (f) qwen3-8b (bf16) and olmoe-1b-7b (f32) at
+   full width cut to ``LM_PLACED_LAYERS`` layers: the four cells with
+   ``weights="placed"`` at world 1 (every collective on a group of one)
+   against the whole-weight cells. The LM family has no Pallas kernel, so
+   no kernel of the port runs here;
 15. the GNN and RecSys families (``GNNArch``, ``RecsysArch``,
    ``models/gnn.py``, ``models/recsys.py``), in phase 14's rank after its
    LM work, once that memory is freed; weights drawn on the card from a
@@ -344,8 +351,16 @@ no result:
    edges a second, bound (``model_flops`` over 67 TFLOP/s f32 against
    the cell's dry-run bytes over 3.35 TB/s) and ``max_memory_allocated``
    beside the dry run's bytes on this one-device mesh. Tolerances beside
-   their constants (``FAM_*``). Neither family has a Pallas kernel, so
-   no kernel of the port runs here;
+   their constants (``FAM_*``). (d) DeepFM's and SASRec's
+   ``train_batch``, ``serve_p99`` and ``retrieval_cand`` with
+   ``weights="placed"`` at world 1 against the whole-weight cells. Then
+   the parent holds each cell that phases 14 and 15 ran at full size
+   (qwen3-8b's ``prefill_32k`` and ``decode_32k``, every phase-15 cell)
+   to the dry run: ``max_memory_allocated`` over ``launch.dryrun.
+   cell_memory``'s peak of a (1, 1) mesh at the same batch (arguments +
+   outputs + the traced temporaries − aliases) within ``MEM_FACTOR``.
+   Neither family has a Pallas kernel, so no kernel of the port runs
+   here;
 16. one JSON line of kernels, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 """
@@ -3927,6 +3942,172 @@ def _lm_moe_check(params, cfg, dev) -> dict:
                 ms=ms)
 
 
+#: C7's check: one olmoe-1b-7b MoE layer in bf16 at full width on this
+#: many tokens, run this many times on the card
+C7_TOKENS, C7_RUNS = 4096, 5
+#: the placed cells at world 1 (every collective on a group of one):
+#: full width, cut to this many layers (qwen3-8b's AdamW state at full
+#: depth is 98 GB), train_4k at 1 × 4,096 tokens, a prefill of
+#: LM_PLACED_TOKENS, decode steps over a LM_PLACED_SLOTS-slot cache at
+#: batch 2; the MoE config in f32 (a bf16 rounding flips a token's
+#: experts, see LM_F32_RTOL)
+LM_PLACED_LAYERS, LM_PLACED_TOKENS, LM_PLACED_SLOTS, LM_PLACED_STEPS = 2, 4096, 8192, 4
+#: placed against whole weights on one card: relative L2 of logits and
+#: caches, relative difference of losses and grad norms, AdamW's first
+#: moment after two steps (of each leaf's scale), the parameters within
+#: this many lr of each other beyond one rounding of their dtype (an
+#: AdamW step moves a weight by ±lr whatever its gradient's size, so a
+#: gradient within rounding of zero steps either way: 2 lr a step, two
+#: steps; a bf16 weight rounds to 2**-7 of itself); the placed program
+#: runs the same products in other shapes (an MoE buffer of min(C, T)
+#: slots, vocab-parallel log-sum-exp), so its sums round apart
+LM_PLACED_RTOL, LM_PLACED_LR = 1e-2, 4.0
+
+
+def _lm_c7(dev) -> dict:
+    """C7: one olmoe-1b-7b MoE layer (bf16, full width) on ``C7_TOKENS``
+    tokens, ``C7_RUNS`` times on the card without deterministic
+    algorithms: every run's output and input gradient the same bits; the
+    combine (``moe._Combine``, each token's slots in ascending order, f32
+    accumulation) on the card from the card's expert outputs equals the
+    CPU's on the same inputs bit for bit, forward and backward; the old
+    ``index_add`` combine on the card, for contrast, counted by its
+    distinct results; the whole layer on the card against the CPU (their
+    bf16 GEMMs differ: relative L2, and the routing)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe
+
+    if torch.are_deterministic_algorithms_enabled():
+        raise SystemExit("phase 14 (e): C7's check must run without deterministic algorithms")
+    cfg = get_arch("olmoe-1b-7b").cfg.moe
+    p_cpu = moe.moe_init(torch.Generator().manual_seed(5), cfg, dtype=torch.bfloat16,
+                         device="cpu")
+    x_cpu = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (C7_TOKENS, cfg.d_model)).astype(np.float32)).to(torch.bfloat16)
+    p = {k: v.to(dev) for k, v in p_cpu.items()}
+    outs, grads = [], []
+    for _ in range(C7_RUNS):
+        x = x_cpu.to(dev).requires_grad_(True)
+        y, _ = moe.moe_apply(p, cfg, x)
+        (y.float() * torch.linspace(-1, 1, y.shape[1], device=dev)).sum().backward()
+        outs.append(y.detach())
+        grads.append(x.grad)
+    repeat = all(torch.equal(outs[0], o) for o in outs) and all(
+        torch.equal(grads[0], g) for g in grads)
+    # the combine on both sides from the card's expert outputs
+    with torch.no_grad():
+        _, gate_w, idx = moe._route(p, cfg, x_cpu.to(dev))
+        tok, w, slot_map = moe._dispatch_slots(idx, gate_w, cfg)
+        E, C = cfg.n_experts, moe._capacity(C7_TOKENS, cfg)
+        xe = moe._take_rows(x_cpu.to(dev), tok).reshape(E, C, -1)
+        ye = moe._swiglu(xe, p["w_gate"], p["w_up"], p["w_down"])
+        contrib = ye.reshape(E * C, -1) * w[:, None].to(ye.dtype)
+    sides = {}
+    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        c = contrib.detach().to(d).clone().requires_grad_(True)
+        yc = moe._Combine.apply(c, slot_map.to(d), tok.to(d))
+        (yc.float() * torch.linspace(-1, 1, yc.shape[1], device=d)).sum().backward()
+        sides[name] = (yc.detach().cpu(), c.grad.cpu())
+    combine_bits = all(torch.equal(a, b) for a, b in zip(sides["card"], sides["cpu"]))
+    old = {bytes(torch.zeros((C7_TOKENS + 1, contrib.shape[1]), dtype=contrib.dtype, device=dev)
+                 .index_add(0, tok, contrib)[:C7_TOKENS].cpu().view(torch.int16).numpy())
+           for _ in range(C7_RUNS)}
+    y_cpu, _ = moe.moe_apply(p_cpu, cfg, x_cpu)
+    idx_cpu = moe._route(p_cpu, cfg, x_cpu)[2]
+    rec = dict(tokens=C7_TOKENS, runs=C7_RUNS, repeat_bits=repeat, combine_bits=combine_bits,
+               combine_vs_cpu_max_abs=float((sides["card"][0].float() - sides["cpu"][0].float())
+                                            .abs().max()),
+               index_add_distinct=len(old), layer_vs_cpu_rel=_rel(outs[0].cpu(), y_cpu.detach()),
+               routing_equal=bool(torch.equal(idx.cpu(), idx_cpu)),
+               deterministic_mode=torch.are_deterministic_algorithms_enabled())
+    if not (repeat and combine_bits):
+        raise SystemExit(f"phase 14 (e): C7: {rec}")
+    return rec
+
+
+def _lm_placed(arch_id: str, mesh, dev) -> dict:
+    """(f) ``arch_id``'s four cells with ``weights="placed"`` at world 1 on
+    the card (see ``LM_PLACED_LAYERS``) against the whole-weight cells on
+    the same inputs: two train steps (loss, grad norm, every parameter),
+    a prefill (last logits, cache), decode steps of both layouts."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.tree import tree_leaves
+
+    arch = get_arch(arch_id)
+    dt = torch.float32 if arch.cfg.moe is not None else arch.cfg.dtype
+    cut = dataclasses.replace(arch, cfg=dataclasses.replace(arch.cfg, n_layers=LM_PLACED_LAYERS,
+                                                            dtype=dt), microbatches=1)
+    cfg = cut.cfg
+    params = tf.init_params(torch.Generator(device=dev).manual_seed(3), cfg, device=dev)
+    tg = torch.Generator(device=dev).manual_seed(4)
+    toks = torch.randint(0, cfg.vocab, (2, LM_PLACED_TOKENS + 1), generator=tg, device=dev)
+    rec = dict(arch=arch_id, layers=LM_PLACED_LAYERS, dtype=str(dt).removeprefix("torch."))
+    t0 = time.perf_counter()
+    # train_4k: two steps of each
+    batch = {"tokens": toks[:1, :-1], "labels": toks[:1, 1:]}
+    states, mets = {}, {}
+    for w in ("whole", "placed"):
+        cell = cut.build_cell("train_4k", mesh, weights=w, global_batch=1)
+        st = (cut.place("train_4k", mesh, params) if w == "placed" else
+              {"params": params, "opt": make_optimizer(cut.optimizer)[0](params)})
+        for _ in range(2):
+            st, m = cell.fn(st, batch)
+        states[w], mets[w] = st, {k: float(v) for k, v in m.items()}
+        del st
+    rec["train"] = {k: [mets["placed"][k], mets["whole"][k]] for k in ("loss", "grad_norm")}
+    rec["train_rel"] = max(abs(a - b) / abs(b) for a, b in rec["train"].values())
+    lr = mets["whole"]["lr"]
+    # the first moment (0.09 g1 + 0.1 g2) of each leaf's scale, or 1e-2 of the tree's
+    ms = list(zip(tree_leaves(states["placed"]["opt"]["m"]),
+                  tree_leaves(states["whole"]["opt"]["m"])))
+    top = max(float(b.abs().max()) for _, b in ms)
+    rec["m_err"] = max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-2 * top)
+                       for a, b in ms)
+    # beyond a rounding of the stored dtype (bf16: one ulp, 2**-7 relative)
+    rec["params_max_abs_in_lr"] = max(
+        float(((a.float() - b.float()).abs() - torch.finfo(b.dtype).eps * b.float().abs())
+              .clamp_min(0).max()) / lr
+        for a, b in zip(tree_leaves(states["placed"]["params"]),
+                        tree_leaves(states["whole"]["params"])))
+    del states
+    torch.cuda.empty_cache()
+    # prefill_32k at LM_PLACED_TOKENS
+    got = {}
+    for w in ("whole", "placed"):
+        cell = cut.build_cell("prefill_32k", mesh, weights=w, global_batch=1)
+        pp = cut.place("prefill_32k", mesh, params) if w == "placed" else params
+        got[w] = cell.fn(pp, toks[:1, :LM_PLACED_TOKENS])
+    rec["prefill_rel"] = max(_rel(got["placed"][0], got["whole"][0]),
+                             _rel(got["placed"][1]["k"], got["whole"][1]["k"]))
+    del got
+    # decode: both layouts, from an empty cache
+    rec["decode_rel"] = {}
+    for shape in ("decode_32k", "long_500k"):
+        outs = {}
+        for w in ("whole", "placed"):
+            cell = cut.build_cell(shape, mesh, weights=w, global_batch=2)
+            pp = cut.place(shape, mesh, params) if w == "placed" else params
+            cache = tf.init_kv_cache(cfg, 2, LM_PLACED_SLOTS, device=dev)
+            lens = torch.zeros(2, dtype=torch.int32, device=dev)
+            outs[w] = []
+            for j in range(LM_PLACED_STEPS):
+                lg, cache = cell.fn(pp, cache, toks[:, j:j + 1], lens)
+                outs[w].append(lg)
+                lens = lens + 1
+        rec["decode_rel"][shape] = max(_rel(a, b) for a, b in zip(outs["placed"], outs["whole"]))
+    rec["s"] = time.perf_counter() - t0
+    worst = max(rec["train_rel"], rec["m_err"], rec["prefill_rel"], *rec["decode_rel"].values())
+    if not (worst <= LM_PLACED_RTOL and rec["params_max_abs_in_lr"] <= LM_PLACED_LR):
+        raise SystemExit(f"phase 14 (f): {arch_id} placed vs whole at world 1: {rec}")
+    del params
+    torch.cuda.empty_cache()
+    return rec
+
+
 @contextlib.contextmanager
 def _routing_log():
     """Record every MoE routing (``moe._route``'s expert sets, sorted, on
@@ -4238,6 +4419,14 @@ def lm_rank(rank: int, world: int, d: str) -> None:
     for a in LM_SERVED:
         out["models"][a] = _lm_model(a, mesh, dev, card)
         _log_lm_model(a, out["models"][a], card)
+    t0 = time.perf_counter()
+    out["c7"] = _lm_c7(dev)
+    _log_c7(out["c7"], card)
+    out["placed"] = {}
+    for a in LM_SERVED:
+        out["placed"][a] = _lm_placed(a, mesh, dev)
+        _log_lm_placed(out["placed"][a], card)
+    out["placed_s"] = time.perf_counter() - t0
     out["lm_seconds"] = time.perf_counter() - t_start
     # phase 15 in the same rank, once the LM's memory is freed
     gc.collect()
@@ -4284,8 +4473,31 @@ def lm_phase_finish(job, card: str) -> dict:
         f"configs × 4 cells at full width, every check held; no kernel of the port is on this "
         f"path (the reference builds both families from jnp gathers, segment sums and dense "
         f"products, no Pallas)")
+    out["dry_run"] = _dry_run_ratios(out, card)
     shutil.rmtree(LM_DIR, ignore_errors=True)
     return out
+
+
+def _log_c7(r: dict, card: str) -> None:
+    log(f"[14] (e) C7: one olmoe-1b-7b MoE layer in bf16 at full width on {r['tokens']} tokens, "
+        f"{r['runs']} runs on the card (deterministic algorithms "
+        f"{'on' if r['deterministic_mode'] else 'off'}): output and input gradient the same "
+        f"bits every run: {r['repeat_bits']}; the slot-order combine on the card == the CPU's "
+        f"bits (forward and backward, the card's expert outputs): {r['combine_bits']}; the old "
+        f"index_add combine gave {r['index_add_distinct']} distinct results in {r['runs']} runs; "
+        f"the whole layer vs the CPU (their bf16 GEMMs differ): relative L2 "
+        f"{r['layer_vs_cpu_rel']:.2e}, routing equal {r['routing_equal']} ({card})")
+
+
+def _log_lm_placed(r: dict, card: str) -> None:
+    log(f"[14] (f) {r['arch']} placed cells at world 1 (NCCL, every collective on a group of "
+        f"one; full width, {r['layers']} layers, {r['dtype']}) vs whole weights: train_4k 2 "
+        f"steps loss/grad_norm {r['train']} (rel {r['train_rel']:.1e}), first moment "
+        f"{r['m_err']:.1e} of scale, parameters within {r['params_max_abs_in_lr']:.2f} lr beyond "
+        f"a rounding; prefill of {LM_PLACED_TOKENS} tokens rel "
+        f"{r['prefill_rel']:.1e}; decode "
+        + ", ".join(f"{k} rel {v:.1e}" for k, v in r["decode_rel"].items())
+        + f" (rtol {LM_PLACED_RTOL}); {r['s']:.1f}s ({card})")
 
 
 def _log_lm_small(out: dict, card: str) -> None:
@@ -4774,6 +4986,127 @@ def _rec_config(arch_id: str, mesh, dev, card: str = "") -> dict:
     return rec
 
 
+#: the RecSys configs whose cells phase 15 also runs placed at world 1
+REC_PLACED = ("deepfm", "sasrec")
+#: placed against whole weights on one card (f32, TF32 off): losses, grad
+#: norms and outputs (rtol), parameters after a step (within this many lr:
+#: a first AdamW step moves a weight by ±lr whatever its gradient's size)
+REC_PLACED_RTOL, REC_PLACED_LR = 1e-4, 1e-2
+
+
+def _rec_placed(arch_id: str, mesh, dev) -> dict:
+    """(d) ``arch_id``'s ``train_batch``, ``serve_p99`` and
+    ``retrieval_cand`` with ``weights="placed"`` (its tables' rows split
+    over ``model``, here of size 1) at full width against the whole-weight
+    cells on the same inputs."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import REC_SHAPES
+    from repro_torch.train.optimizer import make_optimizer
+    from repro_torch.tree import tree_leaves
+
+    arch = get_arch(arch_id)
+    cfg = arch.cfg
+    params = arch._fns(cfg)[0](torch.Generator(device=dev).manual_seed(0), cfg, device=dev)
+    g = torch.Generator(device=dev).manual_seed(2)
+    rec = dict(arch=arch_id)
+    t0 = time.perf_counter()
+    B = SASREC_TRAIN_BATCH if arch_id == "sasrec" else REC_SHAPES["train_batch"]["batch"]
+    batch = _rec_batch(cfg, B, g, dev)
+    res = {}
+    for w in ("whole", "placed"):
+        cell = arch.build_cell("train_batch", mesh, weights=w, global_batch=B)
+        st = (arch.place("train_batch", mesh, params) if w == "placed" else
+              {"params": params, "opt": make_optimizer(arch.optimizer)[0](params)})
+        st, m = cell.fn(st, batch)
+        res[w] = (st["params"], {k: float(v) for k, v in m.items()})
+        del st
+    rec["train"] = {k: [res["placed"][1][k], res["whole"][1][k]] for k in ("loss", "grad_norm")}
+    rec["train_rel"] = max(abs(a - b) / abs(b) for a, b in rec["train"].values())
+    rec["params_max_abs_in_lr"] = max(
+        float((a - b).abs().max()) / res["whole"][1]["lr"]
+        for a, b in zip(tree_leaves(res["placed"][0]), tree_leaves(res["whole"][0])))
+    del res, batch
+    serve = {k: v for k, v in _rec_batch(cfg, REC_SHAPES["serve_p99"]["batch"], g, dev).items()
+             if k not in ("label", "pos_label", "neg_label")}
+    user = _rec_batch(cfg, 1, g, dev)
+    user = (user["seq"],) if arch_id == "sasrec" else (user["sparse"],)
+    hi = cfg.n_items if arch_id == "sasrec" else cfg.vocab_sizes[3]
+    cand = torch.randint(0, hi, (REC_SHAPES["retrieval_cand"]["n_candidates"],), generator=g,
+                         device=dev, dtype=torch.int32)
+    outs = {}
+    for w in ("whole", "placed"):
+        pp = arch.place("serve_p99", mesh, params) if w == "placed" else params
+        outs[w] = (arch.build_cell("serve_p99", mesh, weights=w).fn(pp, serve),
+                   arch.build_cell("retrieval_cand", mesh, weights=w).fn(pp, *user, cand))
+    rec["serve_rel"] = _rel(outs["placed"][0], outs["whole"][0])
+    rec["cand_rel"] = _rel(outs["placed"][1], outs["whole"][1])
+    rec["s"] = time.perf_counter() - t0
+    worst = max(rec["train_rel"], rec["serve_rel"], rec["cand_rel"])
+    if not (worst <= REC_PLACED_RTOL and rec["params_max_abs_in_lr"] <= REC_PLACED_LR):
+        raise SystemExit(f"phase 15 (d): {arch_id} placed vs whole at world 1: {rec}")
+    del params, outs
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return rec
+
+
+#: phases 14 and 15's cells on one card against the dry run's peak of a
+#: (1, 1) mesh at the same batch (arguments + outputs + the traced
+#: temporaries − aliases): max_memory_allocated / peak within
+#: [1 / MEM_FACTOR, MEM_FACTOR]. The card also holds what the process keeps
+#: beside the step (a config's parameters while another cell runs, the
+#: CUDA context's workspaces), and a cell under 1 GiB is dominated by that:
+#: those are held to MEM_FLOOR_BYTES above the peak instead
+MEM_FACTOR = 1.5
+MEM_FLOOR_BYTES = 2**30
+
+
+def _dry_run_ratios(out: dict, card: str) -> list:
+    """Each cell phases 14 and 15 ran at full size on the card → its
+    max_memory_allocated against ``dryrun.cell_memory``'s peak on a
+    (1, 1) ``MeshShape`` at the batch it ran (logged; outside the factor
+    fails)."""
+    from repro_torch.launch.dryrun import cell_memory
+    from repro_torch.launch.mesh import MeshShape
+
+    one = MeshShape((1, 1), ("data", "model"))
+    cells = []
+    q = out["models"]["qwen3-8b"]
+    cells += [("qwen3-8b", "prefill_32k", q["prefill"]["batch"],
+               q["prefill"]["max_memory_allocated"]),
+              ("qwen3-8b", "decode_32k", q["decode"]["batch"],
+               q["decode"]["max_memory_allocated"])]
+    fam = out["families"]
+    cells += [("gat-cora", s, None, r["max_memory_allocated"]) for s, r in fam["gnn"].items()]
+    cells += [(a, s, c["batch"], c["max_memory_allocated"])
+              for a, r in fam["recsys"].items() for s, c in r["cells"].items()]
+    rows, bad = [], []
+    gib = 2**30
+    t0 = time.perf_counter()
+    for a, s, B, got in cells:
+        mem = cell_memory(a, s, one, B)
+        ratio = got / mem["peak_device_bytes"]
+        ok = (1 / MEM_FACTOR <= ratio <= MEM_FACTOR if mem["peak_device_bytes"] >= gib
+              else got <= mem["peak_device_bytes"] + MEM_FLOOR_BYTES)
+        rows.append(dict(arch=a, shape=s, batch=B, max_memory_allocated=got, ratio=ratio, ok=ok,
+                         **mem))
+        log(f"    dry run vs the card: {a} {s}" + (f" at {B:,}" if B else "") +
+            f": max_memory_allocated {got / gib:.3f} GiB / dry-run peak "
+            f"{mem['peak_device_bytes'] / gib:.3f} GiB (arguments {mem['argument_bytes'] / gib:.3f}"
+            f" + outputs {mem['output_bytes'] / gib:.3f} + temporaries "
+            f"{mem['temp_bytes'] / gib:.3f} − aliased {mem['alias_bytes'] / gib:.3f}) = "
+            f"{ratio:.3f}{'' if ok else '  OUTSIDE'} ({card})")
+        if not ok:
+            bad.append((a, s, ratio))
+    log(f"[14/15] dry run (1, 1) against max_memory_allocated: {len(rows)} cells, factor "
+        f"{MEM_FACTOR} (under 1 GiB: {MEM_FLOOR_BYTES / gib:.0f} GiB above the peak), traced in "
+        f"{time.perf_counter() - t0:.1f}s on the host")
+    if bad:
+        raise SystemExit(f"phase 14/15: the card's peak is outside the dry run's by more than "
+                         f"{MEM_FACTOR}×: {bad}")
+    return rows
+
+
 def _family_smoke_parity() -> dict:
     """The five new configs' ``smoke()`` on the card and on the CPU."""
     from repro_torch.configs import get_arch
@@ -4856,6 +5189,14 @@ def family_phase(mesh, dev, card: str) -> dict:
                 f"{c['bound_ms']:.3f} ms by {c['bound_by']}; max_memory_allocated "
                 f"{c['max_memory_allocated'] / gib:.2f} GiB, dry run (1, 1) "
                 f"{c['dry_run_bytes'] / gib:.3f} GiB; checks held ({checks}) ({card})")
+    out["placed"] = {}
+    for a in REC_PLACED:
+        r = out["placed"][a] = _rec_placed(a, mesh, dev)
+        log(f"[15] (d) {a} placed cells at world 1 (its tables' rows over a model axis of "
+            f"one) vs whole weights: train_batch loss/grad_norm {r['train']} (rel "
+            f"{r['train_rel']:.1e}), parameters within {r['params_max_abs_in_lr']:.1e} lr; "
+            f"serve_p99 rel {r['serve_rel']:.1e}; retrieval_cand rel {r['cand_rel']:.1e} (rtol "
+            f"{REC_PLACED_RTOL}); {r['s']:.1f}s ({card})")
     t0 = time.perf_counter()
     out["smoke"] = _family_smoke_parity()
     out["train_cli"] = _family_train_cli()

@@ -26,18 +26,25 @@ replicates the batch. The placements are the reference's
 
 On a ``DeviceMesh`` a rank passes its own block of every input that is
 split — the batch's rows over the data axes, the cache's sequence slice
-(``dist.sharding.shard_block``) — and the WHOLE weights and optimizer
-state, and gets back its block of every output under
-``out_shardings``: train steps average their gradients over the data
-axes, decode runs ``dist.collectives.flash_decode_shardmap`` over the
-cache's sequence axes and writes a new token only into the rank that
-holds its position. An MoE layer routes the rank's own rows, so its
-capacity and its load-balance loss follow the rank's share of the batch
-(the reference's jit routes the global batch; with one data rank, as on
-one card, the two are the same). Running
-the reference's tensor- and FSDP-parallel
-weight placements for real is ROADMAP A12: ``build_cell(...,
-weights="placed")`` raises naming it.
+(``dist.sharding.shard_block``) — and gets back its block of every
+output under ``out_shardings``; decode runs
+``dist.collectives.flash_decode_shardmap`` over the cache's sequence
+axes and writes a new token only into the rank that holds its position.
+The weights come one of two ways:
+
+* ``weights="placed"``: the reference's placements run for real. A rank
+  holds its block of every weight and optimizer leaf (``LMArch.place``
+  cuts a whole tree, e.g. the reference's through ``params_from_jax``)
+  and runs ``models.transformer``'s placed program: tensor-, vocab- and
+  expert-parallel over ``model``, FSDP over the data axes (gathered
+  before use, gradients reduce-scattered), MoE layers routing the
+  global batch; the optimizer takes its norms and factored means over
+  the full leaves (``train/optimizer.py``). A mesh whose groups cannot
+  form raises; nothing falls back to whole weights.
+* ``weights="whole"`` (the default): every rank holds every weight; train
+  steps average their gradients over the data axes, and an MoE layer
+  routes the rank's own rows (its capacity and load-balance loss follow
+  the rank's share of the batch; with one data rank the two agree).
 
 **The GNN family** (``GNNArch``, GAT). Four train cells:
 ``full_graph_sm`` (Cora), ``minibatch_lg`` (a sampled Reddit subgraph),
@@ -52,12 +59,15 @@ the dst-aligned edge-sharded layer over every axis
 
 **The RecSys family** (``RecsysArch``: DeepFM, DCN-v2, SASRec, DIN). Four
 cells: ``train_batch``, ``serve_p99``, ``serve_bulk`` and
-``retrieval_cand`` (one user against 1,000,448 candidates). The tables'
-placements row-split them over ``model`` (``recsys_param_specs``) for
-the dry run; a rank holds them whole, as the LM weights, and passes its
-block of the batch (of the candidates, over every axis); train steps
-average their gradients over the data axes. Both families' cells take
-``weights="placed"`` as the LM's do: it raises naming A12.
+``retrieval_cand`` (one user against 1,000,448 candidates). A rank passes
+its block of the batch (of the candidates, over every axis); train steps
+average their gradients over the data axes. ``weights="placed"`` runs
+the tables' placements (``recsys_param_specs``: every ``embed*`` table
+and DeepFM's ``linear`` row-split over ``model``): a lookup gathers the
+rank's rows for the ids in its range, sums the partial rows over
+``model``, and its backward writes the rank's own rows only
+(``models.recsys.row_split``). GAT's parameters are replicated, so its
+placed cells run the whole-weight step.
 """
 
 from __future__ import annotations
@@ -71,6 +81,7 @@ import torch
 import torch.distributed as dist
 
 from .. import resolve_device
+from ..dist import placed as plc
 from ..dist import sharding as shd
 from ..dist.sharding import P, Placement
 from ..models import gnn as gnn_m
@@ -279,6 +290,9 @@ class LMArch(BaseArch):
     microbatches: int = 1
     shape_names: tuple[str, ...] = tuple(LM_SHAPES)
     smoke_cfg: tf_m.TransformerConfig | None = None
+    #: decode's FSDP choice, where it is not ``tp_fits``' (a cut-depth copy
+    #: of a config keeps the full config's placements)
+    decode_fsdp: bool | None = None
 
     # -- abstract state ---------------------------------------------------
     def abstract_params(self):
@@ -331,23 +345,51 @@ class LMArch(BaseArch):
         param_bytes = count_abstract_params(self.abstract_params()) * 2  # bf16
         return param_bytes / shd.axis_size(mesh, "model") <= 8 * 2**30
 
+    # -- placements --------------------------------------------------------
+    def param_specs(self, shape: str, mesh):
+        """The parameters' placements in ``shape``'s cell (decode keeps them
+        TP-only where ``tp_fits``)."""
+        cfg = self.cell_cfg(shape)
+        if LM_SHAPES[shape]["kind"] == "decode":
+            fsdp = not self.tp_fits(mesh) if self.decode_fsdp is None else self.decode_fsdp
+            return shd.lm_param_specs(cfg, mesh, fsdp=fsdp)
+        return shd.lm_param_specs(cfg, mesh)
+
+    def tree_shards(self, shape: str, mesh) -> plc.TreeShards:
+        return plc.TreeShards(mesh, plc.leaf_shards(self.abstract_params(),
+                                                    self.param_specs(shape, mesh)))
+
+    def place(self, shape: str, mesh, params, opt_state=None):
+        """The rank's blocks of a whole parameter tree (``init_params``, or
+        the reference's through ``params_from_jax``) for ``shape``'s placed
+        cell on ``mesh`` (a ``DeviceMesh``); a train cell's state is
+        ``{"params", "opt"}`` with ``opt_state`` placed too, or
+        initialised on the rank's blocks."""
+        pspecs = self.param_specs(shape, mesh)
+        placed = plc.place_tree(params, pspecs, mesh)
+        if LM_SHAPES[shape]["kind"] != "train":
+            return placed
+        if opt_state is None:
+            opt = make_optimizer(self.optimizer, self.tree_shards(shape, mesh))[0](placed)
+        else:
+            sspecs = _state_specs(pspecs, self.abstract_params(), self.optimizer)
+            opt = plc.place_tree(opt_state, sspecs["opt"], mesh)
+        return {"params": placed, "opt": opt}
+
     # -- cells -------------------------------------------------------------
     def build_cell(self, shape: str, mesh, *, weights: str = "whole",
                    global_batch: int | None = None) -> Cell:
         """The cell of ``shape`` on ``mesh`` (a ``DeviceMesh`` or a
         ``MeshShape``). ``weights="whole"``: every rank holds every weight
         (the placements still describe the reference's layout for the dry
-        run); ``"placed"`` would run the tensor- and FSDP-parallel
-        placements and raises (ROADMAP A12). ``global_batch`` sizes the
-        cell's structs and counts for another batch than the shape's (a
-        run on one card cuts it); the step takes any batch."""
+        run); ``"placed"``: a rank holds and passes its blocks (``place``)
+        and runs the tensor-, vocab-, expert- and FSDP-parallel program.
+        ``global_batch`` sizes the cell's structs and counts for another
+        batch than the shape's (a run on one card cuts it); the step takes
+        any batch."""
         from ..launch.hlo_stats import lm_collectives
 
-        if weights != "whole":
-            raise NotImplementedError(
-                f"{self.name} × {shape}: running the tensor- and FSDP-parallel weight "
-                f"placements (weights={weights!r}) is not ported yet (ROADMAP A12); "
-                f"weights='whole' holds every weight on every rank")
+        placed = _weights_placed(weights)
         sh = LM_SHAPES[shape]
         kind, S = sh["kind"], sh["seq_len"]
         B = sh["global_batch"] if global_batch is None else global_batch
@@ -356,10 +398,7 @@ class LMArch(BaseArch):
         abs_params = self.abstract_params()
         n_params = count_abstract_params(abs_params)
         flops = self.model_flops(shape, B)
-        if kind == "decode":
-            pspecs = shd.lm_param_specs(cfg, mesh, fsdp=not self.tp_fits(mesh))
-        else:
-            pspecs = shd.lm_param_specs(cfg, mesh)
+        pspecs = self.param_specs(shape, mesh)
 
         if kind == "train":
             oinit, oupd = make_optimizer(self.optimizer)
@@ -373,7 +412,10 @@ class LMArch(BaseArch):
             metric_names = ["loss", "lr", "grad_norm"] + (["nll"] if self.microbatches == 1
                                                           else [])
             out = (abs_state, {k: _struct((), torch.float32) for k in metric_names})
-            fn = _OnFirstCall(mesh, lambda *_: self._train_step(cfg, mesh, oupd))
+            if placed:
+                fn = _OnFirstCall(mesh, lambda *_: self._train_placed(cfg, mesh, shape, pspecs))
+            else:
+                fn = _OnFirstCall(mesh, lambda *_: self._train_step(cfg, mesh, oupd))
             meta = {"tokens_per_step": B * S, "params": n_params}
         elif kind == "prefill":
             cache_spec = shd.kv_cache_spec(mesh, batch=B, seq_shard=False)
@@ -383,7 +425,9 @@ class LMArch(BaseArch):
             out_sh = shd.to_shardings(mesh, out_spec)
             out = (_struct((B, cfg.vocab), cfg.dtype),
                    tf_m.init_kv_cache(cfg, B, S, device="meta"))
-            fn = _OnFirstCall(mesh, lambda *_: self._prefill(cfg, mesh, out_spec))
+            fn = _OnFirstCall(mesh, lambda *_: self._prefill(
+                cfg, mesh, out_spec,
+                tf_m.LMPlacement(cfg, mesh, pspecs, collect_kv=True) if placed else None))
             meta = {"tokens_per_step": B * S, "params": n_params}
         else:
             seq_shard = shape == "long_500k"
@@ -399,8 +443,10 @@ class LMArch(BaseArch):
                      shd.to_shardings(mesh, tok_spec), shd.to_shardings(mesh, len_spec))
             out_sh = (shd.to_shardings(mesh, logits_spec), shd.to_shardings(mesh, cache_spec))
             out = (_struct((B, cfg.vocab), cfg.dtype), cache)
+            pl = ((lambda: tf_m.LMPlacement(cfg, mesh, pspecs, batch_split=not seq_shard))
+                  if placed else (lambda: None))
             fn = _OnFirstCall(mesh, lambda *_: self._decode(cfg, mesh, batch_axes, seq_axes,
-                                                             logits_spec))
+                                                             logits_spec, pl()))
             meta = {"tokens_per_step": B, "params": n_params,
                     "kv_bytes": sum(_nbytes(t) for t in cache.values())}
         collective = lm_collectives(cfg, mesh, kind, pspecs, abs_params, batch=B, seq=S,
@@ -417,22 +463,32 @@ class LMArch(BaseArch):
             lambda p, b: tf_m.lm_loss(p, cfg, b["tokens"], b["labels"]), oupd, mesh,
             microbatches=self.microbatches)
 
-    def _prefill(self, cfg, mesh, out_spec):
+    def _train_placed(self, cfg, mesh, shape, pspecs):
+        pl = tf_m.LMPlacement(cfg, mesh, pspecs)
+        return _placed_step(lambda p, b: tf_m.lm_loss(p, cfg, b["tokens"], b["labels"], pl=pl),
+                            self.optimizer, self.tree_shards(shape, mesh), pspecs,
+                            microbatches=self.microbatches)
+
+    def _prefill(self, cfg, mesh, out_spec, pl=None):
         logits_spec, cache_spec = out_spec
 
         def prefill(params, tokens):
             with torch.no_grad():
-                logits, aux = tf_m.forward(params, cfg, tokens, collect_kv=True)
+                logits, aux = tf_m.forward(params, cfg, tokens, collect_kv=True, pl=pl)
             last = logits[:, -1, :]
             del logits
-            last = shd.shard_block(last, _unsplit_batch(logits_spec, 0), mesh).contiguous()
-            cache = {k: shd.shard_block(v, _unsplit_batch(cache_spec[k], 1), mesh).contiguous()
-                     for k, v in aux["kv_cache"].items()}
-            return last, cache
+            if pl is None or not pl.head_split:
+                last = shd.shard_block(last, _unsplit_batch(logits_spec, 0), mesh)
+            if pl is None:
+                cache = {k: shd.shard_block(v, _unsplit_batch(cache_spec[k], 1), mesh)
+                         for k, v in aux["kv_cache"].items()}
+            else:  # the placed forward gives the rank's sequence block
+                cache = aux["kv_cache"]
+            return last.contiguous(), {k: v.contiguous() for k, v in cache.items()}
 
         return prefill
 
-    def _decode(self, cfg, mesh, batch_axes, seq_axes, logits_spec):
+    def _decode(self, cfg, mesh, batch_axes, seq_axes, logits_spec, pl=None):
         from ..dist.collectives import flash_decode_shardmap
 
         attn_fn = flash_decode_shardmap(mesh, batch_axes=batch_axes, seq_axes=seq_axes)
@@ -443,9 +499,10 @@ class LMArch(BaseArch):
             with torch.no_grad():
                 logits, cache = tf_m.decode_step(params, cfg, cache, tokens, lengths, attn_fn,
                                                  seq_start=idx * S_local,
-                                                 seq_len=S_local * n_seq)
-            return shd.shard_block(logits, _unsplit_batch(logits_spec, 0), mesh).contiguous(), \
-                cache
+                                                 seq_len=S_local * n_seq, pl=pl)
+            if pl is None or not pl.head_split:
+                logits = shd.shard_block(logits, _unsplit_batch(logits_spec, 0), mesh)
+            return logits.contiguous(), cache
 
         return decode
 
@@ -484,12 +541,48 @@ class LMArch(BaseArch):
                 "device": dev.type}
 
 
-def _whole_weights(name: str, shape: str, weights: str) -> None:
-    if weights != "whole":
-        raise NotImplementedError(
-            f"{name} × {shape}: running the reference's weight placements "
-            f"(weights={weights!r}) is not ported yet (ROADMAP A12); weights='whole' holds "
-            f"every weight on every rank")
+def _weights_placed(weights: str) -> bool:
+    """``weights="placed"`` → True, ``"whole"`` → False."""
+    if weights not in ("whole", "placed"):
+        raise ValueError(f"weights={weights!r}: 'whole' (every weight on every rank) or "
+                         f"'placed' (the reference's placements)")
+    return weights == "placed"
+
+
+def _placed_step(loss_fn, opt_cfg: OptimizerConfig, shards: plc.TreeShards, pspecs,
+                 microbatches: int = 1):
+    """A placed train step: ``loss_fn`` on the rank's blocks; a gradient
+    split over the data axes arrives summed over them (its FSDP gather's
+    reduce-scatter), any other is summed here; both are divided by the
+    data ranks (the mean of the ranks' losses, as ``_data_parallel_step``
+    takes), then the optimizer runs on the rank's blocks. A rank with
+    fewer rows than ``microbatches`` (deepseek's 16 on 512 devices, 8
+    rows a rank) runs ``gcd(microbatches, rows)`` of them: the reference
+    splits the global batch and XLA places the pieces."""
+    mesh = shards.mesh
+    da = shd.data_axes(mesh)
+    n = shd.axis_size(mesh, da) if da else 1
+    _, oupd = make_optimizer(opt_cfg, shards)
+    split = tree_map(lambda s: plc.data_split(s, mesh), pspecs)
+
+    def mean(g, summed):
+        g32 = g.float() if summed else plc.psum(g.float(), mesh, da)
+        return (g32 / n).to(g.dtype)
+
+    def update(grads, opt, params):
+        return oupd(tree_map(mean, grads, split), opt, params)
+
+    steps = {}
+
+    def train(state, batch):
+        mb = math.gcd(microbatches, next(iter(batch.values())).shape[0])
+        if mb not in steps:
+            steps[mb] = make_train_step(loss_fn, update, microbatches=mb)
+        state, metrics = steps[mb](state, batch)
+        metrics["loss"] = plc.psum(metrics["loss"].float(), mesh, da) / n
+        return state, metrics
+
+    return train
 
 
 def _metrics(*names: str) -> dict:
@@ -576,7 +669,7 @@ class GNNArch(BaseArch):
         ``MeshShape``) at the shape's budgets."""
         from ..launch.hlo_stats import gnn_collectives
 
-        _whole_weights(self.name, shape, weights)
+        _weights_placed(weights)  # replicated parameters: placed is the whole step
         sh = GNN_SHAPES[shape]
         cfg = self._cfg(shape)
         N, E = sh["n_nodes"], sh["n_edges"]
@@ -840,7 +933,7 @@ class RecsysArch(BaseArch):
         it; the step takes any)."""
         from ..launch.hlo_stats import recsys_collectives
 
-        _whole_weights(self.name, shape, weights)
+        placed = _weights_placed(weights)
         sh = REC_SHAPES[shape]
         cfg = self.cfg
         loss_fn_raw = self._fns(cfg)[1]
@@ -851,6 +944,7 @@ class RecsysArch(BaseArch):
         n_params = count_abstract_params(abs_params)
         flops = self.model_flops(shape, global_batch)
         f32 = torch.float32
+        wrap = (lambda f: self._row_split(f, mesh, pspecs)) if placed else (lambda f: f)
 
         if sh["kind"] == "train":
             B = sh["batch"] if global_batch is None else global_batch
@@ -862,8 +956,12 @@ class RecsysArch(BaseArch):
             in_sh = (shd.to_shardings(mesh, sspecs), shd.to_shardings(mesh, bspec))
             out_sh = (shd.to_shardings(mesh, sspecs), None)
             out = (abs_state, _metrics("hit_rate" if cfg.name == "sasrec" else "accuracy"))
-            fn = _OnFirstCall(mesh, lambda *_: _data_parallel_step(
-                lambda p, b: loss_fn_raw(p, cfg, b), oupd, mesh))
+            loss = wrap(lambda p, b: loss_fn_raw(p, cfg, b))
+            if placed:
+                fn = _OnFirstCall(mesh, lambda *_: _placed_step(
+                    loss, self.optimizer, self.tree_shards(mesh), pspecs))
+            else:
+                fn = _OnFirstCall(mesh, lambda *_: _data_parallel_step(loss, oupd, mesh))
             meta = {"params": n_params}
             rows = B
         elif shape == "retrieval_cand":
@@ -890,12 +988,14 @@ class RecsysArch(BaseArch):
                 out, out_sh = _struct((1, N), f32), Placement(mesh, P(None, flat))
             else:
                 out, out_sh = _struct((N,), f32), Placement(mesh, P(flat))
+            if placed:
+                score = self._model_candidates(wrap(score), mesh)
             fn = _OnFirstCall(mesh, lambda *_: torch.no_grad()(score))
             meta = {"params": n_params, "candidates": N}
             rows = N
         else:  # serve_p99 / serve_bulk: a batched forward
             B = sh["batch"] if global_batch is None else global_batch
-            fwd = self.serve_fn()
+            fwd = wrap(self.serve_fn())
             batch = {k: v for k, v in self._batch_structs(cfg, B).items()
                      if k not in ("label", "pos_label", "neg_label")}
             bspec = {k: v for k, v in shd.recsys_batch_spec(cfg.name, mesh).items()
@@ -914,6 +1014,58 @@ class RecsysArch(BaseArch):
         return Cell(self.name, shape, sh["kind"], fn, structs, in_sh, out_sh, flops,
                     {**meta, **device_counts(mesh, structs, in_sh, out, out_sh, flops,
                                              collective)})
+
+    # placed -------------------------------------------------------------------
+    def tree_shards(self, mesh) -> plc.TreeShards:
+        abs_params = self.abstract_params()
+        return plc.TreeShards(mesh, plc.leaf_shards(
+            abs_params, shd.recsys_param_specs(self.cfg.name, abs_params, mesh)))
+
+    def place(self, shape: str, mesh, params, opt_state=None):
+        """The rank's blocks of a whole parameter tree for ``shape``'s placed
+        cell on ``mesh`` (a ``DeviceMesh``); a train cell's state is
+        ``{"params", "opt"}`` (``opt_state`` placed, or initialised on the
+        rank's blocks)."""
+        abs_params = self.abstract_params()
+        pspecs = shd.recsys_param_specs(self.cfg.name, abs_params, mesh)
+        placed = plc.place_tree(params, pspecs, mesh)
+        if REC_SHAPES[shape]["kind"] != "train":
+            return placed
+        if opt_state is None:
+            opt = make_optimizer(self.optimizer, self.tree_shards(mesh))[0](placed)
+        else:
+            opt = plc.place_tree(opt_state, _state_specs(pspecs, abs_params,
+                                                         self.optimizer)["opt"], mesh)
+        return {"params": placed, "opt": opt}
+
+    @staticmethod
+    def _row_split(fn, mesh, pspecs):
+        """``fn(params, ...)`` with the lookups into the leaves ``pspecs``
+        splits over ``model`` vocab-parallel (``models.recsys.row_split``)."""
+        from ..tree import tree_leaves
+
+        split = ["model" in plc.split_axes(s) for s in tree_leaves(pspecs)]
+
+        def run(params, *args):
+            tables = [t for t, sp in zip(tree_leaves(params), split) if sp]
+            with rec_m.row_split(mesh, tables):
+                return fn(params, *args)
+
+        return run
+
+    @staticmethod
+    def _model_candidates(score, mesh):
+        """``retrieval_cand`` placed: the candidates split over every axis,
+        so the model ranks gather theirs, score them together (the lookups
+        are vocab-parallel) and each keeps its own block of the scores."""
+        def run(params, *args):
+            *user, cand = args
+            every = plc.all_gather_axes(cand, mesh, ("model",), 0)
+            out = score(params, *user, every)
+            n, r = cand.shape[0], shd.axis_index(mesh, "model")
+            return out[..., r * n:(r + 1) * n].contiguous()
+
+        return run
 
     def smoke(self, seed: int = 0, device=None, params=None, batch=None) -> dict:
         """One train step of the smoke config at batch 8 on ``device``

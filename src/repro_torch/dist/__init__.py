@@ -17,13 +17,17 @@ calls ``all_gather`` or ``pmean`` over it:
 * ``compression`` — the int8 error-feedback gradient mean of the
   compressed data-parallel step;
 * ``collectives`` — sequence-sharded flash decoding
-  (``flash_decode_shardmap``).
+  (``flash_decode_shardmap``);
+* ``placed``      — the collectives of the placed programs as autograd
+  functions (the LM's tensor-, vocab-, expert- and FSDP-parallel step,
+  RecSys's row-split lookups) and what the optimizer needs of a placed
+  tree (``TreeShards``).
 
 GAT's edge-sharded layer (``models.gnn.gat_loss_edge_sharded``) runs on
-the same axis helpers: one all-gather of node rows a layer, its backward
-a reduce-scatter.
+``placed``'s ``gather_axes`` (one all-gather of node rows a layer, its
+backward a reduce-scatter) and ``replicated``.
 """
 
-from . import collectives, compression, sharding
+from . import collectives, compression, placed, sharding
 
-__all__ = ["sharding", "compression", "collectives"]
+__all__ = ["sharding", "compression", "collectives", "placed"]

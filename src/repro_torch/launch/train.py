@@ -14,9 +14,12 @@ The LM family trains its ``lm_loss`` with the arch's own optimizer, the
 RecSys family its model's loss on batches of 32 (``RecsysArch.
 _smoke_batch`` at ``(seed, step)``). A GNN id exits with the reference's
 own message: the reference wires no training loop for it. A run at full
-width needs the reference's weight placements (ROADMAP A12) and exits;
-so does the reference's ``--distributed`` multi-host start, which this
-launcher does not take.
+width exits, as the reference's does, because it needs a fleet of cards:
+the placed cells that run it (``build_cell(..., weights="placed")`` on a
+``DeviceMesh``, one rank a card; ``tools/torch_lm_timing.py --worlds
+nccl:4`` runs qwen3-8b's ``train_4k`` so) are driven by a launcher per
+host, and the reference's ``--distributed`` multi-host start is not
+taken here.
 """
 
 from __future__ import annotations
@@ -53,9 +56,8 @@ def main(argv=None) -> None:
     arch = get_arch(args.arch)
     if not args.smoke:
         raise SystemExit(
-            "full-scale training needs the tensor- and FSDP-parallel weight placements "
-            "(ROADMAP A12); run with --smoke for the reduced config (the dry run sizes the "
-            "full-scale cells)")
+            "full-scale training needs a fleet of cards (the placed cells, one rank a card); "
+            "run with --smoke for the reduced config (the dry run sizes the full-scale cells)")
     if arch.family not in ("lm", "recsys"):
         raise SystemExit(f"--smoke training loop not wired for family {arch.family}")
     dev = resolve_device(args.device)

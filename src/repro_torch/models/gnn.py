@@ -43,10 +43,10 @@ import dataclasses
 
 import numpy as np
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 
 from .. import resolve_device
+from ..dist.placed import gather_axes, psum, replicated
 from .common import dense_init, normal
 
 __all__ = [
@@ -286,55 +286,6 @@ def partition_edges_by_dst(
 # ---------------------------------------------------------------------------
 
 
-def _sum_over(t: torch.Tensor, mesh, axes) -> torch.Tensor:
-    """The sum of ``t`` over the ranks along ``axes`` (an all-reduce over
-    each axis in turn); under gloo a CUDA tensor crosses as a host copy."""
-    out = t.contiguous()
-    for a in axes:
-        group = mesh.get_group(a)
-        if dist.get_world_size(group) == 1:
-            continue
-        wire = out.cpu() if out.is_cuda and dist.get_backend(group) == "gloo" else out.clone()
-        dist.all_reduce(wire, op=dist.ReduceOp.SUM, group=group)
-        out = wire.to(t.device)
-    return out
-
-
-class _GatherRows(torch.autograd.Function):
-    """The tiled all-gather of a rank's rows over ``axes`` (row-major
-    rank order); its backward sums the cotangent over the ranks and keeps
-    the rank's own block (a reduce-scatter)."""
-
-    @staticmethod
-    def forward(ctx, x, mesh, axes):
-        from ..dist.sharding import all_gather
-
-        ctx.mesh, ctx.axes, ctx.n = mesh, axes, x.shape[0]
-        return all_gather(x, mesh, axes).flatten(0, 1)
-
-    @staticmethod
-    def backward(ctx, g):
-        from ..dist.sharding import axis_index
-
-        i = axis_index(ctx.mesh, ctx.axes)
-        return _sum_over(g, ctx.mesh, ctx.axes)[i * ctx.n:(i + 1) * ctx.n], None, None
-
-
-class _Replicated(torch.autograd.Function):
-    """A replicated parameter entering a rank's program: the identity, whose
-    backward sums the gradient over the ranks (the transpose of jax's
-    ``P()`` in-spec), so every rank holds the whole gradient."""
-
-    @staticmethod
-    def forward(ctx, p, mesh, axes):
-        ctx.mesh, ctx.axes = mesh, axes
-        return p.view_as(p)
-
-    @staticmethod
-    def backward(ctx, g):
-        return _sum_over(g, ctx.mesh, ctx.axes), None, None
-
-
 def gat_loss_edge_sharded(
     params,
     cfg: GATConfig,
@@ -368,15 +319,15 @@ def gat_loss_edge_sharded(
     h_in = x_loc
     layers = params["layers"]
     for li, lp in enumerate(layers):
-        lp = {k: _Replicated.apply(v, mesh, axes) for k, v in lp.items()}
+        lp = {k: replicated(v, mesh, axes) for k, v in lp.items()}
         last = li == len(layers) - 1
         H = cfg.n_heads
         d_out = lp["w"].shape[1] // H
         hp_loc = (h_in @ lp["w"]).reshape(n_loc, H, d_out)
         if min_side_gather and h_in.shape[1] < H * d_out:
-            h_full = (_GatherRows.apply(h_in, mesh, axes) @ lp["w"]).reshape(-1, H, d_out)
+            h_full = (gather_axes(h_in, mesh, axes, 0) @ lp["w"]).reshape(-1, H, d_out)
         else:
-            h_full = _GatherRows.apply(hp_loc, mesh, axes)  # [N_pad, H, d]
+            h_full = gather_axes(hp_loc, mesh, axes, 0)  # [N_pad, H, d]
         alpha_src = (h_full * lp["a_src"][None]).sum(-1)  # [N_pad, H]
         alpha_dst_loc = (hp_loc * lp["a_dst"][None]).sum(-1)  # [n_loc, H]
         out = _attend(h_full, alpha_src, _take(alpha_dst_loc, edst.clamp(0, n_loc - 1)), esrc,
@@ -388,7 +339,7 @@ def gat_loss_edge_sharded(
     logz = torch.logsumexp(logits, dim=-1)
     mask = mask_loc.float()
     nll_loc = ((logz - _gold(logits, labels_loc.clamp_min(0))) * mask).sum()
-    sums = _sum_over(torch.stack([nll_loc.detach(), mask.sum(),
+    sums = psum(torch.stack([nll_loc.detach(), mask.sum(),
                                   ((logits.argmax(-1) == labels_loc).float() * mask).sum()]),
                      mesh, axes)
     denom = torch.clamp_min(sums[1], 1)

@@ -5,8 +5,12 @@ share — the port of ``repro/models/recsys.py``.
 (``index_select`` and ``index_add_``). Every model keeps one *combined*
 embedding table ([Σ field vocab, dim], per-field offsets), the layout the
 placements row-shard over the ``model`` axis (``dist.sharding.
-recsys_param_specs``); a rank here holds whole tables (``configs/
-base.py``).
+recsys_param_specs``). Inside ``row_split(mesh, tables)`` a lookup into
+one of ``tables`` (a rank's block of rows) is vocab-parallel: the rank
+gathers its rows for the ids in its range and zeros for the rest, the
+partial rows are summed over ``model``, and the backward writes the
+rank's own rows only; a table read whole (SASRec's positions) is
+all-gathered.
 
 Batch conventions (static shapes), the reference's:
 
@@ -31,15 +35,18 @@ sums take torch's deterministic path under
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import math
-from typing import Sequence
+from typing import Iterable, Sequence
 
 import torch
 
 from .common import dense_init, embed_init, layer_norm, mlp_apply, mlp_init, normal
 
 __all__ = [
+    "row_split",
     "embedding_bag",
     "bce_loss",
     "RecsysConfig",
@@ -66,9 +73,50 @@ __all__ = [
 ]
 
 
+#: ``id`` of a table the lookups take as a row block → its mesh
+_ROW_SPLIT: contextvars.ContextVar[dict] = contextvars.ContextVar("row_split", default={})
+
+
+@contextlib.contextmanager
+def row_split(mesh, tables: Iterable[torch.Tensor]):
+    """Within the block, a lookup into one of ``tables`` — each the rank's
+    block of rows of a table split over ``model`` — is vocab-parallel."""
+    token = _ROW_SPLIT.set({id(t): mesh for t in tables})
+    try:
+        yield
+    finally:
+        _ROW_SPLIT.reset(token)
+
+
 def _take(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """``jnp.take(table, ids, axis=0)`` for ids of any shape."""
-    return torch.index_select(table, 0, ids.reshape(-1)).reshape(*ids.shape, *table.shape[1:])
+    mesh = _ROW_SPLIT.get().get(id(table))
+    if mesh is None:
+        return torch.index_select(table, 0, ids.reshape(-1)).reshape(*ids.shape,
+                                                                     *table.shape[1:])
+    from ..dist.placed import reduce_from_model
+    from ..dist.sharding import axis_index
+
+    n = table.shape[0]
+    local = ids.long() - axis_index(mesh, "model") * n
+    inside = (local >= 0) & (local < n)
+    rows = torch.index_select(table, 0, torch.where(inside, local, 0).reshape(-1))
+    # masked and reduced in place (a second lookup-sized buffer would count
+    # in the peak), before the reshape (in place on a view, the backward
+    # would copy the whole base)
+    keep = inside.reshape(-1, *([1] * (table.dim() - 1)))
+    rows = reduce_from_model(rows.masked_fill_(~keep, 0), mesh)
+    return rows.reshape(*ids.shape, *table.shape[1:])
+
+
+def _whole(table: torch.Tensor) -> torch.Tensor:
+    """``table`` whole (a row block under ``row_split`` all-gathered)."""
+    mesh = _ROW_SPLIT.get().get(id(table))
+    if mesh is None:
+        return table
+    from ..dist.placed import gather_from_model
+
+    return gather_from_model(table, mesh, 0)
 
 
 def embedding_bag(
@@ -86,7 +134,7 @@ def embedding_bag(
     L = shape[-1]
     flat = ids.reshape(-1)
     n_bags = flat.shape[0] // L
-    rows = torch.index_select(table, 0, flat)  # [n_bags * L, dim]
+    rows = _take(table, flat)  # [n_bags * L, dim]
     if valid is not None:
         rows = rows * valid.reshape(-1, 1).to(rows.dtype)
     bag = torch.arange(n_bags, dtype=torch.int64, device=ids.device).repeat_interleave(L)
@@ -290,7 +338,7 @@ def sasrec_encode(params, cfg: SASRecConfig, seq: torch.Tensor) -> torch.Tensor:
     H = cfg.n_heads
     D = cfg.embed_dim
     dh = D // H
-    x = _take(params["item_embed"], seq) + params["pos_embed"][None, :S]
+    x = _take(params["item_embed"], seq) + _whole(params["pos_embed"])[None, :S]
     pad = (seq == 0)[..., None]
     x = torch.where(pad, torch.zeros((), dtype=x.dtype, device=x.device), x)
     causal = torch.tril(torch.ones((S, S), dtype=torch.bool, device=seq.device))

@@ -27,9 +27,31 @@
   (``models/moe.py``).
 
 The reference's sharding hints (``shard_hint``, ``jit_weight_gather``)
-are no-ops off a mesh; a rank here holds whole weights. Initialisers draw
-from a ``torch.Generator`` (``jax.random`` bits cannot be reproduced);
-``params_from_jax`` carries the reference's own tree across.
+select nothing. Initialisers draw from a ``torch.Generator``
+(``jax.random`` bits cannot be reproduced); ``params_from_jax`` carries
+the reference's own tree across.
+
+**Placed** (``pl=LMPlacement(...)``; ``configs.base.LMArch``'s
+``weights="placed"``): a rank holds its block of every weight under
+``dist.sharding.lm_param_specs`` and runs the reference's program with
+explicit collectives (``dist/placed.py``). A dimension split over the
+data axes (FSDP) is all-gathered before its use, in the forward and
+again in the backward's recompute, and its gradient reduce-scattered.
+Over ``model``: ``wq/wk/wv/w_gate/w_up`` are column-parallel (a rank's
+heads or hidden slice), ``wo/w_down`` row-parallel with one all-reduce;
+the embedding and the head are vocab-parallel (a lookup masked to the
+rank's rows and all-reduced; the loss's max, log-sum-exp and target
+logit all-reduced); experts are expert-parallel (``models/moe.py``).
+Attention runs on the rank's heads: its block of ``wq``/``wo`` where
+the split falls on whole heads (its KV heads its own block, or selected
+from every KV head where they are fewer than the ranks), else its
+``[h0, h1)`` of ``H`` heads, uneven, from weights gathered over
+``model`` (deepseek-coder-33b's 56 heads on 16 ranks). Decode gathers a
+token's q/k/v heads over ``model`` (the cache splits its sequence there)
+and slices the attention output back to the rank's ``wo`` rows; prefill
+turns its head-split K/V into the cache's sequence split with an
+all-to-all (or, where a rank does not hold whole KV heads, takes its
+sequence block of every head).
 """
 
 from __future__ import annotations
@@ -41,13 +63,14 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from .. import resolve_device
-from ..tree import tree_map
+from ..dist import placed as plc
+from ..tree import tree_leaves_with_path, tree_map
 from .common import (apply_rope, dense_init, embed_init, normal, params_from_jax,
                      params_to_numpy, rms_norm, rope_freqs)
 from .moe import MoEConfig, moe_apply, moe_init
 
-__all__ = ["TransformerConfig", "Transformer", "init_params", "param_structs", "forward",
-           "lm_loss", "decode_step", "init_kv_cache", "attention", "params_from_jax",
+__all__ = ["TransformerConfig", "Transformer", "LMPlacement", "init_params", "param_structs",
+           "forward", "lm_loss", "decode_step", "init_kv_cache", "attention", "params_from_jax",
            "params_to_numpy"]
 
 NEG_INF = -1e30
@@ -239,6 +262,84 @@ def attention(q, k, v, *, causal: bool, q_offset=0, impl: str = "full", chunk: i
 
 
 # ---------------------------------------------------------------------------
+# placement
+# ---------------------------------------------------------------------------
+
+
+class LMPlacement:
+    """What a rank's placed program needs of ``specs`` (``lm_param_specs``
+    over the stacked tree) on ``mesh`` (a ``DeviceMesh``): which layer
+    leaves split over ``model`` on which dimension, the data axes to
+    gather, and how attention's heads fall (module docstring).
+    ``batch_split``: the batch's rows split over the data axes (not in
+    ``long_500k``, whose batch is replicated), so an MoE layer routes
+    the data ranks' tokens as one batch. ``collect_kv``: a prefill, whose
+    cache needs every KV head of the rank's sequence block."""
+
+    def __init__(self, cfg: TransformerConfig, mesh, specs, *, batch_split: bool = True,
+                 collect_kv: bool = False):
+        from ..dist.sharding import axis_index, axis_size, data_axes
+
+        self.cfg, self.mesh = cfg, mesh
+        self.batch_split, self.collect_kv = batch_split, collect_kv
+        self.da = data_axes(mesh)
+        self.nm, self.r = axis_size(mesh, "model"), axis_index(mesh, "model")
+        # layer leaves drop the stacked L dimension
+        self.specs = {k.replace("['layers']", "").replace("']['", "/").strip("[]'"):
+                      tuple(v[1:]) if k.startswith("['layers']") else tuple(v)
+                      for k, v in tree_leaves_with_path(specs)}
+        H, Hk, nm = cfg.n_heads, cfg.n_kv_heads, self.nm
+        G = H // Hk
+        self.q_split, self.kv_split = self.split("wq", 1), self.split("wk", 1)
+        self.o_split = self.split("wo", 0)
+        Hl = H // nm
+        self.heads = (self.q_split and self.o_split and H % nm == 0
+                      and (Hl % G == 0 or G % Hl == 0))
+        # the rank's query heads, even or not, and the KV heads they read
+        self.h0, self.h1 = self.r * H // nm, (self.r + 1) * H // nm
+        self.kv_lo, self.kv_n = self.h0 // G, (self.h1 - 1) // G + 1 - self.h0 // G
+        self.kv_own = self.heads and self.kv_split and Hk % nm == 0
+        self.vocab_split = self.split("embed", 0)
+        self.head_split = (self.vocab_split if cfg.tie_embeddings else self.split("lm_head", 1))
+
+    def split(self, name: str, dim: int) -> bool:
+        """Whether leaf ``name`` (``wq``, ``moe/w_gate``, ``embed``…) splits
+        dimension ``dim`` over ``model``."""
+        spec = self.specs[name]
+        return dim < len(spec) and "model" in plc.spec_axes(spec[dim])
+
+    def w(self, t: torch.Tensor, name: str) -> torch.Tensor:
+        """Leaf ``name``'s block ``t`` with its data-split dimensions
+        gathered (FSDP); its ``model`` split stays."""
+        for d, e in enumerate(self.specs[name]):
+            axes = tuple(a for a in plc.spec_axes(e) if a in self.da)
+            if axes:
+                t = plc.gather_axes(t, self.mesh, axes, d)
+        return t
+
+    def copy(self, x):
+        return plc.copy_to_model(x, self.mesh)
+
+    def reduce(self, x):
+        return plc.reduce_from_model(x, self.mesh)
+
+    def gather(self, x, dim: int = -1):
+        return plc.gather_from_model(x, self.mesh, dim)
+
+    def block(self, lp, name: str, dim: int, lo: int, hi: int) -> torch.Tensor:
+        """``[lo, hi)`` of leaf ``name``'s whole dimension ``dim`` (the
+        rank's uneven heads): the weight gathered over ``model`` where it
+        splits, its gradient summed back over the ranks."""
+        w = self.w(lp[name], name)
+        if self.split(name, dim):
+            w = self.gather(w, dim)
+        return self.copy(w).narrow(dim, lo, hi - lo)
+
+    def vocab_lo(self, V_local: int) -> int:
+        return self.r * V_local
+
+
+# ---------------------------------------------------------------------------
 # layer + forward
 # ---------------------------------------------------------------------------
 
@@ -261,50 +362,161 @@ def _qkv(lp, cfg: TransformerConfig, x, positions, inv_freq):
     return apply_rope(q, positions, inv_freq), apply_rope(k, positions, inv_freq), v
 
 
-def _attn_block(lp, cfg: TransformerConfig, x, positions, inv_freq, kv=None):
+def _proj_whole(pl: LMPlacement, lp, name: str, h):
+    """``h @ lp[name]`` made whole over ``model`` (a split's columns
+    gathered)."""
+    if pl.split(name, 1):
+        return pl.gather(pl.copy(h) @ pl.w(lp[name], name))
+    return h @ pl.w(lp[name], name)
+
+
+def _qkv_placed(lp, cfg: TransformerConfig, x, positions, inv_freq, pl: LMPlacement,
+                whole: bool = False):
+    """The placed q/k/v: every head (``whole``: decode), the rank's heads
+    where the split falls on whole heads (``pl.heads``), else the rank's
+    ``[h0, h1)`` of them from the gathered weights, each with its own copy
+    of the KV head it reads."""
+    B, S, _ = x.shape
+    H, Hk, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    h = rms_norm(x, lp["attn_norm"])
+    if whole:
+        q, k, v = (_proj_whole(pl, lp, n, h).reshape(B, S, -1, dh) for n in ("wq", "wk", "wv"))
+        qn, kn = (lp.get("q_norm"), lp.get("k_norm"))
+    else:
+        hc = pl.copy(h)
+        if pl.heads:
+            q = (hc @ pl.w(lp["wq"], "wq")).reshape(B, S, H // pl.nm, dh)
+        else:
+            q = (hc @ pl.block(lp, "wq", 1, pl.h0 * dh, pl.h1 * dh)).reshape(B, S, -1, dh)
+        if pl.kv_own:
+            k, v = ((hc @ pl.w(lp[n], n)).reshape(B, S, -1, dh) for n in ("wk", "wv"))
+        elif pl.heads:  # every KV head, then the ones the rank's query heads read
+            k, v = (pl.copy(_proj_whole(pl, lp, n, h).reshape(B, S, Hk, dh))
+                    [:, :, pl.kv_lo:pl.kv_lo + pl.kv_n] for n in ("wk", "wv"))
+        else:  # the KV heads the rank's query heads read, one a query head
+            lo, hi = pl.kv_lo * dh, (pl.kv_lo + pl.kv_n) * dh
+            sel = torch.arange(pl.h0, pl.h1, device=x.device) // (H // Hk) - pl.kv_lo
+            k, v = ((hc @ pl.block(lp, n, 1, lo, hi)).reshape(B, S, -1, dh)[:, :, sel]
+                    for n in ("wk", "wv"))
+        qn, kn = ((pl.copy(lp[n]) if cfg.qk_norm else None) for n in ("q_norm", "k_norm"))
+    if cfg.qk_norm:
+        q, k = rms_norm(q, qn), rms_norm(k, kn)
+    return apply_rope(q, positions, inv_freq), apply_rope(k, positions, inv_freq), v
+
+
+def _kv_whole(lp, cfg: TransformerConfig, x, positions, inv_freq, pl: LMPlacement):
+    """Every KV head of ``x``'s positions (the prefill cache where the
+    rank's query heads fall off whole heads; no gradient)."""
+    B, S, _ = x.shape
+    h = rms_norm(x, lp["attn_norm"])
+    k, v = (_proj_whole(pl, lp, n, h).reshape(B, S, -1, cfg.head_dim) for n in ("wk", "wv"))
+    if cfg.qk_norm:
+        k = rms_norm(k, lp["k_norm"])
+    return apply_rope(k, positions, inv_freq), v
+
+
+def _wo_placed(lp, out, pl: LMPlacement, whole: bool = False):
+    """The row-parallel ``wo`` over the attention output ``out``: [B, S,
+    H·dh] (``whole``: the rank's columns of it), or the rank's heads
+    (``pl.heads``: its rows of ``wo``; else its ``[h0, h1)`` rows of the
+    gathered ``wo``)."""
+    if whole:
+        w = pl.w(lp["wo"], "wo")
+        if not pl.o_split:
+            return out @ w
+        c = w.shape[0]
+        return pl.reduce(pl.copy(out)[..., pl.r * c:(pl.r + 1) * c] @ w)
+    if pl.heads:
+        return pl.reduce(out @ pl.w(lp["wo"], "wo"))
+    dh = out.shape[-1] // (pl.h1 - pl.h0)
+    return pl.reduce(out @ pl.block(lp, "wo", 0, pl.h0 * dh, pl.h1 * dh))
+
+
+def _attn_block(lp, cfg: TransformerConfig, x, positions, inv_freq, kv=None, pl=None):
     """One attention block. kv=None → self-attention over x (training,
     prefill); kv(q, k, v) → (out, new_kv) attends elsewhere (decode)."""
     B, S, _ = x.shape
-    q, k, v = _qkv(lp, cfg, x, positions, inv_freq)
+    if pl is None:
+        q, k, v = _qkv(lp, cfg, x, positions, inv_freq)
+    else:
+        q, k, v = _qkv_placed(lp, cfg, x, positions, inv_freq, pl, whole=kv is not None)
     if kv is None:
         out = attention(q, k, v, causal=True, q_offset=0, impl=cfg.attention_impl,
                         chunk=cfg.attention_chunk)
         new_kv = (k, v)
+        if pl is not None and pl.collect_kv and not pl.kv_own:  # the cache: every KV head
+            new_kv = _kv_whole(lp, cfg, x, positions, inv_freq, pl)
     else:
         out, new_kv = kv(q, k, v)
-    return out.reshape(B, S, cfg.n_heads * cfg.head_dim) @ lp["wo"], new_kv
+    out = out.reshape(B, S, -1)
+    if pl is None:
+        return out @ lp["wo"], new_kv
+    return _wo_placed(lp, out, pl, whole=kv is not None), new_kv
 
 
-def _ffn_block(lp, cfg: TransformerConfig, x):
+def _ffn_block(lp, cfg: TransformerConfig, x, pl=None):
     h = rms_norm(x, lp["ffn_norm"])
     if cfg.moe is None:
-        y = F.silu(h @ lp["w_gate"]) * (h @ lp["w_up"])
-        return y @ lp["w_down"], torch.zeros((), dtype=torch.float32, device=x.device)
+        if pl is None:
+            y = F.silu(h @ lp["w_gate"]) * (h @ lp["w_up"])
+            return y @ lp["w_down"], torch.zeros((), dtype=torch.float32, device=x.device)
+        split = pl.split("w_gate", 1)
+        hc = pl.copy(h) if split else h
+        y = F.silu(hc @ pl.w(lp["w_gate"], "w_gate")) * (hc @ pl.w(lp["w_up"], "w_up"))
+        y = y @ pl.w(lp["w_down"], "w_down")
+        return (pl.reduce(y) if split else y), torch.zeros((), dtype=torch.float32,
+                                                            device=x.device)
     B, S, D = h.shape
-    y, aux = moe_apply(lp["moe"], cfg.moe, h.reshape(B * S, D))
+    y, aux = moe_apply(lp["moe"], cfg.moe, h.reshape(B * S, D), pl=pl)
     return y.reshape(B, S, D), aux["load_balance_loss"]
 
 
-def _layer(lp, cfg: TransformerConfig, x, positions, inv_freq):
-    a, (k, v) = _attn_block(lp, cfg, x, positions, inv_freq)
+def _layer(lp, cfg: TransformerConfig, x, positions, inv_freq, pl=None):
+    a, (k, v) = _attn_block(lp, cfg, x, positions, inv_freq, pl=pl)
     x = x + a
-    f, aux = _ffn_block(lp, cfg, x)
+    f, aux = _ffn_block(lp, cfg, x, pl)
     return x + f, aux, k, v
 
 
-def _head(params, x):
+def _embed(params, tokens, pl=None):
+    """The token rows; placed: vocab-parallel (the rank's rows, the rest
+    zeros, all-reduced over ``model``)."""
+    if pl is None:
+        return params["embed"][tokens]
+    table = pl.w(params["embed"], "embed")
+    if not pl.vocab_split:
+        return table[tokens]
+    Vl = table.shape[0]
+    ids = tokens.long() - pl.vocab_lo(Vl)
+    inside = (ids >= 0) & (ids < Vl)
+    rows = table[torch.where(inside, ids, 0)]
+    return pl.reduce(rows.masked_fill_(~inside[..., None], 0))
+
+
+def _head(params, x, pl=None):
+    """The logits; placed: the rank's vocab block where the head splits
+    it (``pl.head_split``), else every logit."""
     head = params.get("lm_head")
-    return x @ head if head is not None else x @ params["embed"].T
+    if pl is None:
+        return x @ head if head is not None else x @ params["embed"].T
+    xc = pl.copy(x) if pl.head_split else x
+    if head is not None:
+        return xc @ pl.w(head, "lm_head")
+    return xc @ pl.w(params["embed"], "embed").T
 
 
-def forward(params, cfg: TransformerConfig, tokens: torch.Tensor, *, collect_kv: bool = False):
+def forward(params, cfg: TransformerConfig, tokens: torch.Tensor, *, collect_kv: bool = False,
+            pl: LMPlacement | None = None):
     """tokens [B, S] → (logits [B, S, V], aux dict). Training/prefill path.
 
     collect_kv=True additionally returns the per-layer K/V stacks —
-    the prefill path's KV-cache product ([L, B, S, Hk, dh])."""
+    the prefill path's KV-cache product ([L, B, S, Hk, dh]; placed: the
+    rank's block of the cache's sequence split, [L, B, S/model, Hk,
+    dh]). ``pl``: the rank's placed program on its blocks (its logits are
+    its vocab block where the head splits it)."""
     B, S = tokens.shape
     dev = tokens.device
-    x = params["embed"][tokens]
+    x = _embed(params, tokens, pl)
     positions = torch.arange(S, device=dev)[None, :]
     inv_freq = rope_freqs(cfg.head_dim, cfg.rope_theta, device=dev)
     remat = cfg.remat and torch.is_grad_enabled()
@@ -312,12 +524,14 @@ def forward(params, cfg: TransformerConfig, tokens: torch.Tensor, *, collect_kv:
     for i in range(params["layers"]["wq"].shape[0]):
         lp = _layer_params(params["layers"], i)
         if remat:  # recompute the layer in the backward pass
-            x, aux, k, v = checkpoint(_layer, lp, cfg, x, positions, inv_freq,
+            x, aux, k, v = checkpoint(_layer, lp, cfg, x, positions, inv_freq, pl,
                                       use_reentrant=False)
         else:
-            x, aux, k, v = _layer(lp, cfg, x, positions, inv_freq)
+            x, aux, k, v = _layer(lp, cfg, x, positions, inv_freq, pl)
         auxes.append(aux)
         if collect_kv:
+            if pl is not None:
+                k, v = _cache_block(k, v, cfg, pl)
             ks.append(k)
             vs.append(v)
         del k, v
@@ -325,18 +539,42 @@ def forward(params, cfg: TransformerConfig, tokens: torch.Tensor, *, collect_kv:
     if collect_kv:
         aux["kv_cache"] = {"k": torch.stack(ks), "v": torch.stack(vs)}
         del ks, vs
-    logits = _head(params, rms_norm(x, params["final_norm"]))
+    logits = _head(params, rms_norm(x, params["final_norm"]), pl)
     return logits, aux
 
 
-def lm_loss(params, cfg: TransformerConfig, tokens, labels):
-    """Next-token cross entropy with z-loss; labels -100 are masked."""
-    logits, aux = forward(params, cfg, tokens)
+def _cache_block(k, v, cfg: TransformerConfig, pl: LMPlacement):
+    """A layer's K/V [B, S, ·, dh] → the rank's block of the cache's
+    sequence split over ``model`` with every KV head: an all-to-all of
+    the rank's heads, or a slice where every head is held."""
+    S = k.shape[1]
+    if pl.kv_own:  # the rank's KV heads
+        return (plc.all_to_all_model(k.detach(), pl.mesh, 1, 2),
+                plc.all_to_all_model(v.detach(), pl.mesh, 1, 2))
+    m = S // pl.nm  # copies: a view would keep the whole sequence alive
+    return k[:, pl.r * m:(pl.r + 1) * m].clone(), v[:, pl.r * m:(pl.r + 1) * m].clone()
+
+
+def lm_loss(params, cfg: TransformerConfig, tokens, labels, pl: LMPlacement | None = None):
+    """Next-token cross entropy with z-loss; labels -100 are masked.
+    Placed with a vocab-split head: the max, the log-sum-exp and the
+    target logit all-reduced over ``model`` (the rank that holds a label
+    gives its logit)."""
+    logits, aux = forward(params, cfg, tokens, pl=pl)
     logits = logits.float()
     mask = labels >= 0
     labels_safe = torch.clamp_min(labels, 0).long()  # int32 labels, as the cells' structs
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.take_along_dim(logits, labels_safe[..., None], dim=-1)[..., 0]
+    if pl is not None and pl.head_split:
+        Vl = logits.shape[-1]
+        m = plc.max_over_model(logits.detach().amax(dim=-1), pl.mesh)
+        logz = m + torch.log(pl.reduce(torch.exp(logits - m[..., None]).sum(dim=-1)))
+        ids = labels_safe - pl.vocab_lo(Vl)
+        inside = (ids >= 0) & (ids < Vl)
+        gold = torch.take_along_dim(logits, torch.where(inside, ids, 0)[..., None], dim=-1)[..., 0]
+        gold = pl.reduce(torch.where(inside, gold, 0.0))
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.take_along_dim(logits, labels_safe[..., None], dim=-1)[..., 0]
     nll = (logz - gold) * mask
     z = cfg.z_loss * (logz ** 2) * mask
     denom = torch.clamp_min(mask.sum(), 1)
@@ -362,7 +600,7 @@ def init_kv_cache(cfg: TransformerConfig, batch: int, max_len: int, dtype=None, 
 
 
 def decode_step(params, cfg: TransformerConfig, cache, tokens, lengths, attn_fn=None, *,
-                seq_start: int = 0, seq_len: int | None = None):
+                seq_start: int = 0, seq_len: int | None = None, pl: LMPlacement | None = None):
     """One decode step.
 
     tokens [B, 1] new token ids; lengths [B] current cache fill (the new
@@ -373,27 +611,33 @@ def decode_step(params, cfg: TransformerConfig, cache, tokens, lengths, attn_fn=
     local masked-softmax reference. A sharded cache holds the global
     positions ``[seq_start, seq_start + S_local)`` of a ``seq_len``-slot
     sequence (default: the whole of it), and a rank writes the new token
-    only where its slice holds the position.
+    only where its slice holds the position. ``pl``: the placed program
+    (every head of the token gathered over ``model`` before the cache
+    write and the attention, the output's columns back to the rank's
+    ``wo`` rows).
     """
     B = tokens.shape[0]
     H, dh = cfg.n_heads, cfg.head_dim
-    x = params["embed"][tokens]  # [B, 1, D]
+    x = _embed(params, tokens, pl)  # [B, 1, D]
     inv_freq = rope_freqs(cfg.head_dim, cfg.rope_theta, device=tokens.device)
     positions = lengths[:, None]
     attn_impl = attn_fn or _decode_attention_ref
     for i in range(params["layers"]["wq"].shape[0]):
         lp = _layer_params(params["layers"], i)
         kc, vc = cache["k"][i], cache["v"][i]
-        q, k, v = _qkv(lp, cfg, x, positions, inv_freq)
+        if pl is None:
+            q, k, v = _qkv(lp, cfg, x, positions, inv_freq)
+        else:
+            q, k, v = _qkv_placed(lp, cfg, x, positions, inv_freq, pl, whole=True)
         # write the new kv at position `lengths` (per-batch dynamic index)
         _cache_write(kc, k, lengths, start=seq_start, total=seq_len)
         _cache_write(vc, v, lengths, start=seq_start, total=seq_len)
-        a = attn_impl(q, kc, vc, lengths + 1)
-        x = x + a.reshape(B, 1, H * dh) @ lp["wo"]
-        f, _ = _ffn_block(lp, cfg, x)
+        a = attn_impl(q, kc, vc, lengths + 1).reshape(B, 1, H * dh)
+        x = x + (a @ lp["wo"] if pl is None else _wo_placed(lp, a, pl, whole=True))
+        f, _ = _ffn_block(lp, cfg, x, pl)
         x = x + f
     x = rms_norm(x, params["final_norm"])
-    return _head(params, x[:, 0, :]), cache
+    return _head(params, x[:, 0, :], pl), cache
 
 
 def _cache_write(cache, kv_new, lengths, *, start: int = 0, total: int | None = None):

@@ -4,7 +4,10 @@ the reference's per-device shapes (subprocesses with 512 forced jax
 devices, ``tests/torch_configs_cases.py``: the retrieval cells, and the
 LM cells with their outputs from ``jax.eval_shape``), its ``OK`` lines
 (no ``SKIP``: every id is ported), and no jax in the process that ran
-it. The GNN and RecSys records are held to the reference in
+it; the temporaries every record counts (C6: each cell's step traced on
+fake tensors in a fake process group, ``launch/dryrun.py``), a
+hand-counted toy step's, and the LM traces' cut depth against a full
+one. The GNN and RecSys records are held to the reference in
 ``tests/test_torch_family_cells.py``."""
 
 import json
@@ -32,7 +35,7 @@ _RUN = (
 
 def dryrun(*args, cwd):
     return subprocess.run([sys.executable, "-c", _RUN, *args], cwd=cwd, capture_output=True,
-                          text=True, timeout=300,
+                          text=True, timeout=600,
                           env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"})
 
 
@@ -75,14 +78,14 @@ def test_records_equal_the_parity_numbers(full_run, reference, arch_id, mesh_tag
         mem = rec["memory"]
         assert mem["argument_bytes"] == device_bytes(want["inputs"])
         assert mem["output_bytes"] == device_bytes(want["outputs"])
-        assert mem["peak_device_bytes"] == mem["argument_bytes"] + mem["output_bytes"]
-        for k in ("temp_bytes", "alias_bytes"):
-            assert mem[k] is None
+        assert mem["peak_device_bytes"] == (mem["argument_bytes"] + mem["output_bytes"]
+                                            + mem["temp_bytes"] - mem["alias_bytes"])
+        assert mem["temp_bytes"] > 0 and mem["alias_bytes"] == 0
         for k in ("lower_s", "compile_s"):
             assert rec[k] is None
         cost = rec["cost"]
         assert cost["device_flops"] == want["model_flops"] / want["n_chips"]
-        assert cost["device_bytes"] == mem["peak_device_bytes"]
+        assert cost["device_bytes"] == mem["argument_bytes"] + mem["output_bytes"]
         assert cost["xla_cost_analysis_flops_unscaled"] is None
         assert cost["xla_cost_analysis_bytes_unscaled"] is None
         coll = rec["collectives"]
@@ -127,13 +130,91 @@ def test_unported_and_unknown_ids_fail(tmp_path):
 
 
 def test_per_device_bytes_fit_the_card(full_run):
-    """Every production cell fits one H100's 80 GB per device (the dry
-    run's point: the placement works at the real corpus)."""
+    """Every production cell fits one H100's 80 GB per device, its
+    temporaries counted (the dry run's point: the placement works at the
+    real corpus)."""
     _, records = full_run
     peaks = [json.loads(p.read_text())["memory"]["peak_device_bytes"]
              for p in records.rglob("*.json")]
     assert len(peaks) == 92 and max(peaks) < 80e9
     assert np.all(np.asarray(peaks) > 0)
+
+
+def test_every_record_counts_its_temporaries(full_run):
+    """All 92 records carry ``temp_bytes`` > 0 and ``alias_bytes`` ≥ 0 from
+    the traced step, and the peak is arguments + outputs + temp − alias
+    (the reference's formula); the XLA-only keys stay null."""
+    _, records = full_run
+    recs = [json.loads(p.read_text()) for p in records.rglob("*.json")]
+    assert len(recs) == 92
+    for rec in recs:
+        mem, tag = rec["memory"], (rec["arch"], rec["shape"], rec["mesh"])
+        assert isinstance(mem["temp_bytes"], int) and mem["temp_bytes"] > 0, tag
+        assert isinstance(mem["alias_bytes"], int) and 0 <= mem["alias_bytes"], tag
+        assert mem["alias_bytes"] <= min(mem["argument_bytes"], mem["output_bytes"]), tag
+        assert mem["peak_device_bytes"] == (mem["argument_bytes"] + mem["output_bytes"]
+                                            + mem["temp_bytes"] - mem["alias_bytes"]), tag
+        assert rec["lower_s"] is None and rec["compile_s"] is None
+        assert rec["cost"]["xla_cost_analysis_flops_unscaled"] is None
+
+
+def test_step_memory_counts_a_hand_counted_step():
+    """``step_memory`` on a toy step whose buffers are counted by hand: a
+    [256, 64] f32 argument (64 KiB); ``y = 2x`` and ``z = y + 1`` are
+    alive together (128 KiB above the argument), ``y`` is freed, ``z``
+    returned (64 KiB out, 64 KiB temporary); an in-place step returns its
+    argument (64 KiB aliased, nothing new). Run as the dry run runs it:
+    fake tensors in a fake process group."""
+    import torch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch.dryrun import fake_mesh, step_memory
+    from repro_torch.launch.mesh import MeshShape
+
+    def step(x):
+        y = x * 2
+        z = y + 1
+        del y
+        return z
+
+    def in_place(x):
+        return x.add_(1)
+
+    with fake_mesh(MeshShape((2, 2), ("data", "model"))), FakeTensorMode():
+        x = torch.empty(256, 64)
+        kib = 1024
+        assert step_memory(step, x) == {"peak_new": 128 * kib, "arg_bytes": 64 * kib,
+                                        "alias_bytes": 0, "out_bytes": 64 * kib}
+        assert step_memory(in_place, x) == {"peak_new": 0, "arg_bytes": 64 * kib,
+                                            "alias_bytes": 64 * kib, "out_bytes": 64 * kib}
+
+
+@pytest.mark.parametrize("arch_id,shape", [("olmoe-1b-7b", "train_4k"),
+                                           ("deepseek-coder-33b", "prefill_32k"),
+                                           ("kimi-k2-1t-a32b", "decode_32k")])
+def test_lm_trace_depth_cut_equals_a_full_trace(arch_id, shape):
+    """An LM cell's traced peak above its arguments, extended linearly from
+    ``LM_TRACE_DEPTHS`` to five layers, equals the five-layer trace (MoE
+    routing and capacity, uneven heads with gathered weights, decode with
+    FSDP), within a few bytes a layer (an MoE layer's scalars)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import production_mesh_shape
+
+    mesh = production_mesh_shape()
+    arch = get_arch(arch_id)
+    five = dataclasses.replace(arch, cfg=dataclasses.replace(arch.cfg, n_layers=5),
+                               decode_fsdp=not arch.tp_fits(mesh))
+    got = dryrun.trace_memory(five, shape, mesh)
+    cut = dataclasses.replace(five, microbatches=dryrun.LM_TRACE_MICROBATCHES)
+    B = None
+    if shape == "train_4k":  # the same microbatch rows as the cut's
+        B = 256 * dryrun.LM_TRACE_MICROBATCHES // arch.microbatches
+    want = dryrun._traced(cut, shape, mesh, weights="placed", global_batch=B)
+    assert abs(got["peak_new"] - want["peak_new"]) <= 64, (got, want)
+    assert got["alias_bytes"] == want["alias_bytes"]
 
 
 @pytest.fixture(scope="module")
@@ -159,10 +240,16 @@ def test_lm_records_equal_the_reference_per_device_bytes(full_run, reference_lm,
         mem = rec["memory"]
         assert mem["argument_bytes"] == device_bytes(want["inputs"]), shape
         assert mem["output_bytes"] == device_bytes(want["outputs"]), shape
-        assert mem["peak_device_bytes"] == mem["argument_bytes"] + mem["output_bytes"]
+        assert mem["peak_device_bytes"] == (mem["argument_bytes"] + mem["output_bytes"]
+                                            + mem["temp_bytes"] - mem["alias_bytes"])
+        # decode writes its cache in place: the cache is the aliased output
+        if want["kind"] == "decode":
+            assert mem["alias_bytes"] == rec["meta"]["kv_bytes"] // rec["n_chips"], shape
+        else:
+            assert mem["alias_bytes"] == 0, shape
         cost = rec["cost"]
         assert cost["device_flops"] == want["model_flops"] / want["n_chips"]
-        assert cost["device_bytes"] == mem["peak_device_bytes"]
+        assert cost["device_bytes"] == mem["argument_bytes"] + mem["output_bytes"]
         for k, v in want["meta"].items():
             assert rec["meta"][k] == v, (shape, k)
         coll = rec["collectives"]

@@ -20,7 +20,10 @@ the reference's, on the CPU.
   ``--arch gat-cora --smoke`` exits with the reference's message; the
   runner replays a RecSys fault bit for bit (a step's batch is drawn at
   ``(seed, step)``).
-* ``weights="placed"`` raises naming ROADMAP A12.
+* ``weights="placed"``: every cell builds with the whole-weight cell's
+  counts (its step raises on a ``MeshShape``); DeepFM's and SASRec's
+  cells with their tables' rows split over ``model`` on a (2, 2) gloo
+  mesh equal one process's run.
 """
 
 import json
@@ -30,8 +33,9 @@ import pytest
 import torch
 from torch_cases import one_intra_op_thread  # noqa: F401 — autouse fixture
 from torch_configs_cases import MESHES, _record, device_bytes, reference_lm_cells
-from torch_family_cases import (REC_BATCH, REC_CANDIDATES, mini_cells_rank, one_process,
-                                rec_arch)
+from torch_family_cases import (PLACED_REC, PLACED_REC_STEPS, REC_BATCH, REC_CANDIDATES,
+                                mini_cells_rank, one_process, placed_rec_inputs,
+                                placed_rec_one_process, placed_rec_rank, rec_arch)
 
 from repro_torch.configs import get_arch
 from repro_torch.dist import sharding as shd
@@ -195,10 +199,76 @@ def test_runner_replays_a_recsys_fault_bit_for_bit(tmp_path):
 
 
 def test_placed_weights_raise_naming_a12():
+    """Every cell builds with ``weights="placed"`` (the placements run,
+    not raise) and sizes as the whole-weight cell; on a ``MeshShape`` its
+    step raises (shapes only) rather than falling back; an unknown
+    ``weights`` raises."""
     mesh = production_mesh_shape()
-    for arch_id, shape in (("gat-cora", "molecule"), ("din", "serve_p99")):
-        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-            get_arch(arch_id).build_cell(shape, mesh, weights="placed")
+    for arch_id in FAMILY_IDS:
+        arch = get_arch(arch_id)
+        for shape in arch.shape_names:
+            placed = arch.build_cell(shape, mesh, weights="placed")
+            whole = arch.build_cell(shape, mesh)
+            assert placed.meta == whole.meta, (arch_id, shape)
+            with pytest.raises(ValueError, match="shapes only"):
+                placed.fn(None, {})
+    with pytest.raises(ValueError, match="weights='sharded'"):
+        get_arch("din").build_cell("serve_p99", mesh, weights="sharded")
     with pytest.raises(ValueError, match="shapes only"):
         get_arch("deepfm").build_cell("serve_p99", mesh).fn(None, {})
     assert shd.recsys_batch_spec("din", mesh)["target"] == shd.P(("data",))
+
+
+#: placed (2, 2) against one process (f32): losses and grad norms (rtol),
+#: every parameter and optimizer leaf (within ``REL`` of the leaf's largest
+#: entry, or ``FLOOR`` of the tree's, as the whole-weight test), outputs.
+#: A lookup's partial rows are summed over ``model`` (one nonzero term a
+#: row: exact); the rest is the data ranks' gradient mean.
+PLACED_REL = 1e-5
+
+
+def test_placed_deepfm_and_sasrec_on_four_gloo_ranks_equal_one_process(tmp_path):
+    """DeepFM's and SASRec's ``train_batch`` (two steps), ``serve_p99`` and
+    ``retrieval_cand`` cells placed on a (2, 2) gloo mesh — every
+    ``embed*`` table and DeepFM's ``linear`` row-split over ``model``
+    (SASRec's 12 positions too, read whole through an all-gather) — equal
+    one process's run on the whole arrays."""
+    spawn_ranks(placed_rec_rank, 4, str(tmp_path), backend="gloo",
+                init_file=tmp_path / "init", timeout_s=240)
+    ranks = [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(4)]
+    want = placed_rec_one_process()
+    mesh = MeshShape((2, 2), ("data", "model"))
+    for a in PLACED_REC:
+        arch = placed_rec_inputs(a)[0]
+        pspecs = shd.recsys_param_specs(a, arch.abstract_params(), mesh)
+        from repro_torch.configs import base
+        from repro_torch.tree import tree_leaves_with_path
+
+        specs = {"params": pspecs, "opt": base._state_specs(pspecs, arch.abstract_params(),
+                                                            arch.optimizer)["opt"]}
+        top = max(float(np.abs(v).max()) for k, v in want.items() if k.startswith(f"{a}/state"))
+        for k, spec in tree_leaves_with_path(specs):
+            w = want[f"{a}/state{k}"]
+            split = [i for i, e in enumerate(spec) if e is not None]
+            for r, got in enumerate(ranks):
+                g = got[f"{a}/state{k}"]
+                if split:  # the rank's row block
+                    n = g.shape[0]
+                    w_r = w[(r % 2) * n:(r % 2 + 1) * n]
+                else:
+                    w_r = w
+                scale = max(float(np.abs(w_r).max()), FLOOR * top)
+                assert float(np.abs(g - w_r).max()) <= PLACED_REL * scale, (a, k, r)
+        for t in range(PLACED_REC_STEPS):
+            for m in ("loss", "grad_norm", "lr"):
+                for got in ranks:
+                    np.testing.assert_allclose(got[f"{a}/metrics{t}['{m}']"],
+                                               want[f"{a}/metrics{t}['{m}']"], rtol=PLACED_REL,
+                                               err_msg=(a, m, t))
+        d, b, c = None, REC_BATCH // 2, REC_CANDIDATES // 4
+        for r, got in enumerate(ranks):
+            d = r // 2
+            np.testing.assert_allclose(got[f"{a}/serve"], want[f"{a}/serve"][d * b:(d + 1) * b],
+                                       rtol=PLACED_REL, atol=1e-6, err_msg=a)
+            np.testing.assert_allclose(got[f"{a}/cand"], want[f"{a}/cand"][..., r * c:(r + 1) * c],
+                                       rtol=PLACED_REL, atol=1e-6, err_msg=a)

@@ -1999,3 +1999,102 @@ def test_lm_train_cli_on_the_card(cuda, capsys, tmp_path):
                 "2", "--checkpoint-dir", str(tmp_path)])
     line = capsys.readouterr().out.strip().splitlines()[-1]
     assert line.startswith("trained kimi-k2-1t-a32b 4 steps") and "restarts=0" in line
+
+
+# ---------------------------------------------------------------------------
+# C7, the placed cells at world 1, the GNN and RecSys families
+# (chip_smoke.py phases 14 and 15 at a small size)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("top_k", [1, 2, 8])
+def test_moe_combine_repeats_its_bits_on_the_card(cuda, top_k):
+    """C7: an MoE layer in bf16 (8 experts, tight capacity: pairs drop)
+    five times on the card without deterministic algorithms — the output
+    and the input gradient the same bits each run; the slot-order combine
+    on the card from the card's expert outputs equals the CPU's bits,
+    forward and backward."""
+    from repro_torch.models import moe
+
+    assert not torch.are_deterministic_algorithms_enabled()
+    cfg = moe.MoEConfig(n_experts=8, top_k=top_k, d_model=64, d_ff=96, capacity_factor=0.75)
+    p = {k: v.to(cuda) for k, v in moe.moe_init(torch.Generator().manual_seed(top_k), cfg,
+                                                dtype=torch.bfloat16, device="cpu").items()}
+    x0 = torch.from_numpy(np.random.default_rng(top_k).standard_normal((2048, 64)).astype(
+        np.float32)).to(torch.bfloat16).to(cuda)
+    runs = []
+    for _ in range(5):
+        x = x0.clone().requires_grad_(True)
+        y, _ = moe.moe_apply(p, cfg, x)
+        (y.float() * torch.linspace(-1, 1, 64, device=cuda)).sum().backward()
+        runs.append((y.detach(), x.grad))
+    for y, g in runs[1:]:
+        assert torch.equal(y, runs[0][0]) and torch.equal(g, runs[0][1])
+    with torch.no_grad():
+        _, gate_w, idx = moe._route(p, cfg, x0)
+        tok, w, slot_map = moe._dispatch_slots(idx, gate_w, cfg)
+        E, C = cfg.n_experts, moe._capacity(2048, cfg)
+        ye = moe._swiglu(moe._take_rows(x0, tok).reshape(E, C, -1), p["w_gate"], p["w_up"],
+                         p["w_down"])
+        contrib = ye.reshape(E * C, -1) * w[:, None].to(ye.dtype)
+    sides = []
+    for d in (cuda, torch.device("cpu")):
+        c = contrib.to(d).clone().requires_grad_(True)
+        yc = moe._Combine.apply(c, slot_map.to(d), tok.to(d))
+        (yc.float() * torch.linspace(-1, 1, 64, device=d)).sum().backward()
+        sides.append((yc.detach().cpu(), c.grad.cpu()))
+    assert torch.equal(sides[0][0], sides[1][0]) and torch.equal(sides[0][1], sides[1][1])
+
+
+def test_lm_placed_cells_nccl_world_1(cuda, tmp_path):
+    """The mini LMs' four cells with ``weights="placed"`` on one NCCL rank
+    (every collective on a group of one) against one process's
+    whole-weight run on the CPU (f32, TF32 off: losses rtol 1e-4, state
+    atol 1e-5, logits and caches atol 1e-4)."""
+    from torch_lm_cases import check_placed_ranks, placed_cases, placed_cells_ranks
+
+    from repro_torch.launch.mesh import spawn_ranks
+
+    cases = placed_cases()
+    toks = np.random.default_rng(11).integers(0, 128, (4, 16)).astype(np.int32)
+    spawn_ranks(placed_cells_ranks, 1, str(tmp_path), cases, toks, (1, 1), "cuda",
+                backend="nccl", init_file=tmp_path / "init", timeout_s=300)
+    check_placed_ranks([dict(np.load(tmp_path / "rank0.npz"))], cases, toks, (1, 1), rtol=1e-4,
+                       state_atol=1e-5, atol=1e-4)
+
+
+def test_recsys_placed_cells_nccl_world_1(cuda, tmp_path):
+    """DeepFM's and SASRec's placed ``train_batch``, ``serve_p99`` and
+    ``retrieval_cand`` on one NCCL rank against one process on the CPU
+    (f32, TF32 off: rtol 1e-4 of each leaf's scale)."""
+    from torch_family_cases import PLACED_REC, placed_rec_one_process, placed_rec_rank
+
+    from repro_torch.launch.mesh import spawn_ranks
+
+    spawn_ranks(placed_rec_rank, 1, str(tmp_path), (1, 1), "cuda", backend="nccl",
+                init_file=tmp_path / "init", timeout_s=300)
+    got = dict(np.load(tmp_path / "rank0.npz"))
+    want = placed_rec_one_process()
+    assert sorted(got) == sorted(want)
+    for a in PLACED_REC:
+        top = max(float(np.abs(v).max()) for k, v in want.items() if k.startswith(f"{a}/state"))
+        for k, v in want.items():
+            if k.startswith(a):
+                scale = max(float(np.abs(v).max()), 1e-2 * top)
+                assert float(np.abs(got[k] - v).max()) <= 1e-4 * scale, k
+
+
+@pytest.mark.parametrize("arch_id", ["gat-cora", "deepfm", "dcn-v2", "sasrec", "din"])
+def test_family_smoke_on_the_card_matches_the_cpu(cuda, arch_id):
+    """Each GNN and RecSys config's ``smoke()`` (GAT: three train steps and
+    the sampler; RecSys: a train step) on the card and on the CPU from the
+    same weights and batches: losses rtol 1e-4 (f32, TF32 off)."""
+    from repro_torch.configs import get_arch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = get_arch(arch_id).smoke(0, device=cuda)
+    cpu = get_arch(arch_id).smoke(0, device="cpu")
+    assert card["device"] == "cuda"
+    key = "losses" if arch_id == "gat-cora" else "loss"
+    np.testing.assert_allclose(card[key], cpu[key], rtol=1e-4)
+

@@ -7,8 +7,11 @@ against the reference: ``tests/test_torch_lm.py``).
   four gloo ranks against one process's decode (atol 1e-5: flash
   decoding sums in another order); the in-place cache write.
 * Two steps of the ``train_4k`` cell at the smoke width on a one-rank
-  gloo mesh against the reference's cell on a ``(1, 1)`` mesh; the cell
-  switches; ``hlo_stats.lm_collectives`` recomputed by hand.
+  gloo mesh against the reference's cell on a ``(1, 1)`` mesh, with whole
+  and with placed weights; the cell switches; ``hlo_stats.
+  lm_collectives`` recomputed by hand.
+* The mini LMs' four cells with ``weights="placed"`` on a (2, 2) gloo
+  mesh against one process (``torch_lm_cases.check_placed_ranks``).
 * ``smoke()``, the train CLI (``launch/train.py``), the port's copies of
   the reference's model invariants (``tests/test_models.py``), no jax on
   import.
@@ -29,8 +32,9 @@ import torch
 import torch.distributed as dist
 from torch_cases import one_intra_op_thread  # noqa: F401
 from torch_configs_cases import LM_IDS, ROOT
-from torch_lm_cases import (FLASH, FLASH_LAYOUTS, MINI_DECODE, MINI_STEPS, decode_cell_ranks,
-                            flash_inputs, flash_ranks, mini_lm, place_blocks, train_cell_ranks)
+from torch_lm_cases import (FLASH, FLASH_LAYOUTS, MINI_DECODE, MINI_STEPS, check_placed_ranks,
+                            decode_cell_ranks, flash_inputs, flash_ranks, mini_lm, place_blocks,
+                            placed_cases, placed_cells_ranks, train_cell_ranks)
 
 from repro import configs as ref_configs
 from repro.launch.mesh import make_debug_mesh as ref_debug_mesh
@@ -145,6 +149,33 @@ def test_train_cell_on_two_data_ranks_matches_one_process(tmp_path):
         assert np.array_equal(ranks[0][k], ranks[1][k]), k
 
 
+#: placed (2, 2) against one process: f32 losses and grad norms (rtol),
+#: parameters and optimizer state after two steps (atol; a first AdamW step
+#: moves a weight by ~lr = 3e-7 here whatever its gradient), logits and
+#: caches (atol). The ranks sum a row-parallel product's halves, the
+#: vocab-parallel log-sum-exp's and an MoE token's experts' outputs over
+#: ``model`` in another order than one process: f32 rounding, ~1e-7.
+PLACED_RTOL, PLACED_STATE_ATOL, PLACED_ATOL = 1e-5, 1e-6, 1e-5
+
+
+def test_placed_cells_on_a_gloo_mesh_match_one_process(tmp_path):
+    """The mini LMs' four cells with ``weights="placed"`` on a (2, 2) gloo
+    mesh — every weight and optimizer leaf a rank's block (FSDP over
+    ``data``, tensor-, vocab- and expert-parallel over ``model``) — equal
+    one process's whole-weight run over the global batch: two train steps
+    (losses, grad norms, every parameter and optimizer leaf), a prefill
+    (its last logits and the cache's sequence blocks) and five steps of
+    both decode layouts. MoE: each data rank's routing equals one
+    process's for its rows (the global capacity and token order)."""
+    cases = placed_cases()
+    toks = _tokens(128, (4, 16), seed=11)
+    spawn_ranks(placed_cells_ranks, 4, str(tmp_path), cases, toks, backend="gloo",
+                init_file=tmp_path / "init", timeout_s=300)
+    ranks = [dict(np.load(tmp_path / f"rank{r}.npz")) for r in range(4)]
+    check_placed_ranks(ranks, cases, toks, (2, 2), rtol=PLACED_RTOL,
+                       state_atol=PLACED_STATE_ATOL, atol=PLACED_ATOL)
+
+
 def test_cache_write_in_place_clamps_and_keeps_outside_rows():
     cache = torch.zeros(3, 4, 1, 2)
     new = torch.arange(1, 7, dtype=torch.float32).reshape(3, 1, 1, 2)
@@ -201,18 +232,35 @@ def test_train_cell_two_steps_match_reference(meshes, arch_id):
     one-rank gloo mesh, the same batch (``2 · microbatches`` rows of 16).
     Kimi: MoE with a shared expert, Adafactor with bf16 state, 8
     microbatches; qwen3: dense, QK-norm, AdamW."""
+    _train_cell_two_steps(meshes, arch_id, "whole")
+
+
+@pytest.mark.parametrize("arch_id", ["kimi-k2-1t-a32b", "qwen3-8b"])
+def test_placed_train_cell_two_steps_match_reference(meshes, arch_id):
+    """As ``test_train_cell_two_steps_match_reference`` with
+    ``weights="placed"``: the reference's parameters carried to the rank
+    by ``LMArch.place`` and the placed program (its collectives on groups
+    of one, the optimizer's sharded norms and factored means)."""
+    _train_cell_two_steps(meshes, arch_id, "placed")
+
+
+def _train_cell_two_steps(meshes, arch_id, weights):
     mesh, ref_mesh = meshes
     arch, ref = configs.get_arch(arch_id), ref_configs.get_arch(arch_id)
     rp = rt.init_params(jax.random.PRNGKey(0), ref.smoke_cfg)
     m = dict(cfg=arch.smoke_cfg, rp=rp, pp=params_from_jax(jax.device_get(rp), device="cpu"))
     arch = dataclasses.replace(arch, cfg=arch.smoke_cfg)
     ref = dataclasses.replace(ref, cfg=ref.smoke_cfg)
-    cell, ref_cell = arch.build_cell("train_4k", mesh), ref.build_cell("train_4k", ref_mesh)
+    cell = arch.build_cell("train_4k", mesh, weights=weights)
+    ref_cell = ref.build_cell("train_4k", ref_mesh)
     toks = _tokens(m["cfg"].vocab, (ref.microbatches * 2, 17), seed=6)
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
     rinit = ref_make_optimizer(ref.optimizer)[0]
     rstate = {"params": m["rp"], "opt": rinit(m["rp"])}
-    state = {"params": m["pp"], "opt": make_optimizer(arch.optimizer)[0](m["pp"])}
+    if weights == "placed":
+        state = arch.place("train_4k", mesh, m["pp"])
+    else:
+        state = {"params": m["pp"], "opt": make_optimizer(arch.optimizer)[0](m["pp"])}
     with jax.set_mesh(ref_mesh):
         rstep = jax.jit(ref_cell.fn)
         for _ in range(2):
@@ -236,12 +284,23 @@ def test_train_cell_two_steps_match_reference(meshes, arch_id):
 
 
 def test_a_meshshape_cell_has_shapes_only_and_placed_weights_raise():
+    """A cell on a ``MeshShape`` has shapes only, placed or not (its step
+    raises rather than run whole weights); every LM cell builds placed
+    (the placements run) with the whole-weight cell's counts; an unknown
+    ``weights`` raises."""
     arch = configs.get_arch("qwen3-8b")
     cell = arch.build_cell("decode_32k", production_mesh_shape())
     with pytest.raises(ValueError, match="shapes only"):
         cell.fn({}, {}, torch.zeros(1, 1), torch.zeros(1))
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        arch.build_cell("train_4k", production_mesh_shape(), weights="placed")
+    for arch_id in LM_IDS:
+        a = configs.get_arch(arch_id)
+        for shape in a.shape_names:
+            placed = a.build_cell(shape, production_mesh_shape(), weights="placed")
+            assert placed.meta == a.build_cell(shape, production_mesh_shape()).meta
+    with pytest.raises(ValueError, match="shapes only"):
+        arch.build_cell("train_4k", production_mesh_shape(), weights="placed").fn({}, {})
+    with pytest.raises(ValueError, match="weights='tp'"):
+        arch.build_cell("train_4k", production_mesh_shape(), weights="tp")
 
 
 def test_cell_switches_match_reference():
@@ -383,6 +442,45 @@ def test_moe_dropping_under_tight_capacity():
     p = moe.moe_init(g, cfg, device="cpu")
     y, _ = moe.moe_apply(p, cfg, torch.randn(64, 8, generator=g))
     assert int((y.abs().sum(-1) == 0).sum()) > 0  # tight capacity must drop tokens
+
+
+def _moe_index_add(params, cfg, x):
+    """The combine before C7: the weighted slots scatter-added back to
+    their tokens with ``index_add`` (the reference's scatter-add)."""
+    T, D = x.shape
+    C = moe._capacity(T, cfg)
+    _, gate_w, idx = moe._route(params, cfg, x)
+    tok, w = moe._dispatch(idx, gate_w, cfg)
+    xe = torch.cat([x, x.new_zeros((1, D))])[tok].reshape(cfg.n_experts, C, D)
+    ye = moe._swiglu(xe, params["w_gate"], params["w_up"], params["w_down"])
+    contrib = ye.reshape(-1, D) * w[:, None].to(ye.dtype)
+    return ye.new_zeros((T + 1, D)).index_add(0, tok, contrib)[:T]
+
+
+@pytest.mark.parametrize("top_k", [1, 2, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_moe_combine_equals_index_add_bit_for_bit(dtype, top_k):
+    """C7: the slot-order combine gives the bits of the ``index_add``
+    combine on the CPU (in bf16 too: ``index_add`` accumulates a row in
+    f32 and rounds once), with pairs dropped (capacity factor 0.6), and
+    so do the gradients of the input and of every expert weight."""
+    cfg = moe.MoEConfig(n_experts=8, top_k=top_k, d_model=16, d_ff=24, capacity_factor=0.6)
+    g = torch.Generator().manual_seed(top_k)
+    p = moe.moe_init(g, cfg, dtype=dtype, device="cpu")
+    x = torch.randn(40, 16, generator=g).to(dtype)
+    tok, _ = moe._dispatch(moe._route(p, cfg, x)[2], moe._route(p, cfg, x)[1], cfg)
+    assert int((tok < 40).sum()) < 40 * top_k  # pairs were dropped
+    got = []
+    for f in (_moe_index_add, lambda pp, c, xx: moe.moe_apply(pp, c, xx)[0]):
+        pp = {k: v.clone().requires_grad_(True) for k, v in p.items()}
+        xx = x.clone().requires_grad_(True)
+        y = f(pp, cfg, xx)
+        (y.float() * torch.linspace(-1, 1, y.numel()).reshape(y.shape)).sum().backward()
+        got.append((y.detach(), xx.grad, {k: v.grad for k, v in pp.items()}))
+    (y0, gx0, gp0), (y1, gx1, gp1) = got
+    assert torch.equal(y0, y1) and torch.equal(gx0, gx1)
+    for k in gp0:
+        assert torch.equal(gp0[k], gp1[k]), k
 
 
 def test_grad_flows_through_every_param():

@@ -3,7 +3,8 @@ alone, and GAT's ``ogb_products`` train step split by destination across
 cards.
 
     python tools/torch_family_timing.py                    # phase 15 on one card
-    python tools/torch_family_timing.py --worlds nccl:4    # ogb_products over four cards
+    python tools/torch_family_timing.py --worlds nccl:4    # ogb_products and DCN-v2, four cards
+    python tools/torch_family_timing.py --worlds nccl:4 --cells placed   # DCN-v2 only
 
 Phase 15 (``chip_smoke.family_rank``, one NCCL rank): see
 ``chip_smoke.py``'s module docstring; it prints what the smoke prints
@@ -28,6 +29,14 @@ gradients over the graph's edge order and a permuted one).
 Prints the step's ms (host clock + synchronise, median), the all-gather
 bytes a layer and each rank's ``max_memory_allocated``, beside the
 card's name and power limit.
+
+``--cells placed`` (with ``--worlds nccl:4``): DCN-v2's ``train_batch``
+at its full 65,536 rows with ``weights="placed"`` on a ``(2, 2)`` mesh
+(its table's rows over ``model``, the batch over ``data``), ``STEPS``
+timed steps, and the cut check at ``PLACED_CHECK_ROWS`` rows
+(``tools/torch_placed_cards.py``: the resident state against
+``argument_bytes``, ``max_memory_allocated`` against the dry run's peak
+of the (2, 2) mesh, loss and gradients against one process).
 """
 
 from __future__ import annotations
@@ -46,6 +55,7 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "tools"))
 
 OUT_DIR = ROOT / "build" / "torch_family_timing"
 #: train steps timed after a warm-up
@@ -57,6 +67,8 @@ STEPS = 5
 #: of either sign to ~1% of the tree's largest entry: four cards put
 #: a_src 1.3e-9 from one card against a floor of 3.8e-10
 ORDER_NOISE_MULT = 10
+#: DCN-v2 placed on four cards: the global batch, and the cut check's rows
+PLACED_ROWS, PLACED_CHECK_ROWS = 65_536, 4_096
 
 
 def ogb_rank(rank: int, world: int, d: str, steps: int, n_nodes: int, n_edges: int) -> None:
@@ -154,6 +166,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--worlds", default=None,
                     help="nccl:N runs ogb_products over N cards; default: phase 15 on one card")
+    ap.add_argument("--cells", default="ogb,placed",
+                    help="with --worlds: ogb (ogb_products over N cards), placed (DCN-v2 "
+                         "train_batch placed on a (2, 2) mesh, N = 4) or both")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_family_timing: no CUDA device available", file=sys.stderr)
@@ -177,8 +192,49 @@ def main(argv=None) -> int:
     if backend != "nccl" or torch.cuda.device_count() < n:
         raise SystemExit(f"--worlds {args.worlds}: needs nccl and {n} cards "
                          f"({torch.cuda.device_count()} here)")
-    from repro_torch.configs.base import GNN_SHAPES
+    ok = True
+    if "placed" in args.cells.split(","):
+        ok &= placed(n, card)
+    if "ogb" in args.cells.split(","):
+        ok &= ogb_cards(n, card)
+    return 0 if ok else 1
 
+
+def placed(n: int, card: str) -> bool:
+    """DCN-v2 ``train_batch`` placed on a (2, 2) mesh (module docstring)."""
+    import chip_smoke
+    import torch_placed_cards as pc
+    from repro_torch.launch.dryrun import cell_memory
+    from repro_torch.launch.mesh import MeshShape, spawn_ranks
+
+    if n != 4:
+        raise SystemExit("--cells placed runs on a (2, 2) mesh: --worlds nccl:4")
+    t0 = time.perf_counter()
+    dry = cell_memory("dcn-v2", "train_batch", MeshShape((2, 2), ("data", "model")),
+                      PLACED_ROWS)
+    print(f"dry run (2, 2), dcn-v2 train_batch at {PLACED_ROWS:,} rows: traced in "
+          f"{time.perf_counter() - t0:.1f}s on the host")
+    shutil.rmtree(OUT_DIR, ignore_errors=True)
+    OUT_DIR.mkdir(parents=True)
+    spawn_s = spawn_ranks(pc.placed_rank, n, str(OUT_DIR), "dcn-v2", "train_batch",
+                          PLACED_ROWS, None, STEPS, {"rows": PLACED_CHECK_ROWS}, dry,
+                          backend="nccl", init_file=OUT_DIR / "init", timeout_s=1200)
+    recs = [json.loads((OUT_DIR / f"rank{r}.json").read_text()) for r in range(n)]
+    ok = pc.report(recs, card, chip_smoke.MEM_FACTOR)
+    print(f"dcn-v2 train_batch placed on four cards: spawn {spawn_s:.1f}s; "
+          f"{'ok' if ok else 'FAILED'} ({card})")
+    shutil.rmtree(OUT_DIR, ignore_errors=True)
+    return ok
+
+
+def ogb_cards(n: int, card: str) -> bool:
+    """ogb_products over ``n`` cards (module docstring)."""
+    import chip_smoke
+    from repro_torch.configs.base import GNN_SHAPES
+    from repro_torch.launch.mesh import spawn_ranks
+
+    shutil.rmtree(OUT_DIR, ignore_errors=True)
+    OUT_DIR.mkdir(parents=True)
     sh = GNN_SHAPES["ogb_products"]
     spawn_s = spawn_ranks(ogb_rank, n, str(OUT_DIR), STEPS, sh["n_nodes"], sh["n_edges"],
                           backend="nccl", init_file=OUT_DIR / "init", timeout_s=1500)
@@ -202,7 +258,7 @@ def main(argv=None) -> int:
           f"step's max_memory_allocated {r0['unsharded_max_memory_allocated'] / 2**30:.2f} GiB; "
           f"spawn {spawn_s:.1f}s; {'ok' if ok else 'FAILED'} ({card})")
     shutil.rmtree(OUT_DIR, ignore_errors=True)
-    return 0 if ok else 1
+    return ok
 
 
 if __name__ == "__main__":

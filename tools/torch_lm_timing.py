@@ -1,8 +1,10 @@
 """The LM family on the card: ``chip_smoke.py``'s phase 14 alone, and
-``long_500k``'s decode step for qwen3-8b at full width across cards.
+qwen3-8b at full width across cards: ``long_500k``'s decode step, and
+``train_4k`` with its weights placed.
 
     python tools/torch_lm_timing.py                    # phase 14 on one card
-    python tools/torch_lm_timing.py --worlds nccl:4    # long_500k over four cards
+    python tools/torch_lm_timing.py --worlds nccl:4    # both across four cards
+    python tools/torch_lm_timing.py --worlds nccl:4 --cells placed   # train_4k only
 
 Phase 14 (``chip_smoke.lm_rank``, one NCCL rank): see ``chip_smoke.py``'s
 module docstring; it prints what the smoke prints for it.
@@ -23,6 +25,16 @@ reference on rank 0 (the layer's slices gathered there; relative L2 ≤
 1e-2, bf16). Prints the step's ms (host clock + synchronise, median),
 its bound (weights + the rank's cache slice over 3.35 TB/s) and each
 rank's ``max_memory_allocated``, beside the card's name and power limit.
+
+``--cells placed`` (with ``--worlds nccl:4``): qwen3-8b's ``train_4k``
+with ``weights="placed"`` on a ``(2, 2)`` mesh (FSDP over ``data``,
+tensor- and vocab-parallel over ``model``; bf16 weights, AdamW's f32
+state) at a global batch of ``PLACED_ROWS`` sequences of 4,096 tokens
+(2 a data rank, so ``gcd(8, 2)`` = 2 microbatches of one), ``STEPS``
+timed steps, and the cut check at ``PLACED_CHECK`` (``tools/
+torch_placed_cards.py``: the resident state against ``argument_bytes``,
+``max_memory_allocated`` against the dry run's peak of the (2, 2) mesh,
+loss and gradients against one process).
 """
 
 from __future__ import annotations
@@ -40,12 +52,18 @@ import torch
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "tools"))
 
 OUT_DIR = ROOT / "build" / "torch_lm_timing"
 HBM_BYTES_PER_S = 3.35e12
 #: decode steps timed after a warm-up; the cache's valid length before them
 STEPS = 5
 VALID = 500_000
+#: train_4k placed on four cards: the global batch (sequences of 4,096) and
+#: the cut check (f32): layers, rows, tokens (its one-process logits are
+#: rows × tokens × 151,936 f32)
+PLACED_ROWS = 4
+PLACED_CHECK = dict(layers=2, rows=4, seq=512)
 
 
 def long_rank(rank: int, world: int, d: str, steps: int, valid: int) -> None:
@@ -128,6 +146,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--worlds", default=None,
                     help="nccl:N runs long_500k over N cards; default: phase 14 on one card")
+    ap.add_argument("--cells", default="long,placed",
+                    help="with --worlds: long (long_500k over N cards), placed (train_4k placed "
+                         "on a (2, 2) mesh, N = 4) or both")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("torch_lm_timing: no CUDA device available", file=sys.stderr)
@@ -144,6 +165,45 @@ def main(argv=None) -> int:
     if backend != "nccl" or torch.cuda.device_count() < n:
         raise SystemExit(f"--worlds {args.worlds}: needs nccl and {n} cards "
                          f"({torch.cuda.device_count()} here)")
+    cells = args.cells.split(",")
+    ok = True
+    if "placed" in cells:
+        ok &= placed(n, card)
+    if "long" in cells:
+        ok &= long_cards(n, card)
+    return 0 if ok else 1
+
+
+def placed(n: int, card: str) -> bool:
+    """qwen3-8b ``train_4k`` placed on a (2, 2) mesh (module docstring)."""
+    import chip_smoke
+    import torch_placed_cards as pc
+    from repro_torch.launch.dryrun import cell_memory
+    from repro_torch.launch.mesh import MeshShape, spawn_ranks
+
+    if n != 4:
+        raise SystemExit("--cells placed runs on a (2, 2) mesh: --worlds nccl:4")
+    t0 = time.perf_counter()
+    dry = cell_memory("qwen3-8b", "train_4k", MeshShape((2, 2), ("data", "model")), PLACED_ROWS)
+    print(f"dry run (2, 2), qwen3-8b train_4k at {PLACED_ROWS} rows: traced in "
+          f"{time.perf_counter() - t0:.1f}s on the host")
+    shutil.rmtree(OUT_DIR, ignore_errors=True)
+    OUT_DIR.mkdir(parents=True)
+    spawn_s = spawn_ranks(pc.placed_rank, n, str(OUT_DIR), "qwen3-8b", "train_4k", PLACED_ROWS,
+                          4096, STEPS, PLACED_CHECK, dry, backend="nccl",
+                          init_file=OUT_DIR / "init", timeout_s=1200)
+    recs = [json.loads((OUT_DIR / f"rank{r}.json").read_text()) for r in range(n)]
+    ok = pc.report(recs, card, chip_smoke.MEM_FACTOR)
+    print(f"qwen3-8b train_4k placed on four cards: spawn {spawn_s:.1f}s; "
+          f"{'ok' if ok else 'FAILED'} ({card})")
+    shutil.rmtree(OUT_DIR, ignore_errors=True)
+    return ok
+
+
+def long_cards(n: int, card: str) -> bool:
+    """``long_500k`` over ``n`` cards (module docstring)."""
+    from repro_torch.launch.mesh import spawn_ranks
+
     shutil.rmtree(OUT_DIR, ignore_errors=True)
     OUT_DIR.mkdir(parents=True)
     spawn_s = spawn_ranks(long_rank, n, str(OUT_DIR), STEPS, VALID, backend="nccl",
@@ -164,7 +224,7 @@ def main(argv=None) -> int:
           f"masked reference on rank 0: relative L2 {recs[0]['flash_rel']:.2e} (rtol 1e-2); "
           f"spawn {spawn_s:.1f}s; {'ok' if ok else 'FAILED'} ({card})")
     shutil.rmtree(OUT_DIR, ignore_errors=True)
-    return 0 if ok else 1
+    return ok
 
 
 if __name__ == "__main__":
