@@ -366,12 +366,15 @@ class PackedBlocks:
         """The same pack with every array a torch tensor on ``device``."""
         import torch
 
+        from ..spans import span
+
         def move(a):
             if isinstance(a, torch.Tensor):
                 return a.to(device)
             return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
-        return dataclasses.replace(self, **{k: move(v) for k, v in self.as_dict().items()})
+        with span("repro_torch.build.place"):
+            return dataclasses.replace(self, **{k: move(v) for k, v in self.as_dict().items()})
 
 
 def pack_forward_index(

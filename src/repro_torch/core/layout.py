@@ -43,6 +43,7 @@ from .codecs import get_codec
 from .codecs.bitpack import bit_widths, pack_block
 from .codecs.dotvbyte import control_bits
 from .codecs.streamvbyte import byte_codes
+from ..spans import span
 from .forward_index import ForwardIndex, PackedBlocks, ValueFormat
 
 __all__ = [
@@ -306,77 +307,78 @@ def pack_blocks(
     The reference fills the arrays fragment by fragment; here the
     fragments' entries are placed with one vectorised scatter, to the
     same bytes."""
-    value_codecs.check_vq(vq)
-    lc = get_layout(codec)
-    if block_size % 128:
-        raise ValueError("block_size must be a multiple of 128 (TPU lanes)")
-    T = block_size
-    D = max_docs_per_block or T // 8
-    if np.dtype(seg_dtype) == np.int8 and D > 127:
-        raise ValueError("int8 seg needs max_docs_per_block <= 127")
-    frags = _fragments(fwd, T, D)
-    B = len(frags)
+    with span("repro_torch.build.pack"):
+        value_codecs.check_vq(vq)
+        lc = get_layout(codec)
+        if block_size % 128:
+            raise ValueError("block_size must be a multiple of 128 (TPU lanes)")
+        T = block_size
+        D = max_docs_per_block or T // 8
+        if np.dtype(seg_dtype) == np.int8 and D > 127:
+            raise ValueError("int8 seg needs max_docs_per_block <= 127")
+        frags = _fragments(fwd, T, D)
+        B = len(frags)
 
-    # one row per fragment: block, slot, doc, [lo, hi) within the doc
-    f_block = np.repeat(np.arange(B), [len(f) for f in frags])
-    f_slot = np.concatenate([np.arange(len(f)) for f in frags]) if B else np.zeros(0, np.int64)
-    f = np.asarray([x for fl in frags for x in fl], dtype=np.int64).reshape(-1, 3)
-    f_doc, f_lo, f_hi = f[:, 0], f[:, 1], f[:, 2]
-    f_n = f_hi - f_lo
-    f_first = np.cumsum(f_n) - f_n  # first entry of each fragment, flat
-    # position of each fragment inside its block: fragments before it
-    # in the same block, summed
-    blk_first = np.zeros(B, np.int64)
-    if B:
-        blk_first[1:] = np.cumsum(np.bincount(f_block, weights=f_n, minlength=B))[:-1]
-    f_pos = f_first - blk_first[f_block]
+        # one row per fragment: block, slot, doc, [lo, hi) within the doc
+        f_block = np.repeat(np.arange(B), [len(f) for f in frags])
+        f_slot = np.concatenate([np.arange(len(f)) for f in frags]) if B else np.zeros(0, np.int64)
+        f = np.asarray([x for fl in frags for x in fl], dtype=np.int64).reshape(-1, 3)
+        f_doc, f_lo, f_hi = f[:, 0], f[:, 1], f[:, 2]
+        f_n = f_hi - f_lo
+        f_first = np.cumsum(f_n) - f_n  # first entry of each fragment, flat
+        # position of each fragment inside its block: fragments before it
+        # in the same block, summed
+        blk_first = np.zeros(B, np.int64)
+        if B:
+            blk_first[1:] = np.cumsum(np.bincount(f_block, weights=f_n, minlength=B))[:-1]
+        f_pos = f_first - blk_first[f_block]
 
-    n_ent = int(f_n.sum())
-    e_frag = np.repeat(np.arange(len(f_n)), f_n)
-    e_k = np.arange(n_ent) - f_first[e_frag]
-    e_block = f_block[e_frag]
-    e_pos = f_pos[e_frag] + e_k
-    src = fwd.offsets[f_doc].astype(np.int64)[e_frag] + f_lo[e_frag] + e_k
-    comps = fwd.components[src].astype(np.int64)
-    g = np.zeros(n_ent, np.int64)
-    g[1:] = comps[1:] - comps[:-1]
-    g[f_first[f_n > 0]] = 0  # fragment-first gap forced to 0; absolute out-of-band
+        n_ent = int(f_n.sum())
+        e_frag = np.repeat(np.arange(len(f_n)), f_n)
+        e_k = np.arange(n_ent) - f_first[e_frag]
+        e_block = f_block[e_frag]
+        e_pos = f_pos[e_frag] + e_k
+        src = fwd.offsets[f_doc].astype(np.int64)[e_frag] + f_lo[e_frag] + e_k
+        comps = fwd.components[src].astype(np.int64)
+        g = np.zeros(n_ent, np.int64)
+        g[1:] = comps[1:] - comps[:-1]
+        g[f_first[f_n > 0]] = 0  # fragment-first gap forced to 0; absolute out-of-band
 
-    seg = np.full((B, T), -1, dtype=seg_dtype)
-    start_pos = np.zeros((B, D), dtype=np.int32)
-    start_abs = np.zeros((B, D), dtype=np.int32)
-    vals = np.zeros((B, T), dtype=fwd.values.dtype)
-    doc_ids = np.full((B, D), -1, dtype=np.int32)
-    gaps_all = np.zeros((B, T), dtype=np.uint32)
-    gaps_all[e_block, e_pos] = g.astype(np.uint32)
-    seg[e_block, e_pos] = f_slot[e_frag]
-    vals[e_block, e_pos] = fwd.values[src]
-    start_pos[f_block, f_slot] = f_pos
-    start_abs[f_block, f_slot] = comps[f_first]
-    doc_ids[f_block, f_slot] = f_doc
+        seg = np.full((B, T), -1, dtype=seg_dtype)
+        start_pos = np.zeros((B, D), dtype=np.int32)
+        start_abs = np.zeros((B, D), dtype=np.int32)
+        vals = np.zeros((B, T), dtype=fwd.values.dtype)
+        doc_ids = np.full((B, D), -1, dtype=np.int32)
+        gaps_all = np.zeros((B, T), dtype=np.uint32)
+        gaps_all[e_block, e_pos] = g.astype(np.uint32)
+        seg[e_block, e_pos] = f_slot[e_frag]
+        vals[e_block, e_pos] = fwd.values[src]
+        start_pos[f_block, f_slot] = f_pos
+        start_abs[f_block, f_slot] = comps[f_first]
+        doc_ids[f_block, f_slot] = f_doc
 
-    vals, vq_extras = value_codecs.encode_block_values(vals, seg, vq, clip=vq_clip)
-    out = PackedBlocks(
-        codec=codec,
-        block_size=T,
-        n_docs=fwd.n_docs,
-        dim=fwd.dim,
-        value_format=fwd.value_format,
-        seg=seg,
-        start_pos=start_pos,
-        start_abs=start_abs,
-        vals=vals,
-        doc_ids=doc_ids,
-        vq=vq,
-    )
-    for field, arr in vq_extras.items():
-        setattr(out, field, arr)
-    if lc.decode_free:
-        out.comps = _resolve_absolute(gaps_all, seg, start_pos, start_abs)
+        vals, vq_extras = value_codecs.encode_block_values(vals, seg, vq, clip=vq_clip)
+        out = PackedBlocks(
+            codec=codec,
+            block_size=T,
+            n_docs=fwd.n_docs,
+            dim=fwd.dim,
+            value_format=fwd.value_format,
+            seg=seg,
+            start_pos=start_pos,
+            start_abs=start_abs,
+            vals=vals,
+            doc_ids=doc_ids,
+            vq=vq,
+        )
+        for field, arr in vq_extras.items():
+            setattr(out, field, arr)
+        if lc.decode_free:
+            out.comps = _resolve_absolute(gaps_all, seg, start_pos, start_abs)
+            return out
+        for field, arr in lc.encode(gaps_all).items():
+            setattr(out, field, arr)
         return out
-    for field, arr in lc.encode(gaps_all).items():
-        setattr(out, field, arr)
-    return out
 
 
 def pack_blocks_sharded(
@@ -483,33 +485,34 @@ def pack_rows(
     shard-local row ids (row 0 = doc ``lo``). The row capacity is the
     largest of ``l_max``, the longest document and 1, rounded up to
     ``LANE_MULTIPLE``."""
-    value_codecs.check_vq(vq)
-    if doc_range is not None:
-        fwd = fwd.slice(*doc_range)
-    lc = get_layout(codec)
-    nnz_max = int(np.diff(fwd.offsets).max(initial=1))
-    cap = max(l_max or 0, nnz_max, 1)
-    cap = _round_up(cap, _LANES * value_codecs.code_factor(vq))
-    gaps, vals_rows, nnz_rows = _row_gap_matrix(fwd, cap)
-    if lc.decode_free:
-        comps = np.cumsum(gaps.astype(np.int64), axis=1)
-        live = np.arange(cap)[None, :] < nnz_rows[:, None]
-        payload = {"comps_rows": np.where(live, comps, 0).astype(np.int32)}
-    else:
-        payload = {f"{k}_rows": v for k, v in lc.encode(gaps).items()}
-    vals_rows, vq_extras = value_codecs.encode_rows_values(vals_rows, nnz_rows, vq)
-    payload.update(vq_extras)
-    return PackedRows(
-        codec=codec,
-        n_docs=fwd.n_docs,
-        dim=fwd.dim,
-        l_max=cap,
-        value_format=fwd.value_format,
-        vals_rows=vals_rows,
-        nnz_rows=nnz_rows,
-        payload=payload,
-        vq=vq,
-    )
+    with span("repro_torch.build.pack"):
+        value_codecs.check_vq(vq)
+        if doc_range is not None:
+            fwd = fwd.slice(*doc_range)
+        lc = get_layout(codec)
+        nnz_max = int(np.diff(fwd.offsets).max(initial=1))
+        cap = max(l_max or 0, nnz_max, 1)
+        cap = _round_up(cap, _LANES * value_codecs.code_factor(vq))
+        gaps, vals_rows, nnz_rows = _row_gap_matrix(fwd, cap)
+        if lc.decode_free:
+            comps = np.cumsum(gaps.astype(np.int64), axis=1)
+            live = np.arange(cap)[None, :] < nnz_rows[:, None]
+            payload = {"comps_rows": np.where(live, comps, 0).astype(np.int32)}
+        else:
+            payload = {f"{k}_rows": v for k, v in lc.encode(gaps).items()}
+        vals_rows, vq_extras = value_codecs.encode_rows_values(vals_rows, nnz_rows, vq)
+        payload.update(vq_extras)
+        return PackedRows(
+            codec=codec,
+            n_docs=fwd.n_docs,
+            dim=fwd.dim,
+            l_max=cap,
+            value_format=fwd.value_format,
+            vals_rows=vals_rows,
+            nnz_rows=nnz_rows,
+            payload=payload,
+            vq=vq,
+        )
 
 
 # ---------------------------------------------------------------------------

@@ -58,6 +58,7 @@ from ..core.scoring import (
     decode_block_gaps,
     scatter_block_scores,
 )
+from ..spans import span
 from . import build
 
 __all__ = [
@@ -268,30 +269,34 @@ def scan_scores(entry: str, codec: str, Q, streams, doc_ids, n_docs: int, *,
     function on the same device (f32 ``[nq, n_docs]``), is added into
     and returned; the sum of fragments of one document runs
     in no fixed order on the card."""
-    device = _route(entry, codec, width, [Q, *streams.values(), doc_ids]
-                    + ([] if out is None else [out]))
-    nq = Q.shape[0] if Q.dim() == 2 else -1
-    B, D = streams["start_pos"].shape if streams["start_pos"].dim() == 2 else (-1, -1)
-    if doc_ids.dtype != torch.int32 or tuple(doc_ids.shape) != (B, D):
-        raise ValueError(f"doc_ids must be int32 [B, D] = [{B}, {D}] like start_pos, got "
-                         f"{doc_ids.dtype} {list(doc_ids.shape)}")
-    if not 0 <= n_docs < 2**31:
-        raise ValueError(f"n_docs must lie in [0, 2**31), got {n_docs}")
-    if out is not None and (out.dtype != torch.float32 or tuple(out.shape) != (nq, n_docs)
-                            or (device == "cuda" and not out.t().is_contiguous())):
-        raise ValueError(f"out must be an f32 [{nq}, {n_docs}] scan_scores result (on the "
-                         f"card its transpose contiguous), got {out.dtype} {list(out.shape)}")
+    with span("repro_torch.scan.check"):
+        device = _route(entry, codec, width, [Q, *streams.values(), doc_ids]
+                        + ([] if out is None else [out]))
+        nq = Q.shape[0] if Q.dim() == 2 else -1
+        B, D = streams["start_pos"].shape if streams["start_pos"].dim() == 2 else (-1, -1)
+        if doc_ids.dtype != torch.int32 or tuple(doc_ids.shape) != (B, D):
+            raise ValueError(f"doc_ids must be int32 [B, D] = [{B}, {D}] like start_pos, got "
+                             f"{doc_ids.dtype} {list(doc_ids.shape)}")
+        if not 0 <= n_docs < 2**31:
+            raise ValueError(f"n_docs must lie in [0, 2**31), got {n_docs}")
+        if out is not None and (out.dtype != torch.float32 or tuple(out.shape) != (nq, n_docs)
+                                or (device == "cuda" and not out.t().is_contiguous())):
+            raise ValueError(f"out must be an f32 [{nq}, {n_docs}] scan_scores result (on the "
+                             f"card its transpose contiguous), got {out.dtype} "
+                             f"{list(out.shape)}")
+        if device == "cuda":
+            p0, p1 = _check(codec, Q, streams, width)
+            if not doc_ids.is_contiguous():
+                raise ValueError("doc_ids must be contiguous")
+            stage = _stage(Q, streams, stage)
     if device == "cpu":
         got = scan_scores_plain(codec, Q, streams, doc_ids, n_docs, scale=scale, width=width)
         if out is None:
             return got
         out += got
         return out
-    p0, p1 = _check(codec, Q, streams, width)
-    if not doc_ids.is_contiguous():
-        raise ValueError("doc_ids must be contiguous")
-    return _launch(entry, codec, Q, streams, p0, p1, float(scale), width,
-                   _stage(Q, streams, stage), doc_ids=doc_ids, n_docs=n_docs, out=out)
+    return _launch(entry, codec, Q, streams, p0, p1, float(scale), width, stage,
+                   doc_ids=doc_ids, n_docs=n_docs, out=out)
 
 
 def _stage(Q, streams, stage):
@@ -372,29 +377,31 @@ def _launch(entry, codec, Q, streams, p0, p1, scale, width, stage, doc_ids=None,
     code = CODECS.index(codec) + width
     lib = build.load("block_scan", code % build.PARTS.get("block_scan", 1))
     fused = doc_ids is not None
-    if fused:
-        acc = (out.t() if out is not None else
-               torch.zeros((n_docs, nq), dtype=torch.float32, device=Q.device))
-        result = acc.t()
-    else:
-        acc = result = torch.empty((nq, B, D), dtype=torch.float32, device=Q.device)
-    if nq == 0 or B == 0 or (fused and n_docs == 0):
-        return result
-    q_arg = Q.t().contiguous() if stage == "query_lanes" else Q
-    fn = lib.block_scan
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    vals, seg = streams["vals"], streams["seg"]
-    with torch.cuda.device(Q.device):
-        stream = torch.cuda.current_stream(Q.device).cuda_stream
-        rc = fn(
-            code, VALUE_DTYPES.index(vals.dtype), SEG_DTYPES.index(seg.dtype),
-            STAGES.index(stage), int(fused),
-            q_arg.data_ptr(), p0.data_ptr(), None if p1 is None else p1.data_ptr(),
-            seg.data_ptr(), streams["start_pos"].data_ptr(), streams["start_abs"].data_ptr(),
-            vals.data_ptr(), doc_ids.data_ptr() if fused else None, acc.data_ptr(),
-            nq, dim, B, T, D, p0.shape[1], 0 if p1 is None or p1.dim() < 2 else p1.shape[1],
-            n_docs, scale, stream,
-        )
+    with span("repro_torch.scan.alloc"):
+        if fused:
+            acc = (out.t() if out is not None else
+                   torch.zeros((n_docs, nq), dtype=torch.float32, device=Q.device))
+            result = acc.t()
+        else:
+            acc = result = torch.empty((nq, B, D), dtype=torch.float32, device=Q.device)
+        if nq == 0 or B == 0 or (fused and n_docs == 0):
+            return result
+        q_arg = Q.t().contiguous() if stage == "query_lanes" else Q
+    with span("repro_torch.scan.launch"):
+        fn = lib.block_scan
+        fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+        vals, seg = streams["vals"], streams["seg"]
+        with torch.cuda.device(Q.device):
+            stream = torch.cuda.current_stream(Q.device).cuda_stream
+            rc = fn(
+                code, VALUE_DTYPES.index(vals.dtype), SEG_DTYPES.index(seg.dtype),
+                STAGES.index(stage), int(fused),
+                q_arg.data_ptr(), p0.data_ptr(), None if p1 is None else p1.data_ptr(),
+                seg.data_ptr(), streams["start_pos"].data_ptr(), streams["start_abs"].data_ptr(),
+                vals.data_ptr(), doc_ids.data_ptr() if fused else None, acc.data_ptr(),
+                nq, dim, B, T, D, p0.shape[1], 0 if p1 is None or p1.dim() < 2 else p1.shape[1],
+                n_docs, scale, stream,
+            )
     if rc != 0:
         err = lib.block_scan_error_string
         err.argtypes, err.restype = [ctypes.c_int], ctypes.c_char_p

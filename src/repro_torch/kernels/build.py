@@ -17,7 +17,9 @@ assigns to it, so the parts compile in parallel.
 :func:`compile_kernels` starts one ``nvcc`` per library, all at once,
 and returns each build's compiler log (``-Xptxas -v``: registers,
 shared memory, spills). :func:`load` builds on demand and raises when
-there is no GPU or no ``nvcc`` — it never hands back a stand-in.
+there is no GPU or no ``nvcc`` — it never hands back a stand-in. Each
+library loaded counts in ``spans.counters["kernels.loads"]``, each built
+in ``"kernels.compiles"``.
 """
 
 from __future__ import annotations
@@ -29,6 +31,8 @@ import pathlib
 import shutil
 import subprocess
 import time
+
+from ..spans import count, span
 
 __all__ = ["SOURCES", "PARTS", "SMEM_OPTIN_BYTES", "BUILD_DIR", "compile_kernels", "libraries",
            "load", "nvcc_path"]
@@ -125,6 +129,7 @@ def compile_kernels(names=SOURCES) -> dict[str, dict]:
             failed.append(f"nvcc failed building {key}:\n{log}")
             continue
         os.replace(tmp, path)
+        count("kernels.compiles")
         out[key] = {"path": path, "seconds": time.perf_counter() - t0, "log": log}
     if failed:
         raise RuntimeError("\n".join(failed))
@@ -144,6 +149,8 @@ def load(name: str, part: int = 0) -> ctypes.CDLL:
         raise RuntimeError(
             f"the {name} CUDA kernel needs a CUDA GPU; none is available"
         )
-    lib = ctypes.CDLL(str(compile_kernels([name])[key]["path"]))
+    with span("repro_torch.kernels.load"):
+        lib = ctypes.CDLL(str(compile_kernels([name])[key]["path"]))
+    count("kernels.loads")
     _LIBS[key] = lib
     return lib

@@ -12,7 +12,9 @@ into the documents' scores (no ``[nq, B, D]`` slot scores, no
 ``index_add_``); the batched result is a transposed view of the
 kernel's doc-major accumulator. On CPU tensors the kernel's plain
 version and ``scoring.scatter_block_scores`` (an ``index_add_``) run,
-as in the reference.
+as in the reference. Each scorer is one ``repro_torch.scan`` span
+(``spans.py``) over ``scan.prepare`` here and ``scan.check``,
+``scan.alloc`` and ``scan.launch`` in ``block_scan``.
 
 The pack (``PackedBlocks``) may hold numpy arrays, which go to
 ``device`` (``cuda`` unless the caller asks for the CPU), or tensors,
@@ -30,6 +32,7 @@ from typing import NamedTuple
 import torch
 
 from .. import resolve_device
+from ..spans import span
 from . import block_scan
 
 __all__ = [
@@ -50,20 +53,21 @@ __all__ = [
 def _prepare(Q, packed, codec: str, device):
     """(Q [nq, dim] f32 contiguous, the pack as tensors) on one device,
     after checking the pack's codec and value codec."""
-    if packed.codec != codec:
-        raise ValueError(f"a {codec} scan got a {packed.codec!r} pack")
-    if packed.vq != "f16":
-        raise ValueError(
-            f"the block-scan kernels read raw stored values; this pack has vq="
-            f"{packed.vq!r}. scoring.score_packed serves every vq (the plain path)"
-        )
-    if isinstance(packed.seg, torch.Tensor):
-        dev = packed.seg.device
-    else:
-        dev = resolve_device(device)
-        packed = packed.to(dev)
-    Q = torch.as_tensor(Q, dtype=torch.float32).to(dev)
-    return Q[:, : packed.dim].contiguous(), packed
+    with span("repro_torch.scan.prepare"):
+        if packed.codec != codec:
+            raise ValueError(f"a {codec} scan got a {packed.codec!r} pack")
+        if packed.vq != "f16":
+            raise ValueError(
+                f"the block-scan kernels read raw stored values; this pack has vq="
+                f"{packed.vq!r}. scoring.score_packed serves every vq (the plain path)"
+            )
+        if isinstance(packed.seg, torch.Tensor):
+            dev = packed.seg.device
+        else:
+            dev = resolve_device(device)
+            packed = packed.to(dev)
+        Q = torch.as_tensor(Q, dtype=torch.float32).to(dev)
+        return Q[:, : packed.dim].contiguous(), packed
 
 
 def _streams(packed) -> dict:
@@ -81,8 +85,9 @@ def _scan(entry, codec, Q, packed, streams=None, doc_ids=None, **kw):
 
 def _single(codec):
     def score(q, packed, device=None):
-        Q, packed = _prepare(torch.as_tensor(q).reshape(1, -1), packed, codec, device)
-        return _scan(f"block_scan_{codec}", codec, Q, packed)[0]
+        with span("repro_torch.scan"):
+            Q, packed = _prepare(torch.as_tensor(q).reshape(1, -1), packed, codec, device)
+            return _scan(f"block_scan_{codec}", codec, Q, packed)[0]
 
     score.__name__ = f"score_{codec}"
     score.__doc__ = (f"Every document's score for one dense query through the {codec} "
@@ -92,8 +97,9 @@ def _single(codec):
 
 def _batch(codec):
     def score(Q, packed, device=None):
-        Q, packed = _prepare(Q, packed, codec, device)
-        return _scan(f"block_scan_{codec}_batch", codec, Q, packed)
+        with span("repro_torch.scan"):
+            Q, packed = _prepare(Q, packed, codec, device)
+            return _scan(f"block_scan_{codec}_batch", codec, Q, packed)
 
     score.__name__ = f"score_{codec}_batch"
     score.__doc__ = (f"Every document's score for a query batch through the {codec} "
@@ -152,14 +158,15 @@ def score_bitpack_bucketed(q, packed, device=None):
     block width over that bucket's tight words (:func:`width_buckets`),
     so the bytes read track the true compressed size; every bucket adds
     into one result: f32 [n_docs]."""
-    Q, packed = _prepare(torch.as_tensor(q).reshape(1, -1), packed, "bitpack", device)
-    total = None
-    for b in width_buckets(packed):
-        total = _scan("block_scan_bitpack_w", "bitpack", Q, packed, streams=b.streams,
-                      doc_ids=b.doc_ids, width=b.width, out=total)
-    if total is None:  # a pack of no blocks
-        return torch.zeros(packed.n_docs, dtype=torch.float32, device=Q.device)
-    return total[0]
+    with span("repro_torch.scan"):
+        Q, packed = _prepare(torch.as_tensor(q).reshape(1, -1), packed, "bitpack", device)
+        total = None
+        for b in width_buckets(packed):
+            total = _scan("block_scan_bitpack_w", "bitpack", Q, packed, streams=b.streams,
+                          doc_ids=b.doc_ids, width=b.width, out=total)
+        if total is None:  # a pack of no blocks
+            return torch.zeros(packed.n_docs, dtype=torch.float32, device=Q.device)
+        return total[0]
 
 
 #: codec → (single-query scorer, batch scorer): the counterpart of the

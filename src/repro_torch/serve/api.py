@@ -36,7 +36,9 @@ leading axis. The engine-agnostic surface is:
   ``open_retriever`` on a root that holds ``CURRENT`` opens one.
 
 Every entry point runs on ``cuda`` unless the caller passes
-``device="cpu"`` (``repro_torch.resolve_device``).
+``device="cpu"`` (``repro_torch.resolve_device``). ``Retriever.search``
+is one ``repro_torch.search`` span (``spans.py``) and ``Retriever.build``
+one ``repro_torch.build``, over ``build.pack`` and ``build.place``.
 """
 
 from __future__ import annotations
@@ -54,6 +56,7 @@ from ..core import layout
 from ..core import values as value_codecs
 from ..core.forward_index import VALUE_FORMATS, ForwardIndex
 from ..kernels import modes
+from ..spans import span
 from . import pipeline as serve_pipeline
 
 __all__ = [
@@ -278,7 +281,8 @@ def _to_tensor(a) -> torch.Tensor:
 
 
 def _to_device(arrays: Mapping[str, Any], device: torch.device) -> dict[str, torch.Tensor]:
-    return {k: _to_tensor(v).to(device) for k, v in arrays.items()}
+    with span("repro_torch.build.place"):
+        return {k: _to_tensor(v).to(device) for k, v in arrays.items()}
 
 
 def map_local_ids(idmap: torch.Tensor, ids: torch.Tensor, n_docs_global: int) -> torch.Tensor:
@@ -541,21 +545,22 @@ class Retriever:
         the build returns a ``ShardedRetriever``: one sub-index per
         contiguous doc range, kept on the host until a search admits it."""
         device = resolve_device(device)  # fail before the host build
-        if cfg.n_shards > 1:
-            from .sharded import ShardedRetriever
+        with span("repro_torch.build"):
+            if cfg.n_shards > 1:
+                from .sharded import ShardedRetriever
 
-            return ShardedRetriever.build(fwd, cfg, device=device)
-        impl = get_engine(cfg.engine)
-        layout.get_layout(cfg.codec)
-        return cls(
-            cfg,
-            impl.build_arrays(fwd, cfg),
-            n_docs=fwd.n_docs,
-            dim=fwd.dim,
-            value_scale=float(fwd.value_format.scale),
-            value_format=fwd.value_format.name,
-            device=device,
-        )
+                return ShardedRetriever.build(fwd, cfg, device=device)
+            impl = get_engine(cfg.engine)
+            layout.get_layout(cfg.codec)
+            return cls(
+                cfg,
+                impl.build_arrays(fwd, cfg),
+                n_docs=fwd.n_docs,
+                dim=fwd.dim,
+                value_scale=float(fwd.value_format.scale),
+                value_format=fwd.value_format.name,
+                device=device,
+            )
 
     @classmethod
     def from_host_index(cls, index, cfg: RetrieverConfig, device=None) -> "Retriever":
@@ -586,18 +591,19 @@ class Retriever:
         cache: ``Q`` pads up to its smallest covering bucket (zero
         queries) and that bucket's plan runs; the padding is sliced off.
         ``k`` defaults to ``cfg.k``; a smaller k is a slice."""
-        if k is not None and k > self.cfg.k:
-            raise ValueError(
-                f"k={k} exceeds the static cfg.k={self.cfg.k}; rebuild the "
-                f"Retriever with a larger cfg.k"
-            )
-        Q = torch.as_tensor(Q, dtype=torch.float32)
-        if Q.dim() != 2 or Q.shape[1] != self.dim:
-            raise ValueError(f"queries must be [nq, {self.dim}], got {tuple(Q.shape)}")
-        ids, scores = self.plans.search(Q)
-        if k is None or k == self.cfg.k:
-            return ids, scores
-        return ids[:, :k], scores[:, :k]
+        with span("repro_torch.search"):
+            if k is not None and k > self.cfg.k:
+                raise ValueError(
+                    f"k={k} exceeds the static cfg.k={self.cfg.k}; rebuild the "
+                    f"Retriever with a larger cfg.k"
+                )
+            Q = torch.as_tensor(Q, dtype=torch.float32)
+            if Q.dim() != 2 or Q.shape[1] != self.dim:
+                raise ValueError(f"queries must be [nq, {self.dim}], got {tuple(Q.shape)}")
+            ids, scores = self.plans.search(Q)
+            if k is None or k == self.cfg.k:
+                return ids, scores
+            return ids[:, :k], scores[:, :k]
 
     def pipeline(self, **kw) -> "serve_pipeline.Pipeline":
         """The micro-batching scheduler over this retriever. With no

@@ -72,6 +72,7 @@ import numpy as np
 import torch
 
 from ..kernels import modes, rows_dot
+from ..spans import count, span
 
 if TYPE_CHECKING:  # import cycle: api.py imports this module at runtime
     from .api import Retriever
@@ -210,6 +211,10 @@ class SearchPlan:
     the graph holds (``{"variants": {name: n}, "stages": {stage: n}}``),
     each run at every replay; ``replays`` counts replays, ``pool_bytes``
     the graph memory the capture reserved and ``capture_s`` its seconds.
+    A call's host stages are the spans (``spans.py``)
+    ``repro_torch.plan.copy_in``, ``plan.replay`` and ``plan.copy_out``
+    (``plan.eager`` on the CPU); a capture is ``plan.capture`` and counts
+    in ``spans.counters["plan.captures"]``.
 
     ``lock`` (held across a capture and across each call's copy-in,
     replay and copy-out) and ``pool`` (the graph memory pool) are shared
@@ -257,7 +262,7 @@ class SearchPlan:
     @torch.inference_mode()
     def _capture(self, dim: int, capture_error_mode: str = "global") -> None:
         dev = self._device
-        with torch.cuda.device(dev):
+        with span("repro_torch.plan.capture"), torch.cuda.device(dev):
             Q = torch.zeros((self.key.bucket, dim), dtype=torch.float32, device=dev)
             side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
@@ -291,6 +296,7 @@ class SearchPlan:
                 for part, now in _captured().items()
             }
             self._Q, self._out, self._graph = Q, out, graph
+        count("plan.captures")
 
     @torch.inference_mode()
     def __call__(self, Q) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -299,21 +305,25 @@ class SearchPlan:
         if n > bucket:
             raise ValueError(f"batch of {n} exceeds plan bucket {bucket}")
         if self._device.type != "cuda":
-            Q = Q.to(self._device)
-            if n < bucket:
-                Q = torch.cat([Q, Q.new_zeros((bucket - n, Q.shape[1]))])
-            ids, scores = self._fn(Q)
-            return ids[:n], scores[:n]
+            with span("repro_torch.plan.eager"):
+                Q = Q.to(self._device)
+                if n < bucket:
+                    Q = torch.cat([Q, Q.new_zeros((bucket - n, Q.shape[1]))])
+                ids, scores = self._fn(Q)
+                return ids[:n], scores[:n]
         with self._lock:
             if self._graph is None:
                 self._capture(Q.shape[1])
             with torch.cuda.device(self._device):
-                self._Q[:n].copy_(Q)
-                self._Q[n:].zero_()  # stale rows of an earlier call never leak in
-                self._graph.replay()
+                with span("repro_torch.plan.copy_in"):
+                    self._Q[:n].copy_(Q)
+                    self._Q[n:].zero_()  # stale rows of an earlier call never leak in
+                with span("repro_torch.plan.replay"):
+                    self._graph.replay()
                 self.replays += 1
-                ids, scores = self._out
-                return ids[:n].clone(), scores[:n].clone()
+                with span("repro_torch.plan.copy_out"):
+                    ids, scores = self._out
+                    return ids[:n].clone(), scores[:n].clone()
 
 
 class FacadePlan:
