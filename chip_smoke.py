@@ -522,8 +522,9 @@ _MANGLED = {"f": "f32", "6__half": "f16", "h": "u8", "i": "i32", "a": "i8"}
 def ptxas_report(log_text: str) -> dict[str, list[str]]:
     """ptxas' ``-v`` lines per kernel variant (by template args) and
     stage: rows ``<codec, vq, value storage>`` (query lanes also by the
-    queries a lane, ``/2`` or ``/4``) and block scan ``<code, value
-    storage, seg storage>`` (its resident-query kernel marked)."""
+    queries a lane, ``/2`` or ``/4``), block scan ``<code, value
+    storage, seg storage>`` (its resident-query kernel marked) and the
+    top-k select's two passes (the first by its k bucket)."""
     from repro_torch.kernels import block_scan, rows_dot
     from repro_torch.core.values import VALUE_CODECS
 
@@ -532,8 +533,11 @@ def ptxas_report(log_text: str) -> dict[str, list[str]]:
         rows = re.search(r"rows_dot_(shared_|warp_)?kernelILi(\d)ELi(\d)E(f|6__half|h)?(?:Li(\d)E)?",
                          line)
         scan = re.search(r"block_scan_(resident_)?kernelILi(\d+)E(f|6__half|h)(i|a)E", line)
-        if (rows or scan) and ("Compiling entry" in line or "Function properties" in line):
-            if rows:
+        sel = re.search(r"topk_(chunk|merge)_kernel(?:ILi(\d+)E)?", line)
+        if (rows or scan or sel) and ("Compiling entry" in line or "Function properties" in line):
+            if sel:
+                cur = f"topk_select[{sel[1]}" + (f" K{sel[2]}]" if sel[2] else "]")
+            elif rows:
                 cur = rows_dot.variant_name(rows_dot.CODECS[int(rows[2])],
                                             VALUE_CODECS[int(rows[3])])
                 if rows[4] and VALUE_CODECS[int(rows[3])] == "f16":  # the stored dtype
@@ -5219,6 +5223,80 @@ def family_rank(rank: int, world: int, d: str) -> None:
     (pathlib.Path(d) / "out.json").write_text(json.dumps(out))
 
 
+#: the flat cell's top-k: 128 queries over 1,000,000 documents and the sentinel row
+TOPK_SHAPE = (128, 1_000_001, 10)
+
+
+def topk_phase(card: str) -> dict:
+    """The top-k select kernel at the flat cell's shape (``TOPK_SHAPE``, the
+    sentinel column masked): ids equal to the stable sort's and values bit
+    for bit on inputs full of ties, then its device time beside its byte
+    bound (one read of the scores at 3.35 TB/s), its plain version (the
+    mask and the stable sort, the flat engine's former path) and
+    ``torch.topk`` (the library yardstick; the port never calls it)."""
+    from repro_torch.kernels import topk
+
+    dev = torch.device("cuda")
+    nq, n_cols, k = TOPK_SHAPE
+    n_valid = n_cols - 1
+    g = torch.Generator(dev).manual_seed(0)
+    shape = (nq, n_cols)
+
+    def pick(*choices):
+        c = torch.tensor(choices, dtype=torch.float32, device=dev)
+        return c[torch.randint(0, len(c), shape, generator=g, device=dev)]
+
+    ramp = torch.arange(n_cols, dtype=torch.float32, device=dev).expand(shape)
+    inputs = {
+        "random": lambda: torch.randn(shape, generator=g, device=dev),
+        "few_values": lambda: pick(0.0, 1.0, 2.0),
+        "all_equal": lambda: torch.full(shape, 0.5, device=dev),
+        "ascending": lambda: ramp.contiguous(),
+        "descending": lambda: (-ramp).contiguous(),
+        "infinities": lambda: pick(float("inf"), float("-inf"), 1.0, -1.0),
+        "signed_zeros": lambda: pick(0.0, -0.0, 1.0, -1.0),
+        "nan": lambda: pick(float("nan"), float("inf"), 0.0, float("-inf")),
+    }
+    log(f"[2c] top-k select kernel at [{nq}, {n_cols}], k {k}, n_valid {n_valid}:")
+    for name, make in inputs.items():
+        scores = make()
+        values, idx = topk.select_topk(scores, k, n_valid)
+        want_v, want_i = topk.masked_top_k(scores, k, n_valid)
+        bitwise(f"top-k select on {name} against the stable sort", (idx, values),
+                (want_i, want_v))
+    log(f"  ids == stable sort, values bit for bit, on {list(inputs)}")
+    # the worst case beside the typical one: on ascending rows every element beats
+    # the threshold, so every step of a chunk merges
+    rising = inputs["ascending"]()
+    ascending_ms = cuda_ms(lambda: topk.select_topk(rising, k, n_valid), 20)
+    del rising
+    scores = inputs["random"]()
+    ms = cuda_ms(lambda: topk.select_topk(scores, k, n_valid), 50)
+    plain_ms = cuda_ms(lambda: topk.masked_top_k(scores, k, n_valid), 10)
+    lib_ms = cuda_ms(lambda: torch.topk(scores, k, dim=-1), 20)
+    if not torch.equal(topk.select_topk(scores, k, n_valid)[0],
+                       torch.topk(scores[:, :n_valid], k, dim=-1).values):
+        raise SystemExit("top-k select: values differ from torch.topk's")
+    bound_ms = nq * n_cols * 4 / 3.35e12 * 1e3
+    log(f"  select {ms:.4f} ms on random rows ({topk.chunks(nq, n_cols, k, dev)} chunks a row), "
+        f"{ascending_ms:.4f} ms on ascending rows, bound {bound_ms:.4f} ms by bytes "
+        f"({100 * bound_ms / ms:.1f}%), plain (mask + stable sort) {plain_ms:.4f} ms, "
+        f"torch.topk {lib_ms:.4f} ms ({card})")
+    return {
+        "name": "topk_select",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/topk_select.cu",
+        "replaces": None,
+        "ms": ms,
+        "ascending_ms": ascending_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes",
+        "library_ms": lib_ms,
+        "at_shape": list(TOPK_SHAPE),
+    }
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description="smoke run of the port on one GPU")
     ap.add_argument("--n-docs", type=int, default=60_000,
@@ -5250,7 +5328,7 @@ def main() -> int:
     from repro_torch.core.layout import pack_blocks, pack_rows
     from repro_torch.core.seismic import exact_top_k, recall_at_k
     from repro_torch.data.synthetic import generate_collection, splade_config
-    from repro_torch.kernels import build, rows_dot
+    from repro_torch.kernels import build, rows_dot, topk
     from repro_torch.serve.api import Retriever, RetrieverConfig, get_engine, open_retriever
 
     dev = torch.device("cuda")
@@ -5419,6 +5497,11 @@ def main() -> int:
     del Qwb
     phase_s["2b block scan vs plain"] = time.perf_counter() - t0
 
+    # -- 2c. the top-k select kernel at the flat cell's shape --------------------------
+    t0 = time.perf_counter()
+    topk_rec = topk_phase(card)
+    phase_s["2c top-k select"] = time.perf_counter() - t0
+
     # -- 14. the LM family, in a rank of its own beside phase 3's host build ----------
     lm_job = lm_phase_start()
     log("[14] the LM family, then [15] the GNN and RecSys families, started in a spawned "
@@ -5463,6 +5546,7 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f}s; engine arrays: "
         + ", ".join(f"{k}{list(v.shape)}" for k, v in engine_arrays.items()))
     flat, results, per_search, row_bytes = {}, {}, {}, {}
+    topk_path = {"searches": 0, "launches": 0, "captured_launches": 0}
     for codec, vq in variants:
         t1 = time.perf_counter()
         if (codec, vq) == ("dotvbyte", "f16"):
@@ -5484,11 +5568,14 @@ def main() -> int:
         pack_s = time.perf_counter() - t1
         name = names[codec, vq]
         # a first search warms its plan eagerly (wrapper counts), captures it (the
-        # plan's record) and replays it: the record must be the warm-up's launches
+        # plan's record) and replays it: the record must be the warm-up's launches;
+        # the flat search's top k is one select launch in the warm-up and one in the
+        # graph, Seismic's none
         for engine, ret in (("seismic", seismic[codec, vq]), ("flat", flat.get((codec, vq)))):
             if ret is None:
                 continue
             before = rows_dot.variant_launches[name]
+            topk.reset_launches()
             results[engine, codec, vq] = ret.search(Q)
             torch.cuda.synchronize()
             warm = rows_dot.variant_launches[name] - before
@@ -5497,12 +5584,22 @@ def main() -> int:
             if warm != per_search[engine, codec, vq] or plan.replays != 1:
                 raise SystemExit(f"{engine} {name}: the warm-up launched {warm}, the captured "
                                  f"plan holds {plan.launches} ({plan.replays} replays)")
+            selects = (topk.launches, topk.captured_launches)
+            if selects != ((1, 1) if engine == "flat" else (0, 0)):
+                raise SystemExit(f"{engine} {name}: the search made {selects[0]} eager and "
+                                 f"{selects[1]} captured top-k select launches")
+            if engine == "flat":
+                topk_path["searches"] += 1
+                topk_path["launches"] += selects[0]
+                topk_path["captured_launches"] += selects[1]
         log(f"    {name:28s} rows packed + placed in {pack_s:.1f}s, "
             f"{row_bytes[codec, vq] / 2**20:.1f} MiB on the card")
     launches, rows_stage_launches = path_launches([*seismic.values(), *flat.values()], {})
     log("    main path launches (warm-ups + graph replays): "
         + ", ".join(f"{names[v]}={launches[names[v]]}" for v in variants)
-        + "; by stage " + ", ".join(f"{k}={v}" for k, v in rows_stage_launches.items()))
+        + "; by stage " + ", ".join(f"{k}={v}" for k, v in rows_stage_launches.items())
+        + f"; top-k select over {topk_path['searches']} flat searches "
+        f"{topk_path['launches']} eager + {topk_path['captured_launches']} captured")
     missing = [names[v] for v in variants if launches[names[v]] <= 0]
     if missing:
         raise SystemExit(f"the main path did not launch {missing}")
@@ -5769,7 +5866,10 @@ def main() -> int:
     # -- 16. summary ------------------------------------------------------------
     log("phases: " + ", ".join(f"{k} {v:.1f}s" for k, v in phase_s.items()))
     log(f"ported kernels: {n_rows} rows_dot variants and {len(kernels) - n_rows} block-scan "
-        f"entries ok; total {time.perf_counter() - t_start:.0f}s")
+        f"entries ok; the top-k select kernel ok; total {time.perf_counter() - t_start:.0f}s")
+    topk_rec.update(launches=topk_path["launches"], captured_launches=topk_path["captured_launches"],
+                    launches_per_search=1, searches=topk_path["searches"])
+    kernels.append(topk_rec)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -43,7 +43,7 @@ _CSRC = pathlib.Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 
 #: every kernel source of the port, by name
-SOURCES = ("rows_dot", "block_scan")
+SOURCES = ("rows_dot", "block_scan", "topk_select")
 
 #: shared memory one thread block may opt into on the card the kernels
 #: are built for (sm_90: 227 KB); the stages that hold a query in shared

@@ -56,6 +56,7 @@ from ..core import layout
 from ..core import values as value_codecs
 from ..core.forward_index import VALUE_FORMATS, ForwardIndex
 from ..kernels import modes
+from ..kernels.topk import top_k
 from ..spans import span
 from . import pipeline as serve_pipeline
 
@@ -122,20 +123,6 @@ class RetrieverConfig:
 
     def replace(self, **kw) -> "RetrieverConfig":
         return dataclasses.replace(self, **kw)
-
-
-def top_k(scores: torch.Tensor, k: int):
-    """(values, indices) of the ``k`` largest entries along the last
-    axis, ties broken toward the lower index as ``jax.lax.top_k`` does
-    (a stable descending sort; ``torch.topk`` promises no tie order).
-    A ``k`` larger than the axis raises ``ValueError``, as it does there."""
-    if k > scores.shape[-1]:
-        raise ValueError(
-            f"k argument to top_k must be no larger than size along axis; got k={k} "
-            f"with shape={list(scores.shape)} and axis={scores.dim() - 1}"
-        )
-    vals, idx = torch.sort(scores, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
 
 
 class EngineImpl:

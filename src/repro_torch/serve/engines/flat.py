@@ -6,7 +6,11 @@ the global top-k. It is the recall oracle, computed through the same
 decode path the approximate engines use. The batch shares one candidate
 set (all rows), so ``search_batch`` decodes each row once and scores
 the whole query batch against it (``score_candidate_rows_batch``; the
-CUDA rows kernel with ``nd = 1`` under ``backend="cuda"``). A shard of a
+CUDA rows kernel with ``nd = 1`` under ``backend="cuda"``), then selects
+the top k: under ``backend="cuda"`` with the top-k select kernel
+(``kernels/topk.py``) for ``k`` up to ``topk.MAX_K``, otherwise with a
+stable sort (counted in ``spans.counters["topk.sorts"]`` under
+``backend="cuda"``). A shard of a
 sharded tree packs its rows straight from the doc range
 (``build_shard``); the mesh's stacked shards (``shard_build``) are
 contiguous ranges padded to one local size.
@@ -20,7 +24,9 @@ import torch
 from ...core import layout
 from ...core.forward_index import ForwardIndex
 from ...core.scoring import score_candidate_rows_batch
-from ..api import EngineImpl, RetrieverConfig, register_engine, row_array_specs, top_k
+from ...kernels import topk
+from ...spans import count
+from ..api import EngineImpl, RetrieverConfig, register_engine, row_array_specs
 
 __all__ = ["FlatEngine"]
 
@@ -43,8 +49,12 @@ class FlatEngine(EngineImpl):
         scores = score_candidate_rows_batch(
             cfg.codec, arrays, docs, Q, value_scale, backend=cfg.backend
         )
-        scores = scores.masked_fill(docs.unsqueeze(0) >= n_docs, float("-inf"))
-        top_s, idx = top_k(scores, cfg.k)
+        if cfg.backend == "cuda" and cfg.k <= topk.MAX_K:
+            top_s, idx = topk.select_topk(scores, cfg.k, n_docs)
+        else:
+            if cfg.backend == "cuda":
+                count("topk.sorts")
+            top_s, idx = topk.masked_top_k(scores, cfg.k, n_docs)
         return docs[idx], top_s
 
     def array_specs(self, cfg: RetrieverConfig, *, n_docs: int, l_max: int, d_max: int,

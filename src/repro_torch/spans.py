@@ -16,8 +16,8 @@ port spends its host time, and how often the rare events of set-up
   on the profiler's timeline beside the device operations.
 * :func:`count` — counters of rare events; they always count.
 * :func:`snapshot` — the spans, the counters, and the kernels' own
-  launch counters (``kernels/rows_dot.py``, ``kernels/block_scan.py``)
-  read where they live.
+  launch counters (``kernels/rows_dot.py``, ``kernels/block_scan.py``,
+  ``kernels/topk.py``) read where they live.
 * :func:`summary` — for each span name its count, total µs and self µs
   (the span less what its child spans cover).
 
@@ -42,7 +42,8 @@ __all__ = ["MAX_SPANS", "Span", "span", "recording", "count", "counters", "reset
 MAX_SPANS = 1 << 16
 
 #: rare events, by name; they always count (``plan.captures``,
-#: ``kernels.loads``, ``kernels.compiles``)
+#: ``kernels.loads``, ``kernels.compiles``; ``topk.selects`` and
+#: ``topk.sorts``, the flat engine's two top-k paths, once a call or capture)
 counters: dict[str, int] = {}
 
 _recording = False
@@ -161,9 +162,9 @@ def reset() -> None:
 def snapshot() -> dict:
     """``spans`` (closed ones, as :class:`Span`, parents re-indexed into
     this list), ``dropped``, ``counters``, and ``launches``: the launch
-    counters of ``kernels/rows_dot.py`` and ``kernels/block_scan.py`` as
-    they read now."""
-    from .kernels import block_scan, rows_dot
+    counters of ``kernels/rows_dot.py``, ``kernels/block_scan.py`` and
+    ``kernels/topk.py`` as they read now."""
+    from .kernels import block_scan, rows_dot, topk
 
     with _lock:
         rows = [list(s) for s in _store]
@@ -181,6 +182,7 @@ def snapshot() -> dict:
                        "variants": dict(block_scan.variant_launches),
                        "fused": dict(block_scan.fused_launches),
                        "stages": dict(block_scan.stage_launches)},
+        "topk": {"launches": topk.launches, "captured_launches": topk.captured_launches},
     }
     return {"spans": spans, "dropped": dropped, "counters": counts, "launches": launches}
 

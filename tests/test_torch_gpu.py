@@ -1,7 +1,7 @@
 """The CUDA kernels against their plain torch versions, on the card: the
 rows kernel for every row codec × value codec and stored value format,
-and the block-scan kernel for every codec, static width, value storage
-and seg dtype; and the paths above them (serving, shards, mutation, the
+the block-scan kernel for every codec, static width, value storage
+and seg dtype, and the top-k select kernel against the stable sort; and the paths above them (serving, shards, mutation, the
 encoder, the mesh, the configs, the LM family) on the card.
 
 Every test here carries the ``gpu`` marker and skips where no CUDA GPU
@@ -18,10 +18,10 @@ import torch
 
 from repro_torch.core import layout, scoring
 from repro_torch.core.codecs.bitpack import pack_block
-from repro_torch.core.forward_index import ForwardIndex
+from repro_torch.core.forward_index import VALUE_FORMATS, ForwardIndex
 from repro_torch.core.layout import pack_rows
-from repro_torch.kernels import block_scan, ops, rows_dot
-from torch_cases import VARIANTS, candidates, edge_docs, wide_docs
+from repro_torch.kernels import block_scan, ops, rows_dot, topk
+from torch_cases import VARIANTS, candidates, edge_docs, reference_top_k, wide_docs
 
 pytestmark = pytest.mark.gpu
 
@@ -2098,3 +2098,141 @@ def test_family_smoke_on_the_card_matches_the_cpu(cuda, arch_id):
     key = "losses" if arch_id == "gat-cora" else "loss"
     np.testing.assert_allclose(card[key], cpu[key], rtol=1e-4)
 
+
+
+# -- the top-k select kernel (kernels/topk.py) ----------------------------------------
+
+#: rows of each family, made on the card: ties of every kind the order has to settle
+TOPK_FAMILIES = ("random", "few_values", "all_equal", "ascending", "descending", "infinities",
+                 "signed_zeros", "nan")
+_TOPK_CHOICES = {"few_values": (0.0, 1.0, 2.0), "infinities": (np.inf, -np.inf, 1.0, -1.0),
+                 "signed_zeros": (0.0, -0.0, 1.0, -1.0),
+                 "nan": (np.nan, -np.nan, np.inf, 0.0, -np.inf)}
+
+
+def topk_family(name, nq, n_cols, device, seed=0):
+    g = torch.Generator(device).manual_seed(seed)
+    if name == "random":
+        return torch.randn((nq, n_cols), generator=g, device=device)
+    if name == "all_equal":
+        return torch.full((nq, n_cols), 0.5, device=device)
+    if name in ("ascending", "descending"):
+        ramp = torch.arange(n_cols, dtype=torch.float32, device=device)
+        return (ramp if name == "ascending" else -ramp).expand(nq, n_cols).contiguous()
+    choices = torch.tensor(_TOPK_CHOICES[name], dtype=torch.float32, device=device)
+    return choices[torch.randint(0, len(choices), (nq, n_cols), generator=g, device=device)]
+
+
+def assert_same_top(got, scores, k, n_valid):
+    """``got`` is the first k of the stable descending sort of the masked
+    scores, a NaN with its sign bit set last, as ``jax.lax.top_k`` puts it
+    (``torch_cases.reference_top_k``): ids equal, values bit for bit."""
+    (values, idx), (want_v, want_i) = got, reference_top_k(scores, k, n_valid)
+    assert values.dtype == torch.float32 and idx.dtype == torch.int32
+    assert torch.equal(idx, want_i.to(torch.int32))
+    assert torch.equal(values.view(torch.int32), want_v.view(torch.int32))
+
+
+@pytest.mark.parametrize("name", TOPK_FAMILIES)
+@pytest.mark.parametrize("nq,n_cols,k,n_valid", [
+    (3, 7, 1, 7), (3, 7, 5, 3), (3, 7, 7, 0),
+    (128, 1_000_001, 10, 1_000_000), (128, 1_000_001, topk.MAX_K, 1_000_001),
+    (128, 1_000_001, 64, 9), (5, 300_003, 100, 200_000),
+])
+def test_topk_kernel_is_the_stable_sort(cuda, name, nq, n_cols, k, n_valid):
+    """The kernel's ids equal the stable sort's element for element and its
+    values bit for bit, on the flat cell's shape and a small one."""
+    scores = topk_family(name, nq, n_cols, cuda)
+    if name == "nan":  # NaNs of both signs
+        nans = scores.view(torch.int32)[torch.isnan(scores)]
+        assert bool((nans < 0).any()) and bool((nans >= 0).any())
+    before = topk.launches
+    got = topk.select_topk(scores, k, n_valid)
+    torch.cuda.synchronize()
+    assert topk.launches == before + 1
+    assert_same_top(got, scores, k, n_valid)
+
+
+@pytest.mark.parametrize("nq,n_cols,k,want", [
+    (128, 1_000_001, 10, 8),  # the flat cell: 8 blocks an SM over the 128 rows
+    (100, 1_000_001, 10, 10),
+    (1, 1_000_001, 10, 244),  # chunks of at least 4,096 columns
+    (1, 10_000_000, 10, 409),  # at most 4,096 keys for pass 2
+    (1, 10_000_000, 256, 16),
+    (3, 7, 5, 1),
+    (4096, 1_000_001, 10, 1),
+])
+def test_topk_chunks(cuda, nq, n_cols, k, want):
+    """The source's chunk rule for the card's SM count (132 on an H100 SXM)."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    S = topk.chunks(nq, n_cols, k, cuda)
+    assert S == max(1, min(8 * sms // nq, n_cols // 4096, 4096 // k))
+    if sms == 132:
+        assert S == want
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_topk_kernel_on_rows_off_16_bytes(cuda, offset):
+    """A tensor starting 4, 8 or 12 bytes past a 16-byte boundary: every
+    row's stray columns go to chunk 0."""
+    base = topk_family("few_values", 1, 9 * 4099 + offset, cuda, seed=offset)
+    scores = base[0, offset:].view(9, 4099)
+    assert scores.data_ptr() % 16 == 4 * offset
+    assert_same_top(topk.select_topk(scores, 16, 4098), scores, 16, 4098)
+
+
+def test_topk_kernel_under_graph_replay(cuda):
+    """Captured into a CUDA graph and replayed, the kernel gives the eager
+    result, and follows new scores written into the captured input."""
+    scores = topk_family("few_values", 128, 1_000_001, cuda)
+    eager = topk.select_topk(scores, 10, 1_000_000)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm the launch outside the capture
+        topk.select_topk(scores, 10, 1_000_000)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = (topk.launches, topk.captured_launches)
+    with torch.cuda.graph(graph):
+        out = topk.select_topk(scores, 10, 1_000_000)
+    assert (topk.launches, topk.captured_launches) == (before[0], before[1] + 1)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out[1], eager[1]) and torch.equal(out[0], eager[0])
+    assert_same_top(out, scores, 10, 1_000_000)
+    scores.copy_(topk_family("signed_zeros", 128, 1_000_001, cuda, seed=1))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert_same_top(out, scores, 10, 1_000_000)
+
+
+def test_flat_retriever_selects_on_the_card(cuda):
+    """The flat engine's ``Retriever.search`` under ``backend="cuda"`` over
+    100,000 documents equals ``backend="torch"``'s ids and scores, with
+    the select kernel in bucket 64's graph and no sort. Values and queries
+    are small integers, so every score is exact whatever the order of its
+    sums, and ties are many."""
+    from repro_torch import spans
+    from repro_torch.serve.api import Retriever, RetrieverConfig
+
+    rng = np.random.default_rng(0)
+    n_docs, dim = 100_000, 30522
+    nnz = rng.integers(0, 40, n_docs)
+    offsets = np.concatenate([[0], np.cumsum(nnz)]).astype(np.int64)
+    comps = np.concatenate([np.sort(rng.choice(dim, n, replace=False)) for n in nnz])
+    fwd = ForwardIndex(components=comps.astype(np.uint32),
+                       values=rng.integers(1, 4, offsets[-1]).astype(np.float16),
+                       offsets=offsets, dim=dim, value_format=VALUE_FORMATS["f16"])
+    Q = (rng.random((64, dim)) < 0.01) * rng.integers(1, 3, (64, dim))
+    got = {}
+    for backend in ("torch", "cuda"):
+        r = Retriever.build(fwd, RetrieverConfig(engine="flat", codec="dotvbyte", k=10,
+                                                 backend=backend), device=cuda)
+        counts = {c: spans.counters.get(c, 0) for c in ("topk.selects", "topk.sorts")}
+        got[backend] = r.search(Q.astype(np.float32))
+        torch.cuda.synchronize()
+        selects = spans.counters.get("topk.selects", 0) - counts["topk.selects"]
+        assert (selects > 0) == (backend == "cuda")
+        assert spans.counters.get("topk.sorts", 0) == counts["topk.sorts"]
+    assert torch.equal(got["torch"][0], got["cuda"][0])
+    assert torch.equal(got["torch"][1], got["cuda"][1])

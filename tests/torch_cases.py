@@ -63,3 +63,19 @@ def candidates(n_docs, rng, shape):
     docs = rng.integers(0, n_docs + 1, size=shape).astype(np.int32)
     docs[:, :5] = [n_docs, EMPTY, EMPTY2, FULL, ONE_BYTE]
     return docs
+
+
+def reference_top_k(scores, k, n_valid):
+    """(values, int64 ids) of the first ``k`` of each row of ``scores``
+    with the columns ``>= n_valid`` set to ``-inf``, in the order
+    ``jax.lax.top_k`` gives them, but with ``-0.0`` tied to ``+0.0``: a
+    stable descending sort, then every NaN whose sign bit is set moved,
+    in column order, below ``-inf``. Plain torch, on either device."""
+    cols = torch.arange(scores.shape[-1], device=scores.device)
+    masked = scores.masked_fill(cols >= n_valid, float("-inf"))
+    neg_nan = torch.isnan(masked) & (masked.view(torch.int32) < 0)
+    _, order = torch.sort(masked.masked_fill(neg_nan, float("-inf")), dim=-1, descending=True,
+                          stable=True)
+    _, last = torch.sort(neg_nan.gather(-1, order).to(torch.uint8), dim=-1, stable=True)
+    idx = order.gather(-1, last)[..., :k]
+    return masked.gather(-1, idx), idx
